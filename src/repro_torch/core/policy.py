@@ -1,0 +1,109 @@
+"""ExecutionPolicy, the a-priori deployment plan; port of
+``repro/core/policy.py``.
+
+``backend`` keys the kernel registry (``kernels/dispatch.py``).  The
+collective, KV-cache layout and device mesh exist only in their
+single-device forms so far; any other value raises ``ValueError`` naming
+the slice of ``ROADMAP.md`` that ports it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelTiling:
+    """Tiling knobs of the CUDA dequant-GEMM.  None yet: the kernel picks
+    its K step (``dequant_matmul.pick_block_k``), row tile and K split
+    from the shape and the card."""
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecutionPolicy:
+    """The runtime execution contract for a quantized deployment."""
+
+    scheme: str = "tp-aware"
+    backend: str = "torch"          # key into kernels.dispatch registry
+    compute_dtype: Any = torch.float32
+    accum_dtype: Any = torch.float32
+    collective: str = "psum"
+    tiling: KernelTiling = KernelTiling()
+    kv: Any = None
+    mesh: Any = None
+
+    def __post_init__(self):
+        from repro_torch.core.reorder import SCHEMES
+
+        if self.scheme not in SCHEMES:
+            raise ValueError(
+                f"unknown scheme {self.scheme!r}, expected one of {SCHEMES}")
+        for field in ("compute_dtype", "accum_dtype"):
+            dt = getattr(self, field)
+            if isinstance(dt, str):
+                if dt not in _DTYPES:
+                    raise ValueError(f"unknown {field} {dt!r}, expected one "
+                                     f"of {sorted(_DTYPES)}")
+                object.__setattr__(self, field, _DTYPES[dt])
+        if self.accum_dtype != torch.float32:
+            raise ValueError("the dequant-GEMMs accumulate in float32 only, "
+                             f"got accum_dtype={self.accum_dtype}")
+        if self.collective != "psum":
+            raise ValueError(
+                f"collective {self.collective!r} is not ported yet: only "
+                "'psum' (a no-op on one device) exists until the TP slice "
+                "(ROADMAP.md queue 1, item 6)")
+        if self.kv not in (None, "dense"):
+            raise ValueError(
+                f"KV-cache layout {self.kv!r} is not ported yet: only the "
+                "dense cache exists until the serving-stack slice "
+                "(ROADMAP.md queue 1, item 7)")
+        if self.mesh is not None:
+            raise ValueError(
+                f"mesh {self.mesh!r} is not ported yet: the port runs on one "
+                "device until the distributed-runtime slice (ROADMAP.md "
+                "queue 1, item 9)")
+
+    def with_(self, **kw) -> "ExecutionPolicy":
+        return dataclasses.replace(self, **kw)
+
+    @classmethod
+    def auto(cls, scheme: str = "tp-aware", *,
+             device: Optional[torch.device] = None,
+             **overrides) -> "ExecutionPolicy":
+        """The CUDA kernel for ordered layouts whose tensors live on the
+        card, else the plain ``torch`` path (mirrors the reference's
+        pallas-on-TPU rule)."""
+        on_cuda = device is not None and torch.device(device).type == "cuda"
+        ordered = scheme != "naive-actorder"
+        backend = "cuda" if (on_cuda and ordered) else "torch"
+        return cls(scheme=scheme, backend=backend, **overrides)
+
+    @classmethod
+    def from_config(cls, cfg, *, device: Optional[torch.device] = None
+                    ) -> "ExecutionPolicy":
+        """The plan recorded in a ``ModelConfig`` (its ``quant``) or a
+        ``QuantConfig``; ``backend="auto"`` resolves for ``device``."""
+        qc = getattr(cfg, "quant", cfg)
+        kv = ("dense" if qc.kv_page_size is None and qc.kv_bits is None
+              else f"paged:{qc.kv_page_size}:{qc.kv_bits}")
+        kw = dict(compute_dtype=qc.compute_dtype, collective=qc.collective,
+                  kv=kv)
+        if qc.backend == "auto":
+            return cls.auto(qc.scheme, device=device, **kw)
+        return cls(scheme=qc.scheme, backend=qc.backend, **kw)
+
+
+DEFAULT_POLICY = ExecutionPolicy()
+
+
+def resolve_policy(policy: Optional[ExecutionPolicy] = None
+                   ) -> ExecutionPolicy:
+    """``policy`` if given, else the defaults."""
+    return policy if policy is not None else DEFAULT_POLICY

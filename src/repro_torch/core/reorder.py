@@ -1,0 +1,117 @@
+"""Offline reordering plans (paper Algorithm 1 and the TP-aware fold);
+port of ``repro/core/reorder.py``.
+
+Schemes: ``naive-actorder`` (original rows + ``g_idx`` gather),
+``exllama`` (Algorithm-1 sorted rows, runtime P2 permute) and ``tp-aware``
+(Algorithm 3: P2 folded offline into the column-TP weights).  The port
+runs a pair on one device; the TP path follows in a later slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.core import quantization as qz
+from repro_torch.core.quantization import QuantizedLinear
+
+SCHEMES = ("naive-actorder", "exllama", "tp-aware")
+
+
+@dataclasses.dataclass(frozen=True)
+class PlannedPair:
+    """A column-TP -> row-TP quantized GEMM pair, deployment-ready.
+
+    ``gate`` is the optional second column-TP matrix of a SwiGLU pair;
+    ``p1_gate`` None means the gate shares ``p1_up``'s gather.
+    """
+
+    up: QuantizedLinear                    # (K1, N1)
+    gate: Optional[QuantizedLinear]        # (K1, N1)
+    down: QuantizedLinear                  # (N1, N2)
+    p1_up: Optional[torch.Tensor]          # (K1,) X-gather perm
+    p1_gate: Optional[torch.Tensor]
+    p2: Optional[torch.Tensor]             # (N1,) down-rows perm
+    scheme: str
+
+    def forward(self, x: torch.Tensor, policy=None, *,
+                activation: Optional[str] = None) -> torch.Tensor:
+        """Run the pair on one device under ``policy`` (an
+        ``ExecutionPolicy``; None = defaults)."""
+        from repro_torch.core import schemes
+
+        return schemes.pair_forward_reference(x, self, policy,
+                                              activation=activation)
+
+
+@dataclasses.dataclass(frozen=True)
+class PairBundle:
+    """Quantize-stage output for one pair: every layout, no scheme yet."""
+
+    up: qz.QuantResult
+    gate: Optional[qz.QuantResult]
+    down: qz.QuantResult
+
+
+def quantize_pair(
+    w_up: torch.Tensor,
+    w_down: torch.Tensor,
+    *,
+    w_gate: Optional[torch.Tensor] = None,
+    group_size_up: int = 128,
+    group_size_down: int = 128,
+    act_order: bool = True,
+    generator: Optional[torch.Generator] = None,
+) -> PairBundle:
+    """Compiler stage 1 for one pair: quantize, no layout decision yet.
+
+    The gate is quantized in the up matrix's processing order (the
+    reference's default ``share_p1``), so the runtime gathers ``X[:, P1]``
+    once for both.  Up's and down's orders are drawn from ``generator``.
+    """
+    k1, n1 = w_up.shape
+    n1_d, _ = w_down.shape
+    if n1_d != n1:
+        raise ValueError(f"pair mismatch: up is {tuple(w_up.shape)}, "
+                         f"down is {tuple(w_down.shape)}")
+    if w_gate is not None and tuple(w_gate.shape) != (k1, n1):
+        raise ValueError(f"gate shape {tuple(w_gate.shape)} != up shape "
+                         f"{(k1, n1)}")
+
+    q_up = qz.quantize(w_up, group_size_up, act_order, generator=generator)
+    q_down = qz.quantize(w_down, group_size_down, act_order,
+                         generator=generator)
+    q_gate = None
+    if w_gate is not None:
+        q_gate = qz.quantize(w_gate, group_size_up, act_order,
+                             proc_order=q_up.perm)
+    return PairBundle(up=q_up, gate=q_gate, down=q_down)
+
+
+def layout_pair(bundle: PairBundle, scheme: str = "tp-aware") -> PlannedPair:
+    """Compiler stage 2 for one pair: pick the deployment layout."""
+    if scheme not in SCHEMES:
+        raise ValueError(f"unknown scheme {scheme!r}, expected one of "
+                         f"{SCHEMES}")
+    q_up, q_gate, q_down = bundle.up, bundle.gate, bundle.down
+
+    if scheme == "naive-actorder":
+        return PlannedPair(
+            up=q_up.naive, gate=(q_gate.naive if q_gate else None),
+            down=q_down.naive, p1_up=None, p1_gate=None, p2=None,
+            scheme=scheme)
+
+    p2 = q_down.perm
+    up = q_up.ordered
+    gate = q_gate.ordered if q_gate else None
+    if scheme == "tp-aware":
+        # Algorithm 3: permute the column-TP layers' columns by P2 so Y1
+        # comes out aligned with down's sorted rows
+        up = qz.permute_columns(up, p2)
+        if gate is not None:
+            gate = qz.permute_columns(gate, p2)
+    # p1_gate None: the gate shares p1_up's gather
+    return PlannedPair(up=up, gate=gate, down=q_down.ordered,
+                       p1_up=q_up.perm, p1_gate=None, p2=p2, scheme=scheme)

@@ -1,0 +1,91 @@
+"""Serving entry point of the port; port of ``repro/launch/serve.py``
+(the one-shot, in-memory lifecycle).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
+        [--smoke] [--scheme tp-aware] [--backend auto|cuda|torch|ref] \
+        [--requests 8 --max-new 16 --prompt-budget 32 --max-batch 4 \
+         --temperature 0.8 --seed 0] [--device cpu]
+
+Runs on the CUDA card unless ``--device cpu`` is given; without a card it
+exits with an error naming the missing card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.core.reorder import SCHEMES
+from repro_torch.device import resolve_device
+from repro_torch.runtime.sampling import SamplingConfig
+from repro_torch.runtime.scheduler import Request, Scheduler
+from repro_torch.runtime.serve import make_engine
+
+
+def _build_cfg(args):
+    cfg = (get_smoke_config(args.arch) if args.smoke
+           else get_config(args.arch))
+    return cfg.with_quant(mode="mlp", scheme=args.scheme,
+                          backend=args.backend)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="repro_torch.launch.serve")
+    ap.add_argument("--arch", default="qwen3-4b", choices=ARCH_IDS)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--scheme", default="tp-aware", choices=SCHEMES)
+    ap.add_argument("--backend", default="auto",
+                    choices=["auto", "cuda", "torch", "ref"],
+                    help="dequant-GEMM kernel (auto: cuda for ordered "
+                         "layouts on the card, else torch)")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--prompt-budget", type=int, default=32)
+    ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--temperature", type=float, default=0.8)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+    args = ap.parse_args(argv)
+
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        raise SystemExit(f"error: {e}") from None
+    cfg = _build_cfg(args)
+    max_seq = args.prompt_budget + args.max_new + 1
+    engine = make_engine(cfg, args.seed, device=device, max_seq=max_seq)
+    policy = engine.policy
+    sched = Scheduler(engine, max_batch=args.max_batch,
+                      prompt_budget=args.prompt_budget,
+                      scfg=SamplingConfig(temperature=args.temperature,
+                                          top_k=40),
+                      seed=args.seed)
+
+    rng = np.random.default_rng(args.seed)
+    t0 = time.perf_counter()
+    for i in range(args.requests):
+        plen = int(rng.integers(4, args.prompt_budget))
+        sched.submit(Request(
+            rid=i,
+            prompt=rng.integers(0, cfg.vocab_size, size=plen).astype(np.int32),
+            max_new_tokens=args.max_new))
+    done = sched.run()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    total_new = sum(len(r.output) for r in done.values())
+    for rid, r in sorted(done.items()):
+        print(f"req {rid}: prompt {len(r.prompt):3d} -> {r.output[:8]}...")
+    print(f"\n{len(done)} requests, {total_new} tokens in {dt:.1f}s "
+          f"({total_new / dt:.1f} tok/s) [scheme={policy.scheme} "
+          f"backend={policy.backend} device={device} in-memory plan]")
+    return done
+
+
+if __name__ == "__main__":
+    main()

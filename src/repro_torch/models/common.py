@@ -1,0 +1,325 @@
+"""Shared model substrate (dense subset); port of ``repro/models/common.py``.
+
+Params are plain dicts of tensors, one dict per layer (the reference
+stacks layers along a leading L dim for ``lax.scan``).  Where the
+reference passes a ``ParallelContext``, the port passes the
+``ExecutionPolicy`` alone: it runs on one device.
+
+Dtypes follow what JAX reaches: activations enter a layer in bf16
+(``cfg.dtype``), every product with an f32 weight promotes to f32, and
+the layer's output is cast back to the carry dtype.  Torch's ``matmul``
+does not promote mixed dtypes (JAX does), so ``promoted`` makes those
+casts explicit.  Elementwise ops promote the same way in both.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import schemes
+from repro_torch.core.policy import ExecutionPolicy
+from repro_torch.core.reorder import PlannedPair
+
+
+def promoted(*ts: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Cast tensors to their common dtype, as JAX promotes ``a @ b``."""
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return tuple(t.to(dt) for t in ts)
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` under JAX's type promotion (bf16 @ f32 -> f32)."""
+    a, b = promoted(a, b)
+    return a @ b
+
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, shape, scale: Optional[float] = None,
+               dtype=torch.float32) -> torch.Tensor:
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    scale = scale if scale is not None else fan_in ** -0.5
+    w = torch.randn(shape, generator=gen, device=gen.device) * scale
+    return w.to(dtype)
+
+
+def norm_params(cfg: ModelConfig, device) -> dict:
+    p = {"scale": torch.ones(cfg.d_model, device=device)}
+    if cfg.norm_type == "layernorm":
+        p["bias"] = torch.zeros(cfg.d_model, device=device)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# norms / rope
+# ---------------------------------------------------------------------------
+
+def apply_norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    x32 = x.to(torch.float32)
+    if cfg.norm_type == "layernorm":
+        mu = x32.mean(dim=-1, keepdim=True)
+        var = ((x32 - mu) ** 2).mean(dim=-1, keepdim=True)
+        y = (x32 - mu) * torch.rsqrt(var + cfg.norm_eps)
+        y = y * p["scale"] + p["bias"]
+    else:
+        ms = torch.square(x32).mean(dim=-1, keepdim=True)
+        y = x32 * torch.rsqrt(ms + cfg.norm_eps) * p["scale"]
+    return y.to(x.dtype)
+
+
+def rms_head_norm(x: torch.Tensor, scale: torch.Tensor, eps: float):
+    """Per-head RMS norm (qwen3 qk_norm); x: (..., D), scale: (D,)."""
+    x32 = x.to(torch.float32)
+    ms = torch.square(x32).mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(ms + eps) * scale).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
+    """Rotary embedding; x: (B, S, H, D), positions: (S,) or (B, S)."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    pos = positions.to(torch.float32)
+    if positions.dim() == 1:
+        ang = (pos[:, None] * freqs[None, :])[None, :, None, :]
+    else:
+        ang = (pos[..., None] * freqs)[:, :, None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def head_grid(cfg: ModelConfig) -> tuple[int, int, int]:
+    """(kv_pad, g_pad, h_pad): the deployed (KV, group) head grid, padded
+    so ``h_pad % attn_tp_pad == 0`` when ``cfg.attn_tp_pad`` is set."""
+    kv, h = cfg.n_kv_heads, cfg.n_heads
+    g = h // kv
+    tp = cfg.attn_tp_pad
+    if not tp or h % tp == 0:
+        return kv, g, h
+    best = None
+    for gp in range(g, g + tp + 1):
+        for kvp in range(kv, kv + tp + 1):
+            if (kvp * gp) % tp == 0:
+                if best is None or kvp * gp < best[0] * best[1]:
+                    best = (kvp, gp)
+                break
+    kvp, gp = best
+    return kvp, gp, kvp * gp
+
+
+def _pad_heads(w: torch.Tensor, d: int, n_real: int, n_pad: int,
+               hd: int) -> torch.Tensor:
+    """Zero-pad a (d, n_real*hd) projection to (d, n_pad*hd) head-wise."""
+    if n_real == n_pad:
+        return w
+    w = w.reshape(d, n_real, hd)
+    w = torch.nn.functional.pad(w, (0, 0, 0, n_pad - n_real))
+    return w.reshape(d, n_pad * hd)
+
+
+def attention_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    d = cfg.d_model
+    hd, h, kv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    kvp, gp, hp = head_grid(cfg)
+    g = h // kv
+    wq = dense_init(gen, (d, kv, g, hd)).reshape(d, h * hd)
+    wo = dense_init(gen, (kv, g, hd, d)).reshape(h * hd, d)
+    if (kvp, gp) != (kv, g):
+        pad = torch.nn.functional.pad
+        wq = pad(wq.reshape(d, kv, g, hd),
+                 (0, 0, 0, gp - g, 0, kvp - kv)).reshape(d, hp * hd)
+        wo = pad(wo.reshape(kv, g, hd, d),
+                 (0, 0, 0, 0, 0, gp - g, 0, kvp - kv)).reshape(hp * hd, d)
+    p = {
+        "wq": wq,
+        "wk": _pad_heads(dense_init(gen, (d, kv * hd)), d, kv, kvp, hd),
+        "wv": _pad_heads(dense_init(gen, (d, kv * hd)), d, kv, kvp, hd),
+        "wo": wo,
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones(hd, device=gen.device)
+        p["k_norm"] = torch.ones(hd, device=gen.device)
+    return p
+
+
+def _sdpa(q, k, v, mask):
+    """Scaled-dot-product attention in flat-head form.
+
+    q: (B, S, H, D); k/v: (B, T, KV, D); mask broadcastable to (B, S, T).
+    GQA KV heads are repeated to H (``jnp.repeat`` == ``repeat_interleave``).
+    """
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    if kvh != h:
+        k = k.repeat_interleave(h // kvh, dim=2)
+        v = v.repeat_interleave(h // kvh, dim=2)
+    q_dtype = q.dtype
+    q, k = promoted(q, k)
+    scores = torch.einsum("bshd,bthd->bhst", q, k) / (d ** 0.5)
+    scores = scores.to(torch.float32)
+    if mask is not None:
+        scores = torch.where(mask[:, None], scores,
+                             torch.tensor(-1e30, device=scores.device))
+    w = torch.softmax(scores, dim=-1).to(q_dtype)
+    w, v = promoted(w, v)
+    return torch.einsum("bhst,bthd->bshd", w, v).reshape(b, s, h * d)
+
+
+def attention_forward(cfg: ModelConfig, p, x, *, positions=None,
+                      window=None, causal=True):
+    """Full-sequence self-attention (the reference's default ``xla``
+    path; the flash kernel and the Q-chunking of very long sequences,
+    which gives the same result, follow in later slices)."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    kvh, _, h = head_grid(cfg)
+    q = matmul(x, p["wq"]).reshape(b, s, h, hd)
+    k = matmul(x, p["wk"]).reshape(b, s, kvh, hd)
+    v = matmul(x, p["wv"]).reshape(b, s, kvh, hd)
+    if cfg.qk_norm:
+        q = rms_head_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_head_norm(k, p["k_norm"], cfg.norm_eps)
+    if cfg.use_rope:
+        if positions is None:
+            positions = torch.arange(s, device=x.device)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    mask = None
+    if causal:
+        i = torch.arange(s, device=x.device)[:, None]
+        j = torch.arange(s, device=x.device)[None, :]
+        m = j <= i
+        if window is not None:
+            m = m & (j > i - window)
+        mask = m.expand(b, s, s)
+    out = _sdpa(q, k, v, mask)
+    return matmul(out, p["wo"])
+
+
+def attention_decode(cfg: ModelConfig, p, x, cache, pos, *, window=None):
+    """One-token decode over a dense KV cache.
+
+    x: (B, 1, d); cache: {"k", "v": (B, C, KV, D)}; pos: an int (all rows
+    in lockstep) or a (B,) tensor of per-slot positions.  The new token's
+    K/V are written **in place** into ``cache`` (the reference returns a
+    new cache; updating in place keeps one copy on the card).  Returns
+    (out, cache).
+    """
+    b = x.shape[0]
+    hd = cfg.head_dim
+    kvh, _, h = head_grid(cfg)
+    per_slot = torch.is_tensor(pos) and pos.dim() == 1
+
+    q = matmul(x, p["wq"]).reshape(b, 1, h, hd)
+    k = matmul(x, p["wk"]).reshape(b, 1, kvh, hd)
+    v = matmul(x, p["wv"]).reshape(b, 1, kvh, hd)
+    if cfg.qk_norm:
+        q = rms_head_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_head_norm(k, p["k_norm"], cfg.norm_eps)
+    if cfg.use_rope:
+        posv = (pos[:, None] if per_slot
+                else torch.full((1,), int(pos), device=x.device))
+        q = rope(q, posv, cfg.rope_theta)
+        k = rope(k, posv, cfg.rope_theta)
+
+    ck, cv = cache["k"], cache["v"]
+    cap = ck.shape[1]
+    slot = pos % cap if window is not None else pos
+    if per_slot:
+        rows = torch.arange(b, device=x.device)
+        ck[rows, slot] = k[:, 0].to(ck.dtype)
+        cv[rows, slot] = v[:, 0].to(cv.dtype)
+    else:
+        ck[:, int(slot)] = k[:, 0].to(ck.dtype)
+        cv[:, int(slot)] = v[:, 0].to(cv.dtype)
+
+    j = torch.arange(cap, device=x.device)[None, :]
+    pb = pos[:, None] if per_slot else torch.tensor(
+        [[int(pos)]], device=x.device)
+    valid = j <= pb
+    if window is not None:
+        # ring buffer: once pos >= cap every slot holds a live position
+        valid = valid | (pb >= cap)
+    mask = valid[:, None, :].expand(b, 1, cap)
+    out = _sdpa(q, ck.to(x.dtype), cv.to(x.dtype), mask)
+    return matmul(out, p["wo"]), cache
+
+
+def init_kv_cache(cfg: ModelConfig, num_layers: int, batch: int,
+                  seq_len: int, *, window=None, dtype=torch.bfloat16,
+                  device=None) -> dict:
+    """Layer-stacked dense cache: {"k", "v": (L, B, C, KVp, D)}."""
+    cap = min(seq_len, window) if window else seq_len
+    kvp, _, _ = head_grid(cfg)
+    shape = (num_layers, batch, cap, kvp, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# MLP (the paper's subject)
+# ---------------------------------------------------------------------------
+
+def mlp_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    """One layer's raw fp MLP weights (the plan compiler quantizes them)."""
+    d, ff = cfg.d_model, cfg.d_ff
+    p = {"w_up": dense_init(gen, (d, ff)), "w_down": dense_init(gen, (ff, d))}
+    if cfg.mlp_gated:
+        p["w_gate"] = dense_init(gen, (d, ff))
+    return p
+
+
+def mlp_forward(cfg: ModelConfig, p, x, policy: ExecutionPolicy, *,
+                activation=None):
+    """Apply an MLP block: a quantized ``PlannedPair`` or raw weights."""
+    act = activation or cfg.activation
+    if isinstance(p, PlannedPair):
+        lead = x.shape[:-1]
+        y = p.forward(x.reshape(-1, x.shape[-1]), policy, activation=act)
+        return y.reshape(*lead, -1).to(x.dtype)
+    a = schemes.ACTIVATIONS[act]
+    h = matmul(x, p["w_up"])
+    h = a(matmul(x, p["w_gate"])) * h if "w_gate" in p else a(h)
+    return matmul(h, p["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# embeddings / head
+# ---------------------------------------------------------------------------
+
+def embed_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    v, vp = cfg.vocab_size, cfg.padded_vocab()
+    emb = dense_init(gen, (v, cfg.d_model), 1.0)
+    head = dense_init(gen, (cfg.d_model, v))
+    if vp != v:
+        emb = torch.nn.functional.pad(emb, (0, 0, 0, vp - v))
+        head = torch.nn.functional.pad(head, (0, vp - v))
+    return {"embedding": emb, "lm_head": head}
+
+
+def embed_tokens(cfg: ModelConfig, p, tokens: torch.Tensor) -> torch.Tensor:
+    x = p["embedding"][tokens]
+    return x.to(torch.bfloat16) if cfg.dtype == "bfloat16" else x
+
+
+def lm_head(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    logits = x.to(torch.float32) @ p["lm_head"].to(torch.float32)
+    v, vp = cfg.vocab_size, cfg.padded_vocab()
+    if vp != v:
+        # padded vocab columns: exp(-1e30) == 0, softmax stays exact
+        logits[..., v:] += -1e30
+    return logits

@@ -1,0 +1,72 @@
+"""Model registry (dense family); port of ``repro/models/registry.py``.
+
+The other families follow in the order of ``ROADMAP.md``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.policy import ExecutionPolicy
+from repro_torch.device import DeviceLike, derive_seed, new_generator, \
+    resolve_device
+from repro_torch.models import transformer
+
+_FAMILY_MODULES = {"dense": transformer}
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    """Bound (cfg, family module) pair with the uniform interface."""
+
+    cfg: ModelConfig
+    module: Any
+
+    def init(self, seed: int = 0, *, device: DeviceLike = None) -> Any:
+        """Raw init from ``seed``, then, for quantized configs, the plan
+        compiler (RTN quantize + layout), one layer at a time.  Runs on
+        the CUDA card unless ``device`` says otherwise."""
+        dev = resolve_device(device)
+        gen = new_generator(seed, dev)
+        if self.cfg.quant.mode != "mlp":
+            return self.module.init_params(self.cfg, gen)
+        from repro_torch.plan import compiler
+
+        plan_gen = new_generator(
+            derive_seed(seed, compiler.PLAN_RNG_STREAM), dev)
+        return self.module.init_params(
+            self.cfg, gen,
+            compile_layer=lambda layer: compiler.compile_params(
+                self.cfg, layer, generator=plan_gen))
+
+    def init_raw(self, seed: int = 0, *, device: DeviceLike = None) -> Any:
+        """The raw fp params (no quantization): the compiler's input."""
+        return self.module.init_params(
+            self.cfg, new_generator(seed, resolve_device(device)))
+
+    def forward(self, params, batch, policy: ExecutionPolicy, *,
+                window=None):
+        return self.module.forward(self.cfg, params, batch, policy,
+                                   window=window)
+
+    def init_cache(self, batch: int, seq_len: int, *, window=None,
+                   dtype=torch.bfloat16, device: DeviceLike = None):
+        return self.module.init_cache(self.cfg, batch, seq_len, window=window,
+                                      dtype=dtype,
+                                      device=resolve_device(device))
+
+    def decode_step(self, params, cache, tokens, pos,
+                    policy: ExecutionPolicy, *, window=None):
+        return self.module.decode_step(self.cfg, params, cache, tokens, pos,
+                                       policy, window=window)
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    if cfg.family not in _FAMILY_MODULES:
+        raise KeyError(f"family {cfg.family!r} is not ported yet; ported: "
+                       f"{sorted(_FAMILY_MODULES)} (see ROADMAP.md)")
+    return Model(cfg=cfg, module=_FAMILY_MODULES[cfg.family])

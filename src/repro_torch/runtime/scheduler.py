@@ -1,0 +1,213 @@
+"""Continuous-batching request scheduler on the dense cache; port of
+``repro/runtime/scheduler.py`` (``Request``, ``StepEvent``, ``Scheduler``
+in continuous mode; the paged cache and batch-drain modes follow later).
+
+One fixed-shape decode program steps all ``max_batch`` slots together,
+each slot on its own clock; a finished slot takes the next queued request
+at the next step boundary.  Prompt replay and generation are the same
+decode loop.  The causal mask hides other slots' cache rows, so a
+request's tokens do not depend on which other requests share the batch.
+
+Each request owns a ``torch.Generator`` seeded from ``req.seed`` or from
+(scheduler seed, rid); it draws only on the steps where the request emits
+a token, so its stream does not depend on the batch either.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections import deque
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.device import derive_seed, new_generator
+from repro_torch.runtime import sampling
+from repro_torch.runtime.serve import Engine
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray             # (L,) int32
+    max_new_tokens: int = 16
+    # per-request overrides of the scheduler's SamplingConfig
+    temperature: Optional[float] = None
+    top_p: Optional[float] = None
+    seed: Optional[int] = None
+    family: Optional[str] = None   # None: the engine's own
+    output: list = dataclasses.field(default_factory=list)
+    done: bool = False
+    cancelled: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class StepEvent:
+    """What one decode step did to one request."""
+
+    rid: int
+    token: Optional[int]           # None for a pure retire (cancel)
+    final: bool
+    cancelled: bool = False
+
+
+@dataclasses.dataclass
+class _Slot:
+    req: Request
+    gen: torch.Generator           # this request's private sample stream
+    fed: int = 0                   # tokens fed so far == this slot's pos
+    last: int = 0                  # last sampled token
+
+
+class Scheduler:
+    def __init__(self, engine: Engine, *, max_batch: int = 8,
+                 prompt_budget: int = 128,
+                 scfg: sampling.SamplingConfig = sampling.SamplingConfig(),
+                 seed: int = 0):
+        self.engine = engine
+        self.max_batch = max_batch
+        self.prompt_budget = prompt_budget
+        self.scfg = scfg
+        self.seed = seed
+        self.queue: deque[Request] = deque()
+        self.finished: dict[int, Request] = {}
+        #: (step, rid) admissions; step > 0 entries entered retired slots
+        self.admissions: list[tuple[int, int]] = []
+        self._cache = None
+        self._slots: list[Optional[_Slot]] = []
+        self._step_no = 0
+
+    def submit(self, req: Request):
+        family = self.engine.model.cfg.family
+        if req.family is not None and req.family != family:
+            raise ValueError(
+                f"request {req.rid} is for family '{req.family}' but this "
+                f"scheduler's engine serves '{family}': run one Scheduler "
+                "per family")
+        if req.prompt.size > self.prompt_budget:
+            raise ValueError(
+                f"prompt {req.prompt.size} > budget {self.prompt_budget}")
+        if req.prompt.size + req.max_new_tokens > self.engine.max_seq:
+            raise ValueError(
+                f"prompt {req.prompt.size} + max_new {req.max_new_tokens} "
+                f"> engine max_seq {self.engine.max_seq}")
+        self.queue.append(req)
+
+    def cancel(self, rid: int) -> bool:
+        """Retire a request: a queued one at once, a live one at the next
+        step boundary.  False for unknown or finished rids."""
+        live = [s.req for s in self._slots if s is not None]
+        for req in (*self.queue, *live):
+            if req.rid == rid and not req.cancelled:
+                req.cancelled = True
+                return True
+        return False
+
+    @property
+    def live_slots(self) -> int:
+        return sum(1 for s in self._slots if s is not None)
+
+    @property
+    def steps(self) -> int:
+        """Decode steps run so far."""
+        return self._step_no
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self.queue) or self.live_slots > 0
+
+    def run(self) -> dict[int, Request]:
+        """Drain the queue; returns {rid: finished request}."""
+        while self.has_work:
+            self.step()
+        return self.finished
+
+    def _request_generator(self, req: Request) -> torch.Generator:
+        seed = req.seed if req.seed is not None else derive_seed(self.seed,
+                                                                 req.rid)
+        return new_generator(seed, self.engine.device)
+
+    def _finish(self, i: int, events: list, *, cancelled: bool = False):
+        req = self._slots[i].req
+        req.done = True
+        self.finished[req.rid] = req
+        if cancelled:
+            events.append(StepEvent(req.rid, None, True, cancelled=True))
+        self._slots[i] = None
+
+    def step(self) -> list[StepEvent]:
+        """One admission + decode step; returns a ``StepEvent`` per request
+        that emitted a token or was retired."""
+        b = self.max_batch
+        if self._cache is None:
+            self._cache = self.engine.init_cache(b)
+            self._slots = [None] * b
+        slots = self._slots
+        events: list[StepEvent] = []
+
+        if any(r.cancelled for r in self.queue):
+            kept: deque[Request] = deque()
+            for req in self.queue:
+                if req.cancelled:
+                    req.done = True
+                    self.finished[req.rid] = req
+                    events.append(StepEvent(req.rid, None, True,
+                                            cancelled=True))
+                else:
+                    kept.append(req)
+            self.queue = kept
+        for i in range(b):
+            if slots[i] is not None and slots[i].req.cancelled:
+                self._finish(i, events, cancelled=True)
+
+        for i in range(b):
+            if slots[i] is None and self.queue:
+                req = self.queue.popleft()
+                slots[i] = _Slot(req=req, gen=self._request_generator(req))
+                self.admissions.append((self._step_no, req.rid))
+        if not any(slots):
+            return events
+
+        tokens = np.zeros((b,), np.int64)
+        pos = np.zeros((b,), np.int64)
+        temperature = np.zeros((b,), np.float32)
+        top_p = np.ones((b,), np.float32)
+        top_k = np.zeros((b,), np.int64)
+        gens: list[Optional[torch.Generator]] = [None] * b
+        for i, s in enumerate(slots):
+            if s is None:
+                continue
+            plen = s.req.prompt.size
+            tokens[i] = s.req.prompt[s.fed] if s.fed < plen else s.last
+            pos[i] = s.fed
+            temperature[i] = (self.scfg.temperature if s.req.temperature
+                              is None else s.req.temperature)
+            p = self.scfg.top_p if s.req.top_p is None else s.req.top_p
+            top_p[i] = 1.0 if p is None else p
+            top_k[i] = 0 if self.scfg.top_k is None else self.scfg.top_k
+            if s.fed + 1 >= plen:          # this step emits a token
+                gens[i] = s.gen
+
+        dev = self.engine.device
+        logits, self._cache = self.engine.decode(
+            self._cache, torch.from_numpy(tokens).to(dev),
+            torch.from_numpy(pos).to(dev))
+        sampled = sampling.sample_slots(
+            gens, logits, torch.from_numpy(temperature).to(dev),
+            torch.from_numpy(top_p).to(dev),
+            torch.from_numpy(top_k).to(dev)).tolist()
+
+        for i, s in enumerate(slots):
+            if s is None:
+                continue
+            s.fed += 1
+            if s.fed >= s.req.prompt.size:
+                s.last = int(sampled[i])
+                s.req.output.append(s.last)
+                final = len(s.req.output) >= s.req.max_new_tokens
+                events.append(StepEvent(s.req.rid, s.last, final))
+                if final:
+                    self._finish(i, events)
+        self._step_no += 1
+        return events

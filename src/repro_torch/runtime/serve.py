@@ -1,0 +1,92 @@
+"""Serving engine: prefill and decode steps over a registry model; port of
+``repro/runtime/serve.py`` (``Engine``, ``make_engine`` without an
+artifact).
+
+Prefill replays the prompt through the decode step, exactly as the
+reference does, so prompt and generation share one numeric path.  Batching
+across requests is the scheduler's job (``runtime/scheduler.py``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.core.policy import ExecutionPolicy
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.registry import Model, build_model
+from repro_torch.runtime import sampling
+
+
+@dataclasses.dataclass
+class Engine:
+    model: Model
+    params: Any
+    device: torch.device
+    max_seq: int = 2048
+    window: Optional[int] = None
+    # The deployment plan every quantized GEMM runs under; None derives
+    # it from the model config for ``device``.
+    policy: Optional[ExecutionPolicy] = None
+
+    def __post_init__(self):
+        self.device = torch.device(self.device)
+        if self.policy is None:
+            self.policy = ExecutionPolicy.from_config(self.model.cfg,
+                                                      device=self.device)
+
+    def init_cache(self, batch: int):
+        return self.model.init_cache(batch, self.max_seq, window=self.window,
+                                     device=self.device)
+
+    @torch.inference_mode()
+    def decode(self, cache, tokens: torch.Tensor, pos):
+        """One decode step: tokens (B,), pos int or (B,) -> (logits, cache)."""
+        return self.model.decode_step(self.params, cache, tokens, pos,
+                                      self.policy, window=self.window)
+
+    @torch.inference_mode()
+    def prefill(self, tokens: torch.Tensor, cache, prompt_len: torch.Tensor):
+        """Replay right-padded prompts (B, S) through the decode step;
+        returns (logits at each row's last prompt token (B, V), cache)."""
+        b, s = tokens.shape
+        last = torch.zeros((b, self.model.cfg.vocab_size),
+                           dtype=torch.float32, device=self.device)
+        for t in range(s):
+            logits, cache = self.decode(cache, tokens[:, t], t)
+            keep = (prompt_len == t + 1)[:, None]
+            last = torch.where(keep, logits, last)
+        return last, cache
+
+    @torch.inference_mode()
+    def generate(self, gen: Optional[torch.Generator], tokens: torch.Tensor,
+                 prompt_len, *, max_new_tokens: int = 32,
+                 scfg: sampling.SamplingConfig = sampling.SamplingConfig()):
+        """Batched generation; returns (B, max_new_tokens) token ids.
+        ``gen`` draws the samples (unused when greedy)."""
+        tokens = tokens.to(self.device)
+        prompt_len = torch.as_tensor(prompt_len, device=self.device)
+        cache = self.init_cache(tokens.shape[0])
+        logits, cache = self.prefill(tokens, cache, prompt_len)
+        pos = int(prompt_len.max())
+        tok = sampling.sample(gen, logits, scfg)
+        out = [tok]
+        for i in range(max_new_tokens - 1):
+            logits, cache = self.decode(cache, tok, pos + i)
+            tok = sampling.sample(gen, logits, scfg)
+            out.append(tok)
+        return torch.stack(out, dim=1)
+
+
+def make_engine(cfg, seed: int = 0, *, device: DeviceLike = None,
+                max_seq: int = 2048, window=None,
+                policy: Optional[ExecutionPolicy] = None) -> Engine:
+    """Build an engine whose params ``Model.init`` makes from ``seed``.
+    Runs on the CUDA card unless ``device`` says otherwise."""
+    dev = resolve_device(device)
+    model = build_model(cfg)
+    params = model.init(seed, device=dev)
+    return Engine(model=model, params=params, device=dev, max_seq=max_seq,
+                  window=window, policy=policy)
