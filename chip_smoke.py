@@ -5,30 +5,48 @@
 
 Phases, one line each:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
-  2. build: nvcc of the dequant-GEMM kernel for sm_90a, ptxas registers
-     and shared memory
-  3. kernel check: the CUDA kernel against its plain torch version at the
-     reference's test shapes, the gs=76 shape and the full-width qwen3-4b
-     MLP shapes, float32 and bfloat16
-  4. kernel timing: full-width M=4 launches against the bytes bound, the
-     plain version and, as context, torch.matmul on the pre-dequantized
-     weight
+  2. build: nvcc of the four kernels for sm_90a, all started together;
+     each one's build seconds, ptxas registers and shared memory
+  3. check: each CUDA kernel against its plain torch version, float32 and
+     bfloat16: the ordered dequant-GEMM (K1) and the g_idx dequant-GEMM
+     (K4) at the reference's test shapes, gs=76, ragged edges and the
+     full-width qwen3-4b MLP shapes; the dequantize kernel (K5) bit-equal;
+     flash attention (K2) at the reference's test shapes and the
+     full-width forward's
+  4. timing: full-width launches (CUDA-graph replay, weights beyond L2)
+     against their bounds and plain versions: K1 and K4 at M=4 (their
+     ratio is the naive-versus-ordered comparison), K5, and K2 beside
+     torch's scaled_dot_product_attention
   5. serve: full-width qwen3-4b (36 layers) built by the port's
      ``make_engine`` on the card from seed 0, four requests through the
-     ``Scheduler``; every decode step must launch the kernel 108 times
+     ``Scheduler``; every decode step must launch K1 108 times
   6. trace: device time of a few full-width decode steps by kernel
      (torch.profiler) against their wall time: the device's busy share
   7. backend cross-check: greedy decode with backend=cuda and
      backend=torch on the same params
+  8. serve naive-actorder: the same four requests with the paper's naive
+     act-order plan on backend=cuda; every decode step must launch K4
+     108 times and K1 never
+  9. scheme cross-check: greedy decode, naive-actorder (K4) against
+     tp-aware (K1), both planned from seed 0
+ 10. forward flash: the full-sequence forward (``Engine.prefill_logits``)
+     of 2048 tokens with attn_backend="flash" (36 K2 launches) against
+     attn_backend="xla" on the same params
+ 11. dequantize: every MLP weight of the full-width engine materialized
+     through ``ops.dequantize`` (108 K5 launches), bit-equal to the plain
+     dequantize
 
-then the per-kernel JSON line, and as the last line
-``{"ok": true, "device": {...}}``.  Per-shape details go to
-``chiprun_out/chip_smoke.json``.  Any failure raises, so the script exits
-non-zero and prints no result line; so does a machine without a card.
+then the per-kernel JSON line, the card's nvidia-smi line and, as the
+last line, ``{"ok": true, "device": {...}}``.  Every path runs with the
+launch counts set to 0 just before it and read just after.  Per-shape
+details go to ``chiprun_out/chip_smoke.json``.  Any failure raises, so
+the script exits non-zero and prints no result line; so does a machine
+without a card.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -45,13 +63,16 @@ import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import quantization as qz  # noqa: E402
+from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import dequant_matmul as dk  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.runtime.sampling import SamplingConfig  # noqa: E402
 from repro_torch.runtime.scheduler import Request, Scheduler  # noqa: E402
 from repro_torch.runtime.serve import Engine, make_engine  # noqa: E402
 
 #: H100 SXM data-sheet peaks (dense): HBM bytes/s, float32 FLOP/s outside
-#: the tensor cores (the kernel's float32 policy uses plain FMA)
+#: the tensor cores (the kernels' float32 policy uses plain FMA)
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 #: full-width qwen3-4b MLP GEMMs: (name, K, N, group size); the down
@@ -62,15 +83,52 @@ SWEEP = [(8, 128, 128, 32), (16, 256, 384, 64), (128, 512, 256, 128),
          (1, 256, 128, 64), (4, 1024, 128, 128), (4, 608, 128, 76),
          # ragged edges: N not a multiple of 4 (4-byte copies), M past a tile
          (5, 256, 102, 64), (33, 608, 200, 76)]
-#: tolerance of the kernel against its plain version, relative to
-#: max|ref|: float32 sums in another order (plus 1e-4 absolute), or one
-#: bf16 ulp of the output
+#: the reference's g_idx kernel sweep (tests/test_kernels.py)
+GIDX_SWEEP = [(8, 128, 128, 32), (16, 256, 384, 64), (32, 512, 256, 128)]
+#: dequantize shapes (K, N, gs): the reference's, gs=76, ragged N, full
+DEQUANT_SHAPES = [(128, 128, 32), (512, 384, 128), (608, 200, 76),
+                  (256, 102, 64), UP[1:], DOWN[1:]]
+#: flash shapes (B, H, S, D, causal, window): tests/test_kernels.py's
+#: five (the fifth differs from the first only in the JAX blocks) and the
+#: full-width forward's: 32 heads after the GQA repeat, S = T = 2048
+FLASH_FULL = (1, 32, 2048, 128, True, None)
+FLASH_SWEEP = [(1, 2, 128, 32, True, None), (2, 2, 256, 64, True, None),
+               (1, 1, 128, 32, False, None), (1, 2, 256, 32, True, 64),
+               (1, 2, 128, 32, True, None), FLASH_FULL]
+#: tolerance of a kernel against its plain version, (relative to
+#: max|ref|, absolute): the GEMMs' float32 sums in another order, or one
+#: bf16 ulp of the output; flash as the reference's own tests
 TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-2, 0.0)}
-LAUNCHES_PER_STEP = 36 * 3
+FLASH_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 0.0)}
+LAYERS = 36
+LAUNCHES_PER_STEP = LAYERS * 3
+#: the kernels' wrappers, each with its launch count
+COUNTED = {"dequant_matmul_ordered": dk.dequant_matmul_ordered,
+           "dequant_matmul_gidx": dk.dequant_matmul_gidx,
+           "dequantize_ordered": dk.dequantize_ordered,
+           "flash_attention": fa.flash_attention}
 
 
 def line(phase: str, text: str):
     print(f"[{phase}] {text}", flush=True)
+
+
+def reset_counts():
+    for fn in COUNTED.values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in COUNTED.items()}
+
+
+def expect_counts(counts: dict, want: dict, what: str):
+    """Each counted kernel launched exactly ``want[name]`` times (0 for
+    those ``want`` does not name)."""
+    full = {name: want.get(name, 0) for name in COUNTED}
+    if counts != full:
+        raise AssertionError(f"{what}: kernel launches {counts}, expected "
+                             f"{full}")
 
 
 def phase_device() -> str:
@@ -84,64 +142,152 @@ def phase_device() -> str:
 
 
 def phase_build() -> dict:
-    lib = dk.build()
-    info = dk.build_info
-    ptxas = [s.strip() for s in info["ptxas"].splitlines()
-             if "registers" in s or "smem" in s]
-    # dynamic shared memory per block at the main path's shapes (f32, M<=4)
-    smem = {name: lib.dequant_matmul_smem_bytes(4, gs, dk.pick_block_k(k, gs),
-                                                0)
-            for name, k, _, gs in (UP, DOWN)}
-    line("build", f"{info['seconds']:.1f}s -> "
-                  f"{os.path.relpath(info['path'], ROOT)}; dynamic smem per "
-                  f"block {smem}; ptxas: "
-                  f"{' || '.join(ptxas) or info['ptxas'].strip()}")
-    return {"seconds": info["seconds"], "ptxas": ptxas, "smem_bytes": smem}
+    kernels = dk.KERNELS + (fa.FLASH,)
+    t0 = time.perf_counter()
+    kbuild.compile_all(*kernels)
+    wall = time.perf_counter() - t0
+    libs = {k.name: kbuild.load(k) for k in kernels}
+    ordered, gidx = libs[dk.ORDERED.name], libs[dk.GIDX.name]
+    # dynamic shared memory per block at the main paths' shapes (f32, M<=4)
+    smem = {
+        dk.ORDERED.name: {
+            name: ordered.dequant_matmul_smem_bytes(
+                4, gs, dk.pick_block_k(k, gs), 0)
+            for name, k, _, gs in (UP, DOWN)},
+        dk.GIDX.name: {name: gidx.dequant_matmul_gidx_smem_bytes(4, k // gs)
+                       for name, k, _, gs in (UP, DOWN)},
+        dk.DEQUANTIZE.name: 0,
+        fa.FLASH.name: libs[fa.FLASH.name].flash_attention_smem_bytes(128)}
+    out = {"wall_seconds": wall, "kernels": {}}
+    for k in kernels:
+        info = kbuild.info[k.name]
+        regs = [s.split(":", 1)[-1].strip() for s in info["ptxas"].splitlines()
+                if "registers" in s]
+        out["kernels"][k.name] = {"seconds": info["seconds"], "ptxas": regs,
+                                  "smem_bytes": smem[k.name],
+                                  "path": os.path.relpath(info["path"], ROOT)}
+        line("build", f"{k.name}: {info['seconds']:.1f}s -> "
+                      f"{out['kernels'][k.name]['path']}; dynamic smem "
+                      f"{smem[k.name]}; ptxas: {' || '.join(regs)}")
+    line("build", f"{len(kernels)} kernels, nvcc in parallel: {wall:.1f}s")
+    return out
 
 
-def _weights(gen, k, n, gs):
+def _quantized(gen, k, n, gs):
     w = torch.randn(k, n, generator=gen, device="cuda")
-    return qz.quantize(w, gs, generator=gen).ordered
+    return qz.quantize(w, gs, generator=gen)
 
 
-def phase_check(gen) -> tuple[float, list]:
-    """Returns the largest float32 error at the main path's shapes (M=4,
-    full width) and every case's record."""
-    shapes = SWEEP + [(m, k, n, gs) for _, k, n, gs in (UP, DOWN)
-                      for m in (1, 4, 32)]
+def _within(rows: list, err: float, ref: torch.Tensor, rtol: float,
+            atol: float, what: str, **case) -> float:
+    """Record one case and raise if it is out of tolerance; returns the
+    error relative to max|ref|."""
+    scale = ref.float().abs().max().item()
+    limit = rtol * scale + atol
+    rows.append(dict(case, max_abs_err=err, limit=limit))
+    if not (math.isfinite(err) and err <= limit):
+        raise AssertionError(f"{what} disagrees with its plain version: "
+                             f"{rows[-1]}")
+    return err / max(scale, 1e-30)
+
+
+def _check_gemm(gen, name, shapes, layout, kernel, plain) -> dict:
+    """A dequant-GEMM kernel against its plain version; returns the worst
+    relative error per dtype, the largest float32 error at the main
+    path's shapes (M=4, full width) and every case's record."""
     rows, worst, main = [], {}, 0.0
     for m, k, n, gs in shapes:
-        ql = _weights(gen, k, n, gs)
+        ql = getattr(_quantized(gen, k, n, gs), layout)
         x = torch.randn(m, k, generator=gen, device="cuda")
         for dtype, (rtol, atol) in TOL.items():
-            y = dk.dequant_matmul_ordered(
-                x, ql.qweight, ql.scales, ql.zeros, group_size=gs,
-                compute_dtype=dtype)
-            ref = dk.dequant_matmul_ordered_torch(
-                x, ql.qweight, ql.scales, ql.zeros, group_size=gs,
-                compute_dtype=dtype)
+            y = kernel(x, ql, dtype)
+            ref = plain(x, ql, dtype)
             torch.cuda.synchronize()
+            if y.shape != ref.shape:
+                raise AssertionError(f"{name}: shape {tuple(y.shape)} != "
+                                     f"{tuple(ref.shape)}")
             err = (y.float() - ref.float()).abs().max().item()
-            limit = rtol * ref.float().abs().max().item() + atol
-            rows.append({"m": m, "k": k, "n": n, "gs": gs,
-                         "dtype": str(dtype), "max_abs_err": err,
-                         "limit": limit})
-            if not (y.shape == ref.shape and math.isfinite(err)
-                    and err <= limit):
-                raise AssertionError(f"kernel disagrees with its plain "
-                                     f"version: {rows[-1]}")
-            rel = err / max(ref.float().abs().max().item(), 1e-30)
-            worst[dtype] = max(worst.get(dtype, 0.0), rel)
+            rel = _within(rows, err, ref, rtol, atol, name, m=m, k=k, n=n,
+                          gs=gs, dtype=str(dtype))
+            worst[str(dtype)] = max(worst.get(str(dtype), 0.0), rel)
             if dtype == torch.float32 and m == 4 and k >= 2560:
                 main = max(main, err)
-    line("check", f"{len(rows)} cases ({len(SWEEP)} sweep + 6 full-width "
-                  f"shapes x "
-                  f"f32/bf16) within tolerance; max err / max|ref|: f32 "
-                  f"{worst[torch.float32]:.3g}, bf16 "
-                  f"{worst[torch.bfloat16]:.3g}; f32 max_abs_err at the "
+    line("check", f"{name}: {len(rows)} cases within tolerance; max err / "
+                  f"max|ref|: f32 {worst['torch.float32']:.3g}, bf16 "
+                  f"{worst['torch.bfloat16']:.3g}; f32 max_abs_err at the "
                   f"main path's shapes {main:.3g}; tol f32 "
                   f"1e-5*max|ref|+1e-4, bf16 1e-2*max|ref|")
-    return main, rows
+    return {"worst_rel": worst, "main_max_abs_err": main, "cases": rows}
+
+
+def _check_dequantize(gen) -> dict:
+    rows = []
+    for k, n, gs in DEQUANT_SHAPES:
+        ql = _quantized(gen, k, n, gs).ordered
+        for dtype in TOL:
+            w = dk.dequantize_ordered(ql.qweight, ql.scales, ql.zeros,
+                                      group_size=gs, out_dtype=dtype)
+            ref = dk.dequantize_ordered_torch(ql.qweight, ql.scales,
+                                              ql.zeros, group_size=gs,
+                                              out_dtype=dtype)
+            torch.cuda.synchronize()
+            equal = bool(torch.equal(w, ref))
+            rows.append({"k": k, "n": n, "gs": gs, "dtype": str(dtype),
+                         "bit_equal": equal})
+            if not equal:
+                raise AssertionError(f"dequantize_ordered is not bit-equal "
+                                     f"to its plain version: {rows[-1]}")
+    line("check", f"dequantize_ordered: {len(rows)} cases (f32/bf16) "
+                  f"bit-equal to the plain version")
+    return {"main_max_abs_err": 0.0, "cases": rows}
+
+
+def _check_flash(gen) -> dict:
+    rows, worst, main = [], {}, 0.0
+    for case in FLASH_SWEEP:
+        b, h, s, d, causal, window = case
+        for dtype, (rtol, atol) in FLASH_TOL.items():
+            q, k, v = (torch.randn(b, h, s, d, generator=gen,
+                                   device="cuda").to(dtype)
+                       for _ in range(3))
+            y = fa.flash_attention(q, k, v, causal=causal, window=window)
+            ref = fa.flash_attention_torch(q, k, v, causal=causal,
+                                           window=window)
+            torch.cuda.synchronize()
+            err = (y.float() - ref.float()).abs().max().item()
+            rel = _within(rows, err, ref, rtol, atol, "flash_attention",
+                          shape=[b, h, s, d], causal=causal, window=window,
+                          dtype=str(dtype))
+            worst[str(dtype)] = max(worst.get(str(dtype), 0.0), rel)
+            if case == FLASH_FULL and dtype == torch.float32:
+                main = err
+            del q, k, v, y, ref
+    line("check", f"flash_attention: {len(rows)} cases within tolerance; "
+                  f"max err / max|ref|: f32 {worst['torch.float32']:.3g}, "
+                  f"bf16 {worst['torch.bfloat16']:.3g}; f32 max_abs_err at "
+                  f"the full-width shape {main:.3g}; tol f32 "
+                  f"1e-5*max|ref|+1e-5, bf16 2e-2*max|ref|")
+    return {"worst_rel": worst, "main_max_abs_err": main, "cases": rows}
+
+
+def phase_check(gen) -> dict:
+    full = [(m, k, n, gs) for _, k, n, gs in (UP, DOWN) for m in (1, 4, 32)]
+    return {
+        "dequant_matmul_ordered": _check_gemm(
+            gen, "dequant_matmul_ordered", SWEEP + full, "ordered",
+            lambda x, ql, dt: ops.dequant_matmul(x, ql, compute_dtype=dt),
+            lambda x, ql, dt: dk.dequant_matmul_ordered_torch(
+                x, ql.qweight, ql.scales, ql.zeros,
+                group_size=ql.group_size, compute_dtype=dt)),
+        "dequant_matmul_gidx": _check_gemm(
+            gen, "dequant_matmul_gidx", GIDX_SWEEP + SWEEP + full, "naive",
+            lambda x, ql, dt: ops.dequant_matmul(x, ql, compute_dtype=dt),
+            lambda x, ql, dt: dk.dequant_matmul_gidx_torch(
+                x, ql.qweight, ql.scales, ql.zeros, ql.g_idx,
+                compute_dtype=dt)),
+        "dequantize_ordered": _check_dequantize(gen),
+        "flash_attention": _check_flash(gen),
+    }
 
 
 def _time(fn, args_list, reps: int, batches: int = 5,
@@ -179,44 +325,135 @@ def _time(fn, args_list, reps: int, batches: int = 5,
     return statistics.median(out)
 
 
-def phase_timing(gen) -> dict:
-    m = 4
+def _bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """(least ms, what bounds it): the bytes over the memory rate or the
+    float32 operations over the float32 rate, whichever is larger."""
+    by_bytes = nbytes / PEAK_BYTES * 1e3
+    by_ops = flops / PEAK_F32 * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
+def _copies(tensors, nbytes: int) -> list:
+    """Enough clones of ``tensors`` that together they exceed L2 three
+    times over."""
+    return [tuple(t.clone() for t in tensors)
+            for _ in range(max(2, math.ceil(150e6 / nbytes)))]
+
+
+def _time_gemm(gen, layout: str, m: int = 4) -> dict:
     res = {}
     for name, k, n, gs in (UP, DOWN):
-        ql = _weights(gen, k, n, gs)
-        wbytes = (ql.qweight.numel() + ql.scales.numel()
-                  + ql.zeros.numel()) * 4
-        copies = max(2, math.ceil(150e6 / wbytes))
-        quants = [(ql.qweight.clone(), ql.scales.clone(), ql.zeros.clone())
-                  for _ in range(copies)]
+        both = _quantized(gen, k, n, gs)
+        ql = getattr(both, layout)
+        meta = [ql.qweight, ql.scales, ql.zeros] + (
+            [ql.g_idx] if layout == "naive" else [])
+        wbytes = sum(t.numel() * t.element_size() for t in meta)
+        quants = _copies(meta, wbytes)
         x = torch.randn(m, k, generator=gen, device="cuda")
+        if layout == "ordered":
+            def kernel(qw, s, z):
+                return dk.dequant_matmul_ordered(x, qw, s, z, group_size=gs)
 
-        def kernel(qw, s, z):
-            return dk.dequant_matmul_ordered(x, qw, s, z, group_size=gs)
+            def plain(qw, s, z):
+                return dk.dequant_matmul_ordered_torch(x, qw, s, z,
+                                                       group_size=gs)
+        else:
+            def kernel(qw, s, z, g):
+                return dk.dequant_matmul_gidx(x, qw, s, z, g)
 
-        def plain(qw, s, z):
-            return dk.dequant_matmul_ordered_torch(x, qw, s, z,
-                                                   group_size=gs)
+            def plain(qw, s, z, g):
+                return dk.dequant_matmul_gidx_torch(x, qw, s, z, g)
 
-        w_deq = [qz.dequantize(ql) for _ in range(2)]
-        ms = _time(kernel, quants, reps=10 * copies)
-        eager_ms = _time(kernel, quants, reps=10 * copies, graph=False)
+        reps = 10 * len(quants)
+        ms = _time(kernel, quants, reps=reps)
+        eager_ms = _time(kernel, quants, reps=reps, graph=False)
         plain_ms = _time(plain, quants[:2], reps=10)
-        mm_ms = _time(lambda w: torch.matmul(x, w), [(w,) for w in w_deq],
-                      reps=20)
         nbytes = 4 * (m * k + m * n) + wbytes
-        bound_bytes = nbytes / PEAK_BYTES * 1e3
-        bound_ops = 2 * m * k * n / PEAK_F32 * 1e3
+        bound, by = _bound(nbytes, 2 * m * k * n)
         res[name] = {"m": m, "k": k, "n": n, "gs": gs, "ms": ms,
-                     "eager_ms": eager_ms,
-                     "plain_ms": plain_ms, "matmul_dequantized_ms": mm_ms,
-                     "bytes": nbytes, "bound_ms": max(bound_bytes, bound_ops),
-                     "bound_by": ("bytes" if bound_bytes >= bound_ops
-                                  else "operations"),
-                     "weight_copies": copies}
-        del quants, w_deq
-    u, d = res[UP[0]], res[DOWN[0]]
-    line("timing", "f32 M=4, CUDA-graph replay: up/gate {:.4f} ms (bound "
+                     "eager_ms": eager_ms, "plain_ms": plain_ms,
+                     "bytes": nbytes, "bound_ms": bound, "bound_by": by,
+                     "weight_copies": len(quants)}
+        if layout == "ordered":
+            # context: torch.matmul on the pre-dequantized weight
+            w_deq = [qz.dequantize(ql) for _ in range(2)]
+            res[name]["matmul_dequantized_ms"] = _time(
+                lambda w: torch.matmul(x, w), [(w,) for w in w_deq], reps=20)
+            del w_deq
+        else:
+            # the same kernel on the ordered layout (g_idx = k // gs): the
+            # naive layout's cost inside one kernel design
+            o = both.ordered
+            rows = (torch.arange(k, device="cuda") // gs).to(torch.int32)
+            res[name]["ordered_layout_ms"] = _time(
+                kernel, _copies([o.qweight, o.scales, o.zeros, rows], wbytes),
+                reps=reps)
+        del quants
+    return res
+
+
+def _per_layer(res: dict, key: str) -> float:
+    """One layer's three launches: up, gate (same shape) and down."""
+    return 2 * res[UP[0]][key] + res[DOWN[0]][key]
+
+
+def _time_dequantize(gen) -> dict:
+    res = {}
+    for name, k, n, gs in (UP, DOWN):
+        ql = _quantized(gen, k, n, gs).ordered
+        meta = [ql.qweight, ql.scales, ql.zeros]
+        wbytes = sum(t.numel() * t.element_size() for t in meta)
+        quants = _copies(meta, wbytes)
+        ms = _time(lambda qw, s, z: dk.dequantize_ordered(
+            qw, s, z, group_size=gs), quants, reps=4 * len(quants))
+        plain_ms = _time(lambda qw, s, z: dk.dequantize_ordered_torch(
+            qw, s, z, group_size=gs), quants[:2], reps=4)
+        # the float32 output, written once per call, is most of the bytes
+        nbytes = wbytes + 4 * k * n
+        bound, by = _bound(nbytes, 2 * k * n)
+        res[name] = {"k": k, "n": n, "gs": gs, "ms": ms, "plain_ms": plain_ms,
+                     "bytes": nbytes, "bound_ms": bound, "bound_by": by}
+        del quants
+    return res
+
+
+def _flash_flops(b, h, s, t, d, causal, window) -> float:
+    """Multiply-adds of QK^T and PV over the keys each query sees."""
+    mask = fa.attention_mask(s, t, causal=causal, window=window)
+    return 4.0 * d * b * h * mask.sum().item()
+
+
+def _time_flash(gen) -> dict:
+    b, h, s, d, causal, window = FLASH_FULL
+    qkv = [tuple(torch.randn(b, h, s, d, generator=gen, device="cuda")
+                 for _ in range(3)) for _ in range(2)]
+    ms = _time(lambda q, k, v: fa.flash_attention(q, k, v, causal=causal,
+                                                  window=window),
+               qkv, reps=6, batches=5)
+    plain_ms = _time(lambda q, k, v: fa.flash_attention_torch(
+        q, k, v, causal=causal, window=window), qkv, reps=4, batches=3)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = _time(lambda q, k, v: sdpa(q, k, v, is_causal=True), qkv,
+                       reps=6, batches=5)
+    nbytes = 4 * 4 * b * h * s * d                  # q, k, v read; o written
+    flops = _flash_flops(b, h, s, s, d, causal, window)
+    bound, by = _bound(nbytes, flops)
+    return {"shape": [b, h, s, d], "causal": causal, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "torch.nn.functional.scaled_dot_product_attention "
+                       "(is_causal=True)",
+            "bytes": nbytes, "flops": flops, "bound_ms": bound,
+            "bound_by": by}
+
+
+def phase_timing(gen) -> dict:
+    ordered = _time_gemm(gen, "ordered")
+    gidx = _time_gemm(gen, "naive")
+    deq = _time_dequantize(gen)
+    flash = _time_flash(gen)
+    u, d = ordered[UP[0]], ordered[DOWN[0]]
+    line("timing", "K1 f32 M=4, CUDA-graph replay: up/gate {:.4f} ms (bound "
          "{:.4f}, plain {:.4f}, matmul on dequantized weight {:.4f} "
          "[context], eager call {:.4f}); down {:.4f} ms (bound {:.4f}, "
          "plain {:.4f}, matmul {:.4f} [context], eager call {:.4f})".format(
@@ -224,31 +461,65 @@ def phase_timing(gen) -> dict:
              u["matmul_dequantized_ms"], u["eager_ms"], d["ms"],
              d["bound_ms"], d["plain_ms"], d["matmul_dequantized_ms"],
              d["eager_ms"]))
-    return res
+    gu, gd = gidx[UP[0]], gidx[DOWN[0]]
+    ratio = _per_layer(gidx, "ms") / _per_layer(ordered, "ms")
+    in_kernel = _per_layer(gidx, "ms") / _per_layer(gidx, "ordered_layout_ms")
+    line("timing", "K4 f32 M=4, CUDA-graph replay: up/gate {:.4f} ms (bound "
+         "{:.4f}, plain {:.4f}, eager call {:.4f}); down {:.4f} ms (bound "
+         "{:.4f}, plain {:.4f}, eager call {:.4f}); per layer K4 {:.4f} ms "
+         "/ K1 {:.4f} ms = {:.2f}x (naive g_idx vs ordered groups); K4 on "
+         "the ordered layout (g_idx = k // gs): up/gate {:.4f}, down {:.4f}, "
+         "per layer {:.4f} ms, so naive/ordered within K4 = {:.2f}x".format(
+             gu["ms"], gu["bound_ms"], gu["plain_ms"], gu["eager_ms"],
+             gd["ms"], gd["bound_ms"], gd["plain_ms"], gd["eager_ms"],
+             _per_layer(gidx, "ms"), _per_layer(ordered, "ms"), ratio,
+             gu["ordered_layout_ms"], gd["ordered_layout_ms"],
+             _per_layer(gidx, "ordered_layout_ms"), in_kernel))
+    du, dd = deq[UP[0]], deq[DOWN[0]]
+    line("timing", "K5 f32 out, CUDA-graph replay: up/gate {:.4f} ms (bound "
+         "{:.4f}, plain {:.4f}); down {:.4f} ms (bound {:.4f}, plain "
+         "{:.4f})".format(du["ms"], du["bound_ms"], du["plain_ms"],
+                          dd["ms"], dd["bound_ms"], dd["plain_ms"]))
+    line("timing", "K2 f32 B1 H32 S=T=2048 D128 causal: {:.4f} ms (bound "
+         "{:.4f} by {}, {:.3g} GFLOP; plain {:.4f}; "
+         "scaled_dot_product_attention {:.4f} [library])".format(
+             flash["ms"], flash["bound_ms"], flash["bound_by"],
+             flash["flops"] / 1e9, flash["plain_ms"], flash["library_ms"]))
+    return {"dequant_matmul_ordered": ordered, "dequant_matmul_gidx": gidx,
+            "gidx_over_ordered_per_layer": ratio,
+            "gidx_naive_over_ordered_layout_per_layer": in_kernel,
+            "dequantize_ordered": deq, "flash_attention": flash}
 
 
-def phase_serve(cfg):
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    engine = make_engine(cfg, 0, device="cuda", max_seq=32 + 16 + 1)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    if engine.policy.backend != "cuda":
-        raise AssertionError(f"auto policy picked {engine.policy.backend!r}")
-    sched = Scheduler(engine, max_batch=4, prompt_budget=32,
-                      scfg=SamplingConfig(temperature=0.8, top_k=40), seed=0)
+def _submit_requests(sched, cfg):
     rng = np.random.default_rng(0)
     for i in range(4):
         plen = int(rng.integers(4, 32))
         sched.submit(Request(rid=i, prompt=rng.integers(
             0, cfg.vocab_size, size=plen).astype(np.int32),
             max_new_tokens=16))
-    dk.dequant_matmul_ordered.launches = 0
+
+
+def phase_serve(cfg, kernel: str, phase: str = "serve"):
+    """Full-width serve of four requests on backend=cuda; every decode
+    step must launch ``kernel`` 108 times and no other counted kernel."""
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()  # engines alive from earlier
+    t0 = time.perf_counter()
+    engine = make_engine(cfg, 0, device="cuda", max_seq=32 + 16 + 1)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    if engine.policy.backend != "cuda":
+        raise AssertionError(f"policy picked {engine.policy.backend!r}")
+    sched = Scheduler(engine, max_batch=4, prompt_budget=32,
+                      scfg=SamplingConfig(temperature=0.8, top_k=40), seed=0)
+    _submit_requests(sched, cfg)
+    reset_counts()
     t0 = time.perf_counter()
     done = sched.run()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = dk.dequant_matmul_ordered.launches
+    counts = read_counts()
     steps = sched.steps
     tokens = sum(len(r.output) for r in done.values())
     if sorted(done) != [0, 1, 2, 3] or any(
@@ -257,22 +528,24 @@ def phase_serve(cfg):
             for r in done.values()):
         raise AssertionError(f"requests incomplete: "
                              f"{ {k: r.output for k, r in done.items()} }")
-    if launches != LAUNCHES_PER_STEP * steps:
-        raise AssertionError(f"kernel launches {launches} != "
-                             f"{LAUNCHES_PER_STEP} x {steps} decode steps")
+    expect_counts(counts, {kernel: LAUNCHES_PER_STEP * steps},
+                  f"{phase} ({steps} decode steps)")
     peak = torch.cuda.max_memory_allocated()
-    out = {"init_s": init_s, "run_s": dt, "tokens": tokens,
-           "tokens_per_s": tokens / dt, "decode_steps": steps,
-           "launches": launches, "ms_per_step": dt / steps * 1e3,
-           "peak_bytes": peak,
+    out = {"scheme": cfg.quant.scheme, "init_s": init_s, "run_s": dt,
+           "tokens": tokens, "tokens_per_s": tokens / dt,
+           "decode_steps": steps, "launches": counts[kernel],
+           "counts": counts, "ms_per_step": dt / steps * 1e3,
+           "peak_bytes": peak, "allocated_before_bytes": before,
            "first_ids": {k: r.output[:4] for k, r in sorted(done.items())}}
-    line("serve", f"qwen3-4b 36L d2560 ff9728 vocab151936 on cuda: 4 "
-                  f"requests, {tokens} tokens in {dt:.2f}s "
-                  f"({tokens / dt:.1f} tok/s, {out['ms_per_step']:.1f} "
-                  f"ms/step), {steps} decode steps, kernel launches "
-                  f"{launches} = 108 x {steps}, init {init_s:.1f}s, "
-                  f"max_memory_allocated {peak / 2**30:.2f} GiB, first ids "
-                  f"{out['first_ids']}")
+    line(phase, f"qwen3-4b 36L d2560 ff9728 vocab151936 on cuda, "
+                f"{cfg.quant.scheme}: 4 requests, {tokens} tokens in "
+                f"{dt:.2f}s ({tokens / dt:.1f} tok/s, "
+                f"{out['ms_per_step']:.1f} ms/step), {steps} decode steps, "
+                f"{kernel} launches {counts[kernel]} = 108 x {steps} (other "
+                f"kernels 0), init {init_s:.1f}s, max_memory_allocated "
+                f"{peak / 2**30:.2f} GiB ({before / 2**30:.2f} GiB of it "
+                f"allocated before this engine), first ids "
+                f"{out['first_ids']}")
     return engine, out
 
 
@@ -288,12 +561,63 @@ def _greedy_trace(engine, tokens, plen, n):
     return torch.stack(ids, 1), torch.stack(trace, 1)
 
 
+def _agree(ids_a, ids_b, lg_a, lg_b, text: str) -> tuple[str, dict]:
+    """Ids agree, or differ first where the reference's (``b``) top two
+    logits are closer than the largest logit gap: a near tie.  The gap
+    must stay within 5e-2 of max|logit|."""
+    gap = (lg_a - lg_b).abs().max().item()
+    scale = lg_b.abs().max().item()
+    agree = bool(torch.equal(ids_a, ids_b))
+    text += f": max logit gap {gap:.3g} (max|logit| {scale:.3g}), ids " \
+            f"agree: {agree}"
+    out = {"max_logit_gap": gap, "max_logit": scale, "ids_agree": agree}
+    if not agree:
+        first = (ids_a != ids_b).nonzero()[0].tolist()
+        top2 = lg_b[tuple(first)].topk(2).values
+        margin = (top2[0] - top2[1]).item()
+        text += f"; first divergence at {first}, top-2 margin {margin:.3g}"
+        out.update(first_divergence=first, top2_margin=margin)
+        if margin > gap:
+            raise AssertionError(f"disagreement beyond a near tie: {text}")
+    if not gap <= 5e-2 * scale:
+        raise AssertionError(f"logit gap too large: {text}")
+    return text, out
+
+
+def _greedy_compare(eng_a, eng_b, cfg, text: str) -> tuple[str, dict]:
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 12))).cuda()
+    plen = torch.tensor([12, 9], device="cuda")
+    ids_a, lg_a = _greedy_trace(eng_a, toks, plen, 8)
+    ids_b, lg_b = _greedy_trace(eng_b, toks, plen, 8)
+    text, out = _agree(ids_a, ids_b, lg_a, lg_b, text)
+    out.update(ids_a=ids_a.tolist(), ids_b=ids_b.tolist())
+    return text, out
+
+
+def _device_kernels(run, per: int) -> tuple[float, float, dict]:
+    """Profile ``run()`` with ``torch.profiler``: (device ms of kernels and
+    copies, how many were launched, the five largest by ms), each per
+    one of the ``per`` repetitions ``run`` makes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+    by_name = {}      # kernels only: host ops also report device time
+    events = 0
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            by_name[e.key] = (by_name.get(e.key, 0.0)
+                              + e.self_device_time_total / 1e3 / per)
+            events += e.count
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return sum(by_name.values()), events / per, dict(top)
+
+
 def phase_trace(engine) -> dict:
     """Device time of full-width decode steps (4 slots, cache half full)
     by kernel, from ``torch.profiler``, against the same steps' wall
     time measured without the profiler: the device's busy share."""
-    from torch.profiler import ProfilerActivity, profile
-
     cache = engine.init_cache(4)
     tokens = torch.arange(4, device="cuda")
     pos = torch.full((4,), 24, device="cuda")
@@ -308,60 +632,151 @@ def phase_trace(engine) -> dict:
     t0 = time.perf_counter()
     run()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
-    by_name = {}      # kernels only: host ops also report device time
-    events = 0        # device kernels and copies launched
-    for e in prof.key_averages():
-        if str(e.device_type).endswith("CUDA"):
-            by_name[e.key] = (by_name.get(e.key, 0.0)
-                              + e.self_device_time_total / 1e3 / steps)
-            events += e.count
-    device_ms = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    device_ms, events, top = _device_kernels(run, steps)
     out = {"wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
            "busy_share": device_ms / wall_ms,
-           "device_events_per_step": events / steps,
-           "top_kernels_ms_per_step": dict(top)}
+           "device_events_per_step": events,
+           "top_kernels_ms_per_step": top}
     line("trace", f"decode step {wall_ms:.1f} ms wall (no profiler), "
                   f"{device_ms:.2f} ms of kernels -> device busy "
                   f"{100 * device_ms / wall_ms:.1f}%; "
-                  f"{events / steps:.0f} device kernels/copies per step; "
+                  f"{events:.0f} device kernels/copies per step; "
                   f"top kernels ms/step: "
-                  + ", ".join(f"{k[:40]} {v:.3f}" for k, v in top))
+                  + ", ".join(f"{k[:40]} {v:.3f}" for k, v in top.items()))
     return out
 
 
-def phase_crosscheck(engine, cfg):
+def phase_crosscheck(engine, cfg) -> dict:
     other = Engine(model=engine.model, params=engine.params,
                    device=engine.device, max_seq=engine.max_seq,
                    policy=engine.policy.with_(backend="torch"))
-    rng = np.random.default_rng(1)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 12))).cuda()
-    plen = torch.tensor([12, 9], device="cuda")
-    ids_c, lg_c = _greedy_trace(engine, toks, plen, 8)
-    ids_t, lg_t = _greedy_trace(other, toks, plen, 8)
-    gap = (lg_c - lg_t).abs().max().item()
-    scale = lg_t.abs().max().item()
-    agree = bool(torch.equal(ids_c, ids_t))
-    text = (f"greedy 2 prompts x 8 tokens, cuda vs torch backend: max logit "
-            f"gap {gap:.3g} (max|logit| {scale:.3g}), ids agree: {agree}")
-    out = {"max_logit_gap": gap, "max_logit": scale, "ids_agree": agree,
-           "ids_cuda": ids_c.tolist(), "ids_torch": ids_t.tolist()}
-    if not agree:
-        row, step = (ids_c != ids_t).nonzero()[0].tolist()
-        top2 = lg_t[row, step].topk(2).values
-        margin = (top2[0] - top2[1]).item()
-        text += f"; first divergence row {row} step {step}, top-2 margin " \
-                f"{margin:.3g}"
-        out.update(divergent_step=step, top2_margin=margin)
-        if margin > gap:
-            raise AssertionError(f"backends disagree beyond a near tie: "
-                                 f"{text}")
-    if not gap <= 5e-2 * scale:
-        raise AssertionError(f"backend logit gap too large: {text}")
+    text, out = _greedy_compare(engine, other, cfg, "greedy 2 prompts x 8 "
+                                "tokens, cuda vs torch backend")
     line("crosscheck", text)
     return out
+
+
+def phase_scheme_crosscheck(tp_engine, naive_engine, cfg) -> dict:
+    """Both plans quantize the same weights from seed 0 into the same
+    codes; naive-actorder keeps the original rows and tp-aware sorts them
+    and folds P2, so the two compute one function up to float32 sum
+    order."""
+    text, out = _greedy_compare(
+        naive_engine, tp_engine, cfg, "greedy 2 prompts x 8 tokens, "
+        "naive-actorder (K4) vs tp-aware (K1)")
+    line("scheme-crosscheck", text)
+    return out
+
+
+def phase_forward_flash(engine, cfg) -> dict:
+    """``prefill_logits`` of one 2048-token sequence with the flash kernel
+    and with the einsum attention, on the same params."""
+    s = 2048
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (1, s))).cuda()
+    flash = dataclasses.replace(engine, attn_backend="flash")
+    res = {}
+    for name, eng in (("flash", flash), ("xla", engine)):
+        eng.prefill_logits(toks)                    # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        logits = eng.prefill_logits(toks)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = read_counts()
+        expect_counts(counts, {
+            "dequant_matmul_ordered": LAUNCHES_PER_STEP,
+            "flash_attention": LAYERS if name == "flash" else 0},
+            f"forward {name}")
+        res[name] = {"wall_ms": wall, "counts": counts, "logits": logits}
+        device_ms, events, top = _device_kernels(
+            lambda eng=eng: (eng.prefill_logits(toks),
+                             torch.cuda.synchronize()), 1)
+        res[name].update(device_ms=device_ms, device_events=events,
+                         top_kernels_ms=top)
+    lf, lx = res["flash"].pop("logits"), res["xla"].pop("logits")
+    if lf.shape != (1, s, cfg.vocab_size) or not torch.isfinite(lf).all():
+        raise AssertionError(f"flash forward logits {tuple(lf.shape)} not "
+                             f"finite of the expected shape")
+    gap = (lf - lx).abs().max().item()
+    scale = lx.abs().max().item()
+    if not gap <= 5e-2 * scale:
+        raise AssertionError(f"flash vs xla forward: logit gap {gap:.3g} "
+                             f"above 5e-2 of max|logit| {scale:.3g}")
+    pos_agree = (lf.argmax(-1) == lx.argmax(-1)).float().mean().item()
+    last_f, last_x = lf[:, -1:], lx[:, -1:]
+    text, out = _agree(last_f.argmax(-1), last_x.argmax(-1), last_f, last_x,
+                       "last-position greedy id, flash vs xla")
+    text += f"; all positions: max logit gap {gap:.3g} (max|logit| " \
+            f"{scale:.3g})"
+    out.update(res, all_positions_max_logit_gap=gap,
+               all_positions_max_logit=scale,
+               positions_argmax_agree=pos_agree,
+               flash_launches=res["flash"]["counts"]["flash_attention"])
+    line("forward-flash", f"qwen3-4b B1 S{s}: flash "
+                          f"{res['flash']['wall_ms']:.1f} ms, xla "
+                          f"{res['xla']['wall_ms']:.1f} ms wall; "
+                          f"flash_attention launches "
+                          f"{out['flash_launches']} = 36; {text}; argmax "
+                          f"agrees at {100 * pos_agree:.2f}% of positions")
+    for name in ("flash", "xla"):
+        r = res[name]
+        line("forward-flash", f"{name} forward under torch.profiler: "
+                              f"{r['device_ms']:.1f} ms of kernels, "
+                              f"{r['device_events']:.0f} kernels/copies; "
+                              f"top ms: " + ", ".join(
+                                  f"{k[:40]} {v:.1f}"
+                                  for k, v in r["top_kernels_ms"].items()))
+    return out
+
+
+def phase_dequantize(engine) -> dict:
+    """Materialize every MLP weight through ``ops.dequantize``; each is
+    bit-equal to the plain dequantize."""
+    reset_counts()
+    t0 = time.perf_counter()
+    n = 0
+    for layer in engine.params["layers"]:
+        mlp = layer["mlp"]
+        for ql in (mlp.up, mlp.gate, mlp.down):
+            w = ops.dequantize(ql)
+            if not torch.equal(w, qz.dequantize(ql)):
+                raise AssertionError(f"ops.dequantize differs from the "
+                                     f"plain dequantize at weight {n}")
+            n += 1
+            del w
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    expect_counts(counts, {"dequantize_ordered": LAUNCHES_PER_STEP},
+                  "dequantize")
+    line("dequantize", f"{n} full-width MLP weights materialized through "
+                       f"ops.dequantize in {dt:.2f}s (with the plain "
+                       f"comparison), dequantize_ordered launches "
+                       f"{counts['dequantize_ordered']} = 108, all "
+                       f"bit-equal")
+    return {"weights": n, "seconds": dt,
+            "launches": counts["dequantize_ordered"]}
+
+
+def _entry(name, source, replaces, launches, max_abs_err, t: dict,
+           library_ms=None) -> dict:
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max_abs_err, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": library_ms}
+
+
+def _layer(res: dict) -> dict:
+    """One layer's three launches (up, gate, down) of a per-shape
+    timing."""
+    bound_by = ("bytes" if res[UP[0]]["bound_by"] == res[DOWN[0]]["bound_by"]
+                == "bytes" else "operations")
+    return {"ms": _per_layer(res, "ms"), "plain_ms": _per_layer(res,
+                                                                "plain_ms"),
+            "bound_ms": _per_layer(res, "bound_ms"), "bound_by": bound_by}
 
 
 def main() -> int:
@@ -375,36 +790,54 @@ def main() -> int:
     smi = phase_device()
     build = phase_build()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    worst, checks = phase_check(gen)
+    checks = phase_check(gen)
     timing = phase_timing(gen)
-    cfg = get_config("qwen3-4b").with_quant(mode="mlp", scheme="tp-aware",
-                                            backend="auto")
-    engine, serve = phase_serve(cfg)
+    base = get_config("qwen3-4b")
+    cfg = base.with_quant(mode="mlp", scheme="tp-aware", backend="auto")
+    engine, serve = phase_serve(cfg, "dequant_matmul_ordered")
     trace = phase_trace(engine)
     cross = phase_crosscheck(engine, cfg)
+    naive_cfg = base.with_quant(mode="mlp", scheme="naive-actorder",
+                                backend="cuda")
+    naive, serve_naive = phase_serve(naive_cfg, "dequant_matmul_gidx",
+                                     "serve-naive")
+    scheme_cross = phase_scheme_crosscheck(engine, naive, cfg)
+    del naive
+    torch.cuda.empty_cache()
+    forward = phase_forward_flash(engine, cfg)
+    materialize = phase_dequantize(engine)
 
-    u, d = timing[UP[0]], timing[DOWN[0]]
-    # one layer's three launches at M=4: up, gate (same shape) and down
-    kernel = {
-        "name": "dequant_matmul_ordered", "route": "cuda",
-        "source": "src/repro_torch/csrc/dequant_matmul_ordered.cu",
-        "replaces": "src/repro/kernels/dequant_matmul.py:104",
-        "launches": serve["launches"], "max_abs_err": worst,
-        "ms": 2 * u["ms"] + d["ms"],
-        "plain_ms": 2 * u["plain_ms"] + d["plain_ms"],
-        "bound_ms": 2 * u["bound_ms"] + d["bound_ms"],
-        "bound_by": "bytes" if u["bound_by"] == d["bound_by"] == "bytes"
-        else "operations",
-        "library_ms": None,
-    }
+    src = "src/repro_torch/csrc/"
+    tpu = "src/repro/kernels/"
+    kernels = [
+        _entry("dequant_matmul_ordered", src + "dequant_matmul_ordered.cu",
+               tpu + "dequant_matmul.py:104", serve["launches"],
+               checks["dequant_matmul_ordered"]["main_max_abs_err"],
+               _layer(timing["dequant_matmul_ordered"])),
+        _entry("dequant_matmul_gidx", src + "dequant_matmul_gidx.cu",
+               tpu + "dequant_matmul.py:333", serve_naive["launches"],
+               checks["dequant_matmul_gidx"]["main_max_abs_err"],
+               _layer(timing["dequant_matmul_gidx"])),
+        _entry("dequantize_ordered", src + "dequantize_ordered.cu",
+               tpu + "dequant_matmul.py:398", materialize["launches"],
+               checks["dequantize_ordered"]["main_max_abs_err"],
+               _layer(timing["dequantize_ordered"])),
+        _entry("flash_attention", src + "flash_attention.cu",
+               tpu + "flash_attention.py:107", forward["flash_launches"],
+               checks["flash_attention"]["main_max_abs_err"],
+               timing["flash_attention"],
+               timing["flash_attention"]["library_ms"]),
+    ]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"nvidia_smi": smi, "build": build, "check": checks,
                    "timing": timing, "serve": serve, "trace": trace,
-                   "crosscheck": cross,
-                   "kernel": kernel,
+                   "crosscheck": cross, "serve_naive": serve_naive,
+                   "scheme_crosscheck": scheme_cross,
+                   "forward_flash": forward, "dequantize": materialize,
+                   "kernels": kernels,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": kernels}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

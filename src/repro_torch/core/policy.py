@@ -79,7 +79,9 @@ class ExecutionPolicy:
              **overrides) -> "ExecutionPolicy":
         """The CUDA kernel for ordered layouts whose tensors live on the
         card, else the plain ``torch`` path (mirrors the reference's
-        pallas-on-TPU rule)."""
+        pallas-on-TPU rule).  The naive ``g_idx`` layout takes ``torch``
+        even on the card, as the reference takes ``jnp``; its CUDA kernel
+        runs when ``backend="cuda"`` is asked for."""
         on_cuda = device is not None and torch.device(device).type == "cuda"
         ordered = scheme != "naive-actorder"
         backend = "cuda" if (on_cuda and ordered) else "torch"

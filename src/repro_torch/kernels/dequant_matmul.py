@@ -1,47 +1,54 @@
-"""Ordered-groups int4 dequant-GEMM: the Hopper kernel and its plain
-version; port of ``repro/kernels/dequant_matmul.py::dequant_matmul_ordered``.
+"""Int4 dequant kernels for Hopper and their plain versions; port of
+``repro/kernels/dequant_matmul.py``.
 
-The kernel is CUDA C++ (``src/repro_torch/csrc/dequant_matmul_ordered.cu``;
-its source note says what bounds it and how it is built up).  It is
-compiled with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
-interface the first time a CUDA tensor reaches the wrapper, cached under
-``build/`` at the repository root by the source's content hash, and
-loaded with ``ctypes``.
+* ``dequant_matmul_ordered`` (K1): the ordered-groups dequant-GEMM,
+  ``csrc/dequant_matmul_ordered.cu``.
+* ``dequant_matmul_gidx`` (K4): the naive act-order dequant-GEMM, each row
+  gathering its group through ``g_idx``, ``csrc/dequant_matmul_gidx.cu``.
+* ``dequantize_ordered`` (K5): the ordered-groups weight materializer,
+  ``csrc/dequantize_ordered.cu``.
 
-``dequant_matmul_ordered`` runs the plain version only for tensors on the
-CPU; for CUDA tensors it launches the kernel or raises.
+Each source note says what bounds the kernel and how it is built up.
+``kernels/build.py`` compiles a source with ``nvcc`` for ``sm_90a`` the
+first time a CUDA tensor reaches its wrapper and loads it with
+``ctypes``.  Each wrapper runs its plain version (``*_torch``) only for
+tensors on the CPU; for CUDA tensors it launches its kernel, counted in
+``<wrapper>.launches``, or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
 from math import gcd
-from pathlib import Path
 
 import torch
 
 from repro_torch.core import quantization as qz
+from repro_torch.kernels import build
 
 PACK = qz.PACK
-SOURCE = (Path(__file__).resolve().parents[1] / "csrc"
-          / "dequant_matmul_ordered.cu")
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: largest K step the default tiling asks for (shared memory per stage
 #: grows with it; see the kernel's stage layout)
 TARGET_BLOCK_K = 256
 
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_STR = ctypes.c_char_p
+ORDERED = build.Kernel("dequant_matmul_ordered", (
+    ("dequant_matmul_ordered", (_P,) * 6 + (_LL,) + (_I,) * 6 + (_P,), _I),
+    ("dequant_matmul_partial_floats", (_I,) * 5, _LL),
+    ("dequant_matmul_smem_bytes", (_I,) * 4, _I),
+    ("dequant_matmul_error_string", (_I,), _STR)))
+GIDX = build.Kernel("dequant_matmul_gidx", (
+    ("dequant_matmul_gidx", (_P,) * 7 + (_LL,) + (_I,) * 5 + (_P,), _I),
+    ("dequant_matmul_gidx_partial_floats", (_I,) * 4, _LL),
+    ("dequant_matmul_gidx_smem_bytes", (_I,) * 2, _I),
+    ("dequant_matmul_gidx_error_string", (_I,), _STR)))
+DEQUANTIZE = build.Kernel("dequantize_ordered", (
+    ("dequantize_ordered", (_P,) * 4 + (_I,) * 4 + (_P,), _I),
+    ("dequantize_ordered_error_string", (_I,), _STR)))
+KERNELS = (ORDERED, GIDX, DEQUANTIZE)
+
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_lib = None
-#: what the last build printed: {"seconds", "ptxas", "path"}
-build_info: dict = {}
 
 
 def pick_block_k(k: int, group_size: int, target: int = TARGET_BLOCK_K) -> int:
@@ -58,71 +65,95 @@ def pick_block_k(k: int, group_size: int, target: int = TARGET_BLOCK_K) -> int:
     return bk
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found (looked on PATH and in "
-                           "/usr/local/cuda/bin); the CUDA kernel cannot be "
-                           "built")
-    return path
+def _gather_dequant(qweight, scales, zeros, rows, dtype):
+    """``(unpack(qweight) - zeros[rows]) * scales[rows]`` in float32,
+    rounded to ``dtype``."""
+    q = qz.unpack_int4(qweight).to(torch.float32)
+    s = scales.index_select(0, rows).to(torch.float32)
+    z = zeros.index_select(0, rows).to(torch.float32)
+    return ((q - z) * s).to(dtype)
 
 
-def build() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernel's shared library."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = BUILD_DIR / f"dequant_matmul_ordered-{digest[:16]}.so"
-    t0 = time.perf_counter()
-    ptxas = "(cached build)"
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-        ptxas = proc.stdout + proc.stderr
-    lib = ctypes.CDLL(str(out))
-    fn = lib.dequant_matmul_ordered
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong]
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    lib.dequant_matmul_partial_floats.argtypes = [ctypes.c_int] * 5
-    lib.dequant_matmul_partial_floats.restype = ctypes.c_longlong
-    lib.dequant_matmul_smem_bytes.argtypes = [ctypes.c_int] * 4
-    lib.dequant_matmul_smem_bytes.restype = ctypes.c_int
-    lib.dequant_matmul_error_string.argtypes = [ctypes.c_int]
-    lib.dequant_matmul_error_string.restype = ctypes.c_char_p
-    build_info.update(seconds=time.perf_counter() - t0, ptxas=ptxas,
-                      path=str(out))
-    _lib = lib
-    return lib
+def _group_rows(qweight, group_size):
+    k = qweight.shape[0] * PACK
+    return torch.arange(k, device=qweight.device) // group_size
 
 
 def dequant_matmul_ordered_torch(x, qweight, scales, zeros, *, group_size,
                                  compute_dtype=torch.float32):
     """Plain version: unpack, gather the metadata by ``arange(K) // gs``,
     dequantize, round both operands to ``compute_dtype``, ``matmul``."""
-    k = qweight.shape[0] * PACK
-    q = qz.unpack_int4(qweight).to(torch.float32)
-    g_idx = torch.arange(k, device=q.device) // group_size
-    s = scales.index_select(0, g_idx).to(torch.float32)
-    z = zeros.index_select(0, g_idx).to(torch.float32)
-    w = ((q - z) * s).to(compute_dtype)
+    w = _gather_dequant(qweight, scales, zeros,
+                        _group_rows(qweight, group_size), compute_dtype)
     return torch.matmul(x.to(compute_dtype), w)
+
+
+def dequant_matmul_gidx_torch(x, qweight, scales, zeros, g_idx, *,
+                              compute_dtype=torch.float32):
+    """Plain version (the twin of the reference's
+    ``ref.dequant_matmul_gidx``): unpack, gather the metadata by
+    ``g_idx``, dequantize, round both operands to ``compute_dtype``,
+    ``matmul``."""
+    w = _gather_dequant(qweight, scales, zeros, g_idx.long(), compute_dtype)
+    return torch.matmul(x.to(compute_dtype), w)
+
+
+def dequantize_ordered_torch(qweight, scales, zeros, *, group_size,
+                             out_dtype=torch.float32):
+    """Plain version: ``(unpack(qweight) - zeros[k//gs]) * scales[k//gs]``
+    in float32, rounded to ``out_dtype``."""
+    return _gather_dequant(qweight, scales, zeros,
+                           _group_rows(qweight, group_size), out_dtype)
+
+
+def _check_cuda(x: torch.Tensor, dtype, what: str):
+    """Raise unless ``x`` is on the card and ``dtype`` is one the kernels
+    take."""
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    if dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"the CUDA kernel's {what} is float32 or bfloat16, "
+                         f"got {dtype}")
 
 
 def _check_aligned(name: str, t: torch.Tensor):
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must start on a 16-byte boundary "
                          f"(data_ptr % 16 = {t.data_ptr() % 16})")
+
+
+def _check_operands(device, operands: dict):
+    """``operands``: name -> (tensor, shape, dtype); each must match and
+    be a contiguous, 16-byte aligned tensor on ``device``."""
+    for name, (t, shape, dtype) in operands.items():
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype} of shape {shape}, got "
+                             f"{t.dtype} of shape {tuple(t.shape)}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        _check_aligned(name, t)
+
+
+def _x_operand(x: torch.Tensor, qweight: torch.Tensor, compute_dtype):
+    """(x in ``compute_dtype``, M, K, N) after checking x against the
+    packed weight."""
+    if x.dim() != 2:
+        raise ValueError(f"x must be (M, K), got shape {tuple(x.shape)}")
+    m, k = x.shape
+    if k % PACK:
+        raise ValueError(f"K={k} must be a multiple of {PACK}")
+    x = x.to(compute_dtype).contiguous()
+    _check_aligned("x", x)
+    return x, m, k, qweight.shape[1]
+
+
+def _raise_on(err: int, lib, kernel: str, shape: str):
+    if err != 0:
+        msg = getattr(lib, f"{kernel}_error_string")(err).decode()
+        raise RuntimeError(f"{kernel} kernel launch failed: cuda error {err} "
+                           f"({msg}) at {shape}")
 
 
 def dequant_matmul_ordered(
@@ -144,40 +175,21 @@ def dequant_matmul_ordered(
         return dequant_matmul_ordered_torch(
             x, qweight, scales, zeros, group_size=group_size,
             compute_dtype=compute_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
-    if compute_dtype not in _KERNEL_DTYPES:
-        raise ValueError(f"the CUDA kernel computes in float32 or bfloat16, "
-                         f"got {compute_dtype}")
-    if x.dim() != 2:
-        raise ValueError(f"x must be (M, K), got shape {tuple(x.shape)}")
-    m, k = x.shape
-    n = qweight.shape[1]
-    if k % PACK or k % group_size:
-        raise ValueError(f"K={k} must be a multiple of {PACK} and of "
+    _check_cuda(x, compute_dtype, "compute type")
+    x, m, k, n = _x_operand(x, qweight, compute_dtype)
+    if k % group_size:
+        raise ValueError(f"K={k} must be a multiple of "
                          f"group_size={group_size}")
-    expect = {"qweight": ((k // PACK, n), torch.int32),
-              "scales": ((k // group_size, n), torch.float32),
-              "zeros": ((k // group_size, n), torch.float32)}
-    for name, t in (("qweight", qweight), ("scales", scales),
-                    ("zeros", zeros)):
-        shape, dtype = expect[name]
-        if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(f"{name} must be {dtype} of shape {shape}, got "
-                             f"{t.dtype} of shape {tuple(t.shape)}")
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        _check_aligned(name, t)
+    g = k // group_size
+    _check_operands(x.device, {
+        "qweight": (qweight, (k // PACK, n), torch.int32),
+        "scales": (scales, (g, n), torch.float32),
+        "zeros": (zeros, (g, n), torch.float32)})
     bk = pick_block_k(k, group_size)
-
-    x = x.to(compute_dtype).contiguous()
-    _check_aligned("x", x)
     y = torch.empty((m, n), dtype=compute_dtype, device=x.device)
     if m == 0 or n == 0:
         return y
-    lib = build()
+    lib = build.load(ORDERED)
     with torch.cuda.device(x.device):
         # the kernel splits K from the card's SM count; it says how much
         # float32 scratch that takes
@@ -193,13 +205,114 @@ def dequant_matmul_ordered(
                 zeros.data_ptr(), y.data_ptr(),
                 None if partial is None else partial.data_ptr(), floats, m,
                 n, k, group_size, bk, _KERNEL_DTYPES[compute_dtype], stream)
-    if err != 0:
-        raise RuntimeError(
-            f"dequant_matmul_ordered kernel launch failed: cuda error {err} "
-            f"({lib.dequant_matmul_error_string(err).decode()}) at "
-            f"M={m} N={n} K={k} gs={group_size} bk={bk}")
+    _raise_on(err, lib, "dequant_matmul", f"M={m} N={n} K={k} "
+              f"gs={group_size} bk={bk}")
     dequant_matmul_ordered.launches += 1
     return y
 
 
 dequant_matmul_ordered.launches = 0
+
+
+def dequant_matmul_gidx(
+    x: torch.Tensor,            # (M, K)
+    qweight: torch.Tensor,      # (K // 8, N) int32 words, original row order
+    scales: torch.Tensor,       # (G, N) float32
+    zeros: torch.Tensor,        # (G, N) float32
+    g_idx: torch.Tensor,        # (K,) int32 group of each row, in [0, G)
+    *,
+    compute_dtype=torch.float32,
+) -> torch.Tensor:
+    """``x @ ((unpack(qweight) - zeros[g_idx]) * scales[g_idx])`` in
+    ``compute_dtype`` with float32 accumulation: the naive act-order
+    layout, each row gathering its group's metadata.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (counted in ``dequant_matmul_gidx.launches``) or raise.  The kernel
+    trusts ``g_idx`` to lie in ``[0, G)``, as the quantizer writes it.
+    """
+    if x.device.type == "cpu":
+        return dequant_matmul_gidx_torch(x, qweight, scales, zeros, g_idx,
+                                         compute_dtype=compute_dtype)
+    _check_cuda(x, compute_dtype, "compute type")
+    x, m, k, n = _x_operand(x, qweight, compute_dtype)
+    g = scales.shape[0]
+    _check_operands(x.device, {
+        "qweight": (qweight, (k // PACK, n), torch.int32),
+        "scales": (scales, (g, n), torch.float32),
+        "zeros": (zeros, (g, n), torch.float32),
+        "g_idx": (g_idx, (k,), torch.int32)})
+    y = torch.empty((m, n), dtype=compute_dtype, device=x.device)
+    if m == 0 or n == 0:
+        return y
+    lib = build.load(GIDX)
+    with torch.cuda.device(x.device):
+        floats = lib.dequant_matmul_gidx_partial_floats(m, n, k, g)
+        if floats < 0:
+            err = -floats
+        else:
+            partial = (torch.empty(floats, dtype=torch.float32,
+                                   device=x.device) if floats else None)
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = lib.dequant_matmul_gidx(
+                x.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
+                zeros.data_ptr(), g_idx.data_ptr(), y.data_ptr(),
+                None if partial is None else partial.data_ptr(), floats, m,
+                n, k, g, _KERNEL_DTYPES[compute_dtype], stream)
+    _raise_on(err, lib, "dequant_matmul_gidx", f"M={m} N={n} K={k} G={g}")
+    dequant_matmul_gidx.launches += 1
+    return y
+
+
+dequant_matmul_gidx.launches = 0
+
+
+def dequantize_ordered(
+    qweight: torch.Tensor,      # (K // 8, N) int32 words
+    scales: torch.Tensor,       # (G, N) float32
+    zeros: torch.Tensor,        # (G, N) float32
+    *,
+    group_size: int,
+    out_dtype=torch.float32,
+) -> torch.Tensor:
+    """The ordered layout's weight ``(K, N)``:
+    ``(unpack(qweight) - zeros[k//gs]) * scales[k//gs]`` in float32,
+    rounded to ``out_dtype``; bit-equal to the plain version.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (counted in ``dequantize_ordered.launches``) or raise.
+    """
+    if qweight.device.type == "cpu":
+        return dequantize_ordered_torch(qweight, scales, zeros,
+                                        group_size=group_size,
+                                        out_dtype=out_dtype)
+    _check_cuda(qweight, out_dtype, "output type")
+    if qweight.dim() != 2:
+        raise ValueError(f"qweight must be (K // 8, N), got shape "
+                         f"{tuple(qweight.shape)}")
+    k, n = qweight.shape[0] * PACK, qweight.shape[1]
+    if k % group_size:
+        raise ValueError(f"K={k} must be a multiple of "
+                         f"group_size={group_size}")
+    g = k // group_size
+    _check_operands(qweight.device, {
+        "qweight": (qweight, (k // PACK, n), torch.int32),
+        "scales": (scales, (g, n), torch.float32),
+        "zeros": (zeros, (g, n), torch.float32)})
+    out = torch.empty((k, n), dtype=out_dtype, device=qweight.device)
+    if k == 0 or n == 0:
+        return out
+    lib = build.load(DEQUANTIZE)
+    with torch.cuda.device(qweight.device):
+        stream = torch.cuda.current_stream(qweight.device).cuda_stream
+        err = lib.dequantize_ordered(
+            qweight.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
+            out.data_ptr(), n, k, group_size, _KERNEL_DTYPES[out_dtype],
+            stream)
+    _raise_on(err, lib, "dequantize_ordered", f"K={k} N={n} "
+              f"gs={group_size}")
+    dequantize_ordered.launches += 1
+    return out
+
+
+dequantize_ordered.launches = 0

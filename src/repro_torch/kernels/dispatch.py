@@ -5,9 +5,11 @@ Entries:
 
 * ``ref``   -- plain-torch oracle (``kernels/ref.py``), both layouts.
 * ``torch`` -- dequantize, then ``torch.matmul`` (the reference's ``jnp``).
-* ``cuda``  -- the hand-written Hopper kernel, ordered layout only.
+* ``cuda``  -- the hand-written Hopper kernels: the ordered-groups
+  dequant-GEMM for ordered layouts, the ``g_idx`` dequant-GEMM for naive
+  ones (the reference's ``pallas``).
 
-The CUDA kernel takes any K that is a multiple of 8, so the reference's
+The CUDA kernels take any K that is a multiple of 8, so the reference's
 non-tileable fallback has no counterpart: ``cuda`` never quietly runs
 another path, and on CPU tensors it raises.
 
@@ -87,7 +89,8 @@ def _torch_dequant_matmul(x, ql, policy):
 
 
 @register("ordered", "cuda")
-def _cuda_ordered(x, ql, policy):
+@register("naive", "cuda")
+def _cuda_dequant_matmul(x, ql, policy):
     if x.device.type != "cuda":
         raise ValueError(f"backend 'cuda' runs the CUDA kernel and needs "
                          f"tensors on the card; got x on {x.device} (use "

@@ -40,8 +40,10 @@ def main(argv=None):
     ap.add_argument("--scheme", default="tp-aware", choices=SCHEMES)
     ap.add_argument("--backend", default="auto",
                     choices=["auto", "cuda", "torch", "ref"],
-                    help="dequant-GEMM kernel (auto: cuda for ordered "
-                         "layouts on the card, else torch)")
+                    help="dequant-GEMM kernel (cuda: the hand-written "
+                         "kernels, for ordered layouts and for "
+                         "naive-actorder's g_idx layout; auto: cuda for "
+                         "ordered layouts on the card, else torch)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--prompt-budget", type=int, default=32)

@@ -179,11 +179,38 @@ def _sdpa(q, k, v, mask):
     return torch.einsum("bhst,bthd->bshd", w, v).reshape(b, s, h * d)
 
 
+def _flash_sdpa(q, k, v, *, causal: bool, window):
+    """Fused flash-attention path (the CUDA kernel, ``kernels/ops``).
+
+    q: (B, S, H, D); k/v: (B, T, KV, D).  The KV heads are repeated to the
+    full head grid (``jnp.repeat`` == ``repeat_interleave``) and the
+    kernel runs on (B, H, S, D); returns (B, S, H * D).
+    """
+    from repro_torch.kernels import ops
+
+    b, s, h, hd = q.shape
+    g = h // k.shape[2]
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
+    vt = v.transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
+    out = ops.flash_attention(qt, kt, vt, causal=causal, window=window)
+    return out.transpose(1, 2).reshape(b, s, h * hd)
+
+
+ATTN_BACKENDS = ("xla", "flash")
+
+
 def attention_forward(cfg: ModelConfig, p, x, *, positions=None,
-                      window=None, causal=True):
-    """Full-sequence self-attention (the reference's default ``xla``
-    path; the flash kernel and the Q-chunking of very long sequences,
-    which gives the same result, follow in later slices)."""
+                      window=None, causal=True, attn_backend="xla"):
+    """Full-sequence self-attention.
+
+    ``attn_backend`` as in the reference's ``ParallelContext``: ``"xla"``
+    is the einsum path (under the reference's name), ``"flash"`` the flash
+    kernel.  The Q-chunking of very long sequences on the einsum path,
+    which gives the same result, follows in a later slice."""
+    if attn_backend not in ATTN_BACKENDS:
+        raise ValueError(f"unknown attn_backend {attn_backend!r}, expected "
+                         f"one of {ATTN_BACKENDS}")
     b, s, _ = x.shape
     hd = cfg.head_dim
     kvh, _, h = head_grid(cfg)
@@ -198,6 +225,9 @@ def attention_forward(cfg: ModelConfig, p, x, *, positions=None,
             positions = torch.arange(s, device=x.device)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+    if attn_backend == "flash":
+        return matmul(_flash_sdpa(q, k, v, causal=causal, window=window),
+                      p["wo"])
     mask = None
     if causal:
         i = torch.arange(s, device=x.device)[:, None]

@@ -49,9 +49,9 @@ class Model:
             self.cfg, new_generator(seed, resolve_device(device)))
 
     def forward(self, params, batch, policy: ExecutionPolicy, *,
-                window=None):
+                window=None, attn_backend="xla"):
         return self.module.forward(self.cfg, params, batch, policy,
-                                   window=window)
+                                   window=window, attn_backend=attn_backend)
 
     def init_cache(self, batch: int, seq_len: int, *, window=None,
                    dtype=torch.bfloat16, device: DeviceLike = None):

@@ -45,13 +45,15 @@ def _mlp_residual(cfg, lp, x, h, policy):
 
 
 def forward(cfg: ModelConfig, params, batch: dict, policy: ExecutionPolicy,
-            *, window=None) -> torch.Tensor:
-    """Train/prefill forward: batch={"tokens": (B, S)} -> logits."""
+            *, window=None, attn_backend="xla") -> torch.Tensor:
+    """Train/prefill forward: batch={"tokens": (B, S)} -> logits.
+    ``attn_backend``: ``"xla"`` (einsum) or ``"flash"`` (the kernel)."""
     x = cm.embed_tokens(cfg, params["embed"], batch["tokens"])
     for lp in params["layers"]:
         h = cm.attention_forward(cfg, lp["attn"],
                                  cm.apply_norm(cfg, lp["ln1"], x),
-                                 window=window, causal=cfg.causal)
+                                 window=window, causal=cfg.causal,
+                                 attn_backend=attn_backend)
         x = _mlp_residual(cfg, lp, x, h, policy)
     x = cm.apply_norm(cfg, params["final_norm"], x)
     return cm.lm_head(cfg, params["embed"], x)

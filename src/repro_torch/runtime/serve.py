@@ -3,7 +3,9 @@
 artifact).
 
 Prefill replays the prompt through the decode step, exactly as the
-reference does, so prompt and generation share one numeric path.  Batching
+reference does, so prompt and generation share one numeric path.
+``prefill_logits`` is the full-sequence forward (the reference's
+``prefill_logits``), whose attention ``attn_backend`` picks.  Batching
 across requests is the scheduler's job (``runtime/scheduler.py``).
 """
 
@@ -30,6 +32,10 @@ class Engine:
     # The deployment plan every quantized GEMM runs under; None derives
     # it from the model config for ``device``.
     policy: Optional[ExecutionPolicy] = None
+    # Attention of the full-sequence forward (``prefill_logits``): "xla"
+    # (einsum) or "flash" (the kernel); the reference's
+    # ``ParallelContext.attn_backend``.  Decode never uses it.
+    attn_backend: str = "xla"
 
     def __post_init__(self):
         self.device = torch.device(self.device)
@@ -40,6 +46,14 @@ class Engine:
     def init_cache(self, batch: int):
         return self.model.init_cache(batch, self.max_seq, window=self.window,
                                      device=self.device)
+
+    @torch.inference_mode()
+    def prefill_logits(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The full-sequence forward: tokens (B, S) -> logits (B, S, V)
+        (the reference's ``prefill_logits``)."""
+        return self.model.forward(self.params, {"tokens": tokens},
+                                  self.policy, window=self.window,
+                                  attn_backend=self.attn_backend)
 
     @torch.inference_mode()
     def decode(self, cache, tokens: torch.Tensor, pos):

@@ -1,6 +1,9 @@
 """Port parity on the qwen3-4b smoke model: JAX params carried across
 through ``checkpoint.save`` -> ``repro_torch.interop``, then the port's
-decode, forward and engine against the JAX reference's.
+decode, forward and engine against the JAX reference's, for the tp-aware
+plan and the naive act-order one (rows gather their groups through
+``g_idx``), and the forward's flash attention against the reference's
+``attn_backend="flash"``.
 
 Logit tolerance: 5e-3 of max|logits|.  Both frameworks carry activations
 between layers in bf16 (``cfg.dtype``); a last-bit float32 difference in
@@ -17,7 +20,7 @@ import pytest
 import torch
 
 from repro.configs import get_smoke_config as jax_smoke_config
-from repro.models.common import REPLICATED
+from repro.models.common import REPLICATED, ParallelContext
 from repro.models.registry import build_model as jax_build_model
 from repro.runtime.serve import make_engine as jax_make_engine
 from repro.train import checkpoint
@@ -33,17 +36,29 @@ REL_TOL = 5e-3
 CPU = torch.device("cpu")
 
 
-@pytest.fixture(scope="module")
-def carried(tmp_path_factory):
-    """(JAX engine, port engine) over the same params."""
-    jeng = jax_make_engine(jax_smoke_config("qwen3-4b"),
-                           jax.random.PRNGKey(0), max_seq=24)
+def _carry(tmp_path_factory, scheme):
+    """(JAX engine, port engine) over the same params of a ``scheme``
+    plan."""
+    jeng = jax_make_engine(
+        jax_smoke_config("qwen3-4b").with_quant(scheme=scheme),
+        jax.random.PRNGKey(0), max_seq=24)
     path = checkpoint.save(str(tmp_path_factory.mktemp("ckpt") / "p.npz"),
                            jeng.params)
-    model = build_model(get_smoke_config("qwen3-4b"))
+    model = build_model(get_smoke_config("qwen3-4b").with_quant(
+        scheme=scheme))
     teng = Engine(model=model, params=interop.load_params(path, device=CPU),
                   device=CPU, max_seq=24)
     return jeng, teng
+
+
+@pytest.fixture(scope="module")
+def carried(tmp_path_factory):
+    return _carry(tmp_path_factory, "tp-aware")
+
+
+@pytest.fixture(scope="module")
+def carried_naive(tmp_path_factory):
+    return _carry(tmp_path_factory, "naive-actorder")
 
 
 def _leaf(tree, path):
@@ -65,15 +80,8 @@ def test_config_matches_jax():
     assert a == b
 
 
-def test_carried_leaves_bit_equal(carried):
-    jeng, teng = carried
+def _assert_leaves_bit_equal(jeng, teng):
     flat = checkpoint.flatten_keys(jeng.params)
-    assert len(teng.params["layers"]) == 2
-    mlp = teng.params["layers"][0]["mlp"]
-    assert isinstance(mlp, PlannedPair) and isinstance(mlp.up,
-                                                       QuantizedLinear)
-    assert (mlp.scheme, mlp.up.kind, mlp.down.group_size) == \
-        ("tp-aware", "ordered", 32)
     for key, leaf in flat.items():
         ref = np.asarray(leaf)
         if ref.dtype == np.uint32:
@@ -81,6 +89,29 @@ def test_carried_leaves_bit_equal(carried):
         got = _leaf(teng.params, key.split("||")).numpy()
         assert got.dtype == ref.dtype, key
         np.testing.assert_array_equal(got, ref, err_msg=key)
+
+
+def test_carried_leaves_bit_equal(carried):
+    jeng, teng = carried
+    assert len(teng.params["layers"]) == 2
+    mlp = teng.params["layers"][0]["mlp"]
+    assert isinstance(mlp, PlannedPair) and isinstance(mlp.up,
+                                                       QuantizedLinear)
+    assert (mlp.scheme, mlp.up.kind, mlp.down.group_size) == \
+        ("tp-aware", "ordered", 32)
+    _assert_leaves_bit_equal(jeng, teng)
+
+
+def test_carried_naive_leaves_bit_equal(carried_naive):
+    """The naive act-order plan, ``g_idx`` leaves included."""
+    jeng, teng = carried_naive
+    mlp = teng.params["layers"][0]["mlp"]
+    assert (mlp.scheme, mlp.up.kind, mlp.down.kind) == \
+        ("naive-actorder", "naive", "naive")
+    assert mlp.up.g_idx.dtype == torch.int32 and mlp.p1_up is None
+    keys = checkpoint.flatten_keys(jeng.params)
+    assert any(key.endswith("g_idx") for key in keys)
+    _assert_leaves_bit_equal(jeng, teng)
 
 
 def test_decode_steps_match_jax(carried):
@@ -117,7 +148,15 @@ def test_forward_matches_jax(carried):
 
 
 def test_engine_greedy_ids_match_jax(carried):
-    jeng, teng = carried
+    _assert_greedy_ids_match(*carried)
+
+
+def test_engine_greedy_ids_match_jax_naive(carried_naive):
+    """The naive act-order plan: every MLP GEMM gathers through g_idx."""
+    _assert_greedy_ids_match(*carried_naive)
+
+
+def _assert_greedy_ids_match(jeng, teng):
     rng = np.random.default_rng(3)
     toks = rng.integers(0, teng.model.cfg.vocab_size, (4, 8)).astype(np.int32)
     plen = np.array([8, 5, 7, 6], np.int32)
@@ -146,6 +185,42 @@ def _jax_logits_at(jeng, toks, plen, ids, step):
         logits, cache = jeng._decode(jeng.params, cache,
                                      jnp.asarray(ids[:, i]), pos + i)
     return np.asarray(logits)
+
+
+def test_flash_forward_matches_jax_flash(carried):
+    """The forward with ``attn_backend="flash"`` (the kernel's plain
+    version on the CPU) against the JAX forward under
+    ``ParallelContext(attn_backend="flash")`` (the Pallas kernel in
+    interpret mode)."""
+    jeng, teng = carried
+    toks = np.random.default_rng(4).integers(
+        0, teng.model.cfg.vocab_size, (2, 16)).astype(np.int32)
+    ref = np.asarray(jeng.model.forward(
+        jeng.params, {"tokens": jnp.asarray(toks)},
+        ParallelContext(attn_backend="flash")))
+    got = teng.model.forward(teng.params,
+                             {"tokens": torch.from_numpy(toks).long()},
+                             teng.policy, attn_backend="flash").numpy()
+    assert got.shape == ref.shape
+    assert np.abs(got - ref).max() <= REL_TOL * np.abs(ref).max()
+    with pytest.raises(ValueError, match="unknown attn_backend"):
+        teng.model.forward(teng.params,
+                           {"tokens": torch.from_numpy(toks).long()},
+                           teng.policy, attn_backend="pallas")
+
+
+@pytest.mark.parametrize("attn_backend", ["xla", "flash"])
+def test_engine_prefill_logits_is_the_forward(carried, attn_backend):
+    """``Engine.prefill_logits`` is ``Model.forward`` under the engine's
+    plan and attention backend."""
+    _, teng = carried
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, teng.model.cfg.vocab_size, (2, 12))).long()
+    eng = Engine(model=teng.model, params=teng.params, device=CPU,
+                 max_seq=24, attn_backend=attn_backend)
+    want = teng.model.forward(teng.params, {"tokens": toks}, teng.policy,
+                              attn_backend=attn_backend)
+    assert torch.equal(eng.prefill_logits(toks), want)
 
 
 def test_policy_of_carried_engine_is_plain_torch(carried):
