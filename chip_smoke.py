@@ -5,18 +5,21 @@
 
 Phases, one line each:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
-  2. build: nvcc of the four kernels for sm_90a, all started together;
+  2. build: nvcc of the five kernels for sm_90a, all started together;
      each one's build seconds, ptxas registers and shared memory
   3. check: each CUDA kernel against its plain torch version, float32 and
      bfloat16: the ordered dequant-GEMM (K1) and the g_idx dequant-GEMM
      (K4) at the reference's test shapes, gs=76, ragged edges and the
      full-width qwen3-4b MLP shapes; the dequantize kernel (K5) bit-equal;
      flash attention (K2) at the reference's test shapes and the
-     full-width forward's
+     full-width forward's; the fused dequant-GEMM + wire quantize (K3)
+     bit-equal to K1 followed by the collective's quantizer, and within
+     one quantization level of its plain version
   4. timing: full-width launches (CUDA-graph replay, weights beyond L2)
      against their bounds and plain versions: K1 and K4 at M=4 (their
-     ratio is the naive-versus-ordered comparison), K5, and K2 beside
-     torch's scaled_dot_product_attention
+     ratio is the naive-versus-ordered comparison), K5, K2 beside
+     torch's scaled_dot_product_attention, and K3 at the tp=2 down
+     projection (int8 and int4) beside K1 followed by the plain quantizer
   5. serve: full-width qwen3-4b (36 layers) built by the port's
      ``make_engine`` on the card from seed 0, four requests through the
      ``Scheduler``; every decode step must launch K1 108 times
@@ -35,6 +38,14 @@ Phases, one line each:
  11. dequantize: every MLP weight of the full-width engine materialized
      through ``ops.dequantize`` (108 K5 launches), bit-equal to the plain
      dequantize
+ 12. serve-tp: full-width qwen3-4b at tp=2 with ``quant-int8:fused``, two
+     rank processes (``launch/mesh.py``; on one card: gloo via host), the
+     same four requests; every decode step must launch K3 36 times and
+     K1 72 times on each rank
+ 13. tp-crosscheck: greedy decode on the same two ranks, ``quant-int8:fused``
+     against ``quant-int8`` and ``quant-int4:fused`` against
+     ``quant-int4`` (logits bit-identical on every rank, ids equal), and
+     ``psum`` at tp=2 against the tp=1 engine of phase 5 (ids equal)
 
 then the per-kernel JSON line, the card's nvidia-smi line and, as the
 last line, ``{"ok": true, "device": {...}}``.  Every path runs with the
@@ -61,12 +72,15 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.comm import dispatch as comm  # noqa: E402
+from repro_torch.comm.wire import wire_params  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import quantization as qz  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import dequant_matmul as dk  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.launch import mesh  # noqa: E402
 from repro_torch.runtime.sampling import SamplingConfig  # noqa: E402
 from repro_torch.runtime.scheduler import Request, Scheduler  # noqa: E402
 from repro_torch.runtime.serve import Engine, make_engine  # noqa: E402
@@ -102,11 +116,29 @@ TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-2, 0.0)}
 FLASH_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 0.0)}
 LAYERS = 36
 LAUNCHES_PER_STEP = LAYERS * 3
+#: tensor parallelism of the TP phases, and the down projection's shard
+#: at that degree: (name, K, N, gs) of one rank
+TP = 2
+DOWN_TP = ("down tp=2", 9728 // TP, 2560, 76)
+#: K3 checks: (k, n, gs, tp, bits, preferred block), the reference's
+#: tests/test_fused_wire.py shapes, gs 76 with padded wires (N 90 and 100,
+#: whose int4 wire ends in all-zero blocks), int4 blocks of 10 (a packed
+#: word spans two blocks), and the rank shape; each at M 1, 4 and 64
+WIRE_SWEEP = [(128, 96, 32, 4, 8, 32), (64, 128, 8, 8, 8, 128),
+              (128, 96, 32, 2, 4, 32), (256, 256, 64, 2, 4, 16),
+              (608, 90, 76, 4, 8, 128), (608, 100, 76, 4, 4, 12),
+              (608, 80, 76, 2, 4, 12),
+              DOWN_TP[1:] + (TP, 8, 128), DOWN_TP[1:] + (TP, 4, 32)]
+#: the collectives of the TP phases
+TP_SERVE = "quant-int8:fused"
+TP_PAIRS = (("quant-int8:fused", "quant-int8"),
+            ("quant-int4:fused", "quant-int4"))
 #: the kernels' wrappers, each with its launch count
 COUNTED = {"dequant_matmul_ordered": dk.dequant_matmul_ordered,
            "dequant_matmul_gidx": dk.dequant_matmul_gidx,
            "dequantize_ordered": dk.dequantize_ordered,
-           "flash_attention": fa.flash_attention}
+           "flash_attention": fa.flash_attention,
+           "dequant_matmul_wire_ordered": dk.dequant_matmul_wire_ordered}
 
 
 def line(phase: str, text: str):
@@ -154,6 +186,10 @@ def phase_build() -> dict:
             name: ordered.dequant_matmul_smem_bytes(
                 4, gs, dk.pick_block_k(k, gs), 0)
             for name, k, _, gs in (UP, DOWN)},
+        # K3's GEMM is K1's main loop; its epilogue kernels use none
+        dk.WIRE.name: {
+            DOWN_TP[0]: ordered.dequant_matmul_smem_bytes(
+                4, DOWN_TP[3], dk.pick_block_k(DOWN_TP[1], DOWN_TP[3]), 0)},
         dk.GIDX.name: {name: gidx.dequant_matmul_gidx_smem_bytes(4, k // gs)
                        for name, k, _, gs in (UP, DOWN)},
         dk.DEQUANTIZE.name: 0,
@@ -270,9 +306,70 @@ def _check_flash(gen) -> dict:
     return {"worst_rel": worst, "main_max_abs_err": main, "cases": rows}
 
 
+def _wire_values(p, s, z, bits, bs):
+    """The float32 values a wire tuple carries."""
+    if bits == 8:
+        return comm._blockwise_dequantize(p, s, bs)
+    return comm._blockwise_dequantize_int4(comm._unpack4_last(p), s, z, bs)
+
+
+def _check_wire(gen) -> dict:
+    """K3 against K1 followed by the collective's quantizer (bit-equal:
+    payload, scales, zeros) and against its plain version, whose
+    torch.matmul sums in another order (within one quantization level:
+    the block's scale)."""
+    rows, main = [], 0.0
+    for k, n, gs, tp, bits, blk in WIRE_SWEEP:
+        ql = _quantized(gen, k, n, gs).ordered
+        n_pad, _, bs = wire_params(n, tp, bits, blk)
+        for m in (1, 4, 64):
+            x = torch.randn(m, k, generator=gen, device="cuda")
+            for dtype in TOL:
+                got = ops.dequant_matmul_wire(x, ql, tp=tp, wire_bits=bits,
+                                              wire_block=blk,
+                                              compute_dtype=dtype)
+                unfused = dk.quantize_wire(
+                    ops.dequant_matmul(x, ql, compute_dtype=dtype),
+                    n_pad=n_pad, wire_block=bs, wire_bits=bits)
+                plain = dk.dequant_matmul_wire_ordered_torch(
+                    x, ql.qweight, ql.scales, ql.zeros, group_size=gs,
+                    n_pad=n_pad, wire_block=bs, wire_bits=bits,
+                    compute_dtype=dtype)
+                torch.cuda.synchronize()
+                equal = all((a is None and b is None) or torch.equal(a, b)
+                            for a, b in zip(got, unfused))
+                vals, ref = (_wire_values(*t, bits, bs) for t in (got, plain))
+                step = torch.maximum(got[1], plain[1]).float(
+                    ).repeat_interleave(bs, dim=-1)
+                diff = (vals - ref).abs()
+                # an all-zero block's int8 scale is 0 in float16
+                levels = torch.where(diff == 0, 0.0, diff / step).max().item()
+                err = diff.max().item()
+                rows.append({"m": m, "k": k, "n": n, "gs": gs, "tp": tp,
+                             "bits": bits, "block": bs, "n_pad": n_pad,
+                             "dtype": str(dtype), "bit_equal_to_k1": equal,
+                             "levels_from_plain": levels,
+                             "max_abs_err": err})
+                if not equal or not levels <= 1.001:
+                    raise AssertionError(f"dequant_matmul_wire_ordered "
+                                         f"disagrees: {rows[-1]}")
+                if (k, n, m, bits, dtype) == (DOWN_TP[1], DOWN_TP[2], 4, 8,
+                                              torch.float32):
+                    main = err
+    worst = max(r["levels_from_plain"] for r in rows)
+    line("check", f"dequant_matmul_wire_ordered: {len(rows)} cases (int8 "
+                  f"and int4, f32 and bf16, M 1/4/64, padded wires, the "
+                  f"tp=2 down shard) bit-equal to K1 + the collective's "
+                  f"quantizer; against the plain version at most "
+                  f"{worst:.3g} quantization levels (tol 1); max_abs_err "
+                  f"at the main path's shape (M=4, int8, f32) {main:.3g}")
+    return {"main_max_abs_err": main, "worst_levels": worst, "cases": rows}
+
+
 def phase_check(gen) -> dict:
     full = [(m, k, n, gs) for _, k, n, gs in (UP, DOWN) for m in (1, 4, 32)]
     return {
+        "dequant_matmul_wire_ordered": _check_wire(gen),
         "dequant_matmul_ordered": _check_gemm(
             gen, "dequant_matmul_ordered", SWEEP + full, "ordered",
             lambda x, ql, dt: ops.dequant_matmul(x, ql, compute_dtype=dt),
@@ -447,11 +544,48 @@ def _time_flash(gen) -> dict:
             "bound_by": by}
 
 
+def _time_wire(gen, m: int = 4) -> dict:
+    """K3 at one rank's down projection (tp=2), int8 and int4, beside its
+    plain version, its bound, and, as context, K1 followed by the plain
+    quantizer (the unfused epilogue) and K1 alone."""
+    _, k, n, gs = DOWN_TP
+    ql = _quantized(gen, k, n, gs).ordered
+    meta = [ql.qweight, ql.scales, ql.zeros]
+    wbytes = sum(t.numel() * t.element_size() for t in meta)
+    quants = _copies(meta, wbytes)
+    x = torch.randn(m, k, generator=gen, device="cuda")
+    reps = 10 * len(quants)
+    res = {"k1_alone_ms": _time(lambda qw, s, z: dk.dequant_matmul_ordered(
+        x, qw, s, z, group_size=gs), quants, reps=reps)}
+    for bits, blk in ((8, 128), (4, 32)):
+        n_pad, _, bs = wire_params(n, TP, bits, blk)
+        kw = dict(group_size=gs, n_pad=n_pad, wire_block=bs, wire_bits=bits)
+        ms = _time(lambda qw, s, z: dk.dequant_matmul_wire_ordered(
+            x, qw, s, z, **kw), quants, reps=reps)
+        unfused_ms = _time(lambda qw, s, z: dk.quantize_wire(
+            dk.dequant_matmul_ordered(x, qw, s, z, group_size=gs),
+            n_pad=n_pad, wire_block=bs, wire_bits=bits), quants, reps=reps)
+        plain_ms = _time(lambda qw, s, z: dk.dequant_matmul_wire_ordered_torch(
+            x, qw, s, z, **kw), quants[:2], reps=10)
+        out_bytes = m * n_pad * bits // 8 + m * (n_pad // bs) * 2 * (
+            1 if bits == 8 else 2)
+        nbytes = 4 * m * k + wbytes + out_bytes
+        bound, by = _bound(nbytes, 2 * m * k * n)
+        res[f"int{bits}"] = {"m": m, "k": k, "n": n, "gs": gs, "tp": TP,
+                             "block": bs, "n_pad": n_pad, "ms": ms,
+                             "plain_ms": plain_ms, "unfused_ms": unfused_ms,
+                             "bytes": nbytes, "bound_ms": bound,
+                             "bound_by": by, "weight_copies": len(quants)}
+    del quants
+    return res
+
+
 def phase_timing(gen) -> dict:
     ordered = _time_gemm(gen, "ordered")
     gidx = _time_gemm(gen, "naive")
     deq = _time_dequantize(gen)
     flash = _time_flash(gen)
+    wire = _time_wire(gen)
     u, d = ordered[UP[0]], ordered[DOWN[0]]
     line("timing", "K1 f32 M=4, CUDA-graph replay: up/gate {:.4f} ms (bound "
          "{:.4f}, plain {:.4f}, matmul on dequantized weight {:.4f} "
@@ -485,10 +619,19 @@ def phase_timing(gen) -> dict:
          "scaled_dot_product_attention {:.4f} [library])".format(
              flash["ms"], flash["bound_ms"], flash["bound_by"],
              flash["flops"] / 1e9, flash["plain_ms"], flash["library_ms"]))
+    for bits in (8, 4):
+        w = wire[f"int{bits}"]
+        line("timing", "K3 int{} f32 M=4 K={} N={} (tp=2 down shard), "
+             "CUDA-graph replay: {:.4f} ms (bound {:.4f} by {}, plain "
+             "{:.4f}; K1 + plain quantizer {:.4f} [context: the unfused "
+             "epilogue], K1 alone {:.4f})".format(
+                 bits, w["k"], w["n"], w["ms"], w["bound_ms"], w["bound_by"],
+                 w["plain_ms"], w["unfused_ms"], wire["k1_alone_ms"]))
     return {"dequant_matmul_ordered": ordered, "dequant_matmul_gidx": gidx,
             "gidx_over_ordered_per_layer": ratio,
             "gidx_naive_over_ordered_layout_per_layer": in_kernel,
-            "dequantize_ordered": deq, "flash_attention": flash}
+            "dequantize_ordered": deq, "flash_attention": flash,
+            "dequant_matmul_wire_ordered": wire}
 
 
 def _submit_requests(sched, cfg):
@@ -760,6 +903,123 @@ def phase_dequantize(engine) -> dict:
             "launches": counts["dequantize_ordered"]}
 
 
+def _serve_tp_rank(ctx, cfg, greedy_tokens, greedy_plen) -> dict:
+    """One rank of phases 12 and 13: build this rank's slices of the
+    full-width plan, serve the four requests under ``TP_SERVE`` with the
+    launch counts set to 0 just before and read just after, then the
+    greedy traces of the cross-check on the same params."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = make_engine(cfg.with_quant(collective=TP_SERVE), 0,
+                         device=ctx.device, max_seq=32 + 16 + 1,
+                         group=ctx.group)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    sched = Scheduler(engine, max_batch=4, prompt_budget=32,
+                      scfg=SamplingConfig(temperature=0.8, top_k=40), seed=0)
+    _submit_requests(sched, cfg)
+    reset_counts()
+    t0 = time.perf_counter()
+    done = sched.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = read_counts()
+    out = {"rank": ctx.rank, "transport": ctx.transport,
+           "backend": engine.policy.backend,
+           "collective": engine.policy.collective.shorthand(),
+           "init_s": init_s, "run_s": run_s, "decode_steps": sched.steps,
+           "tokens": sum(len(r.output) for r in done.values()),
+           "outputs": {k: r.output for k, r in sorted(done.items())},
+           "counts": counts,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    toks = torch.from_numpy(greedy_tokens).to(ctx.device)
+    plen = torch.from_numpy(greedy_plen).to(ctx.device)
+    traces = {}
+    for spec in [c for pair in TP_PAIRS for c in pair] + ["psum"]:
+        eng = dataclasses.replace(
+            engine, policy=engine.policy.with_(collective=spec))
+        ids, logits = _greedy_trace(eng, toks, plen, 8)
+        traces[spec] = (ids.cpu(), logits.cpu())
+    out["traces"] = traces
+    return out
+
+
+def phase_serve_tp(cfg, tp1_engine) -> tuple[dict, dict]:
+    """Phases 12 and 13 on ``TP`` rank processes; the tp=1 reference of
+    the psum cross-check is ``tp1_engine`` (the same seed, so the same
+    plan before sharding)."""
+    rng = np.random.default_rng(1)
+    greedy_tokens = rng.integers(0, cfg.vocab_size, (2, 12))
+    greedy_plen = np.array([12, 9])
+    ranks = mesh.run(_serve_tp_rank, TP, cfg, greedy_tokens, greedy_plen,
+                     device_type="cuda", timeout=600)
+    steps = ranks[0]["decode_steps"]
+    for r in ranks:
+        expect_counts(r["counts"], {
+            "dequant_matmul_wire_ordered": LAYERS * steps,
+            "dequant_matmul_ordered": 2 * LAYERS * steps},
+            f"serve-tp rank {r['rank']} ({steps} decode steps)")
+        if r["outputs"] != ranks[0]["outputs"] or r["decode_steps"] != steps:
+            raise AssertionError("the ranks emitted different tokens")
+        if r["backend"] != "cuda" or r["collective"] != "quant-int8:128:fused":
+            raise AssertionError(f"rank {r['rank']} ran {r['backend']} / "
+                                 f"{r['collective']}")
+    if sorted(ranks[0]["outputs"]) != [0, 1, 2, 3] or any(
+            len(o) != 16 or not all(0 <= t < cfg.vocab_size for t in o)
+            for o in ranks[0]["outputs"].values()):
+        raise AssertionError(f"requests incomplete: {ranks[0]['outputs']}")
+    r0 = ranks[0]
+    serve = {"transport": r0["transport"], "collective": r0["collective"],
+             "tokens": r0["tokens"], "decode_steps": steps,
+             "tokens_per_s": [r["tokens"] / r["run_s"] for r in ranks],
+             "ms_per_step": [r["run_s"] / steps * 1e3 for r in ranks],
+             "init_s": [r["init_s"] for r in ranks],
+             "launches": r0["counts"]["dequant_matmul_wire_ordered"],
+             "counts": [r["counts"] for r in ranks],
+             "peak_bytes": [r["peak_bytes"] for r in ranks],
+             "first_ids": {k: o[:4] for k, o in r0["outputs"].items()}}
+    line("serve-tp", "qwen3-4b 36L d2560 ff9728 vocab151936 at tp={} over "
+         "{} with {}: 4 requests, {} tokens, {:.1f} tok/s, {:.1f} ms/step "
+         "(rank 0; rank 1 {:.1f} ms/step), {} decode steps; per rank "
+         "dequant_matmul_wire_ordered {} = 36 x {} and dequant_matmul_ordered "
+         "{} = 72 x {} (other kernels 0); max_memory_allocated per rank "
+         "{} GiB; first ids {}".format(
+             TP, r0["transport"], r0["collective"], r0["tokens"],
+             serve["tokens_per_s"][0], serve["ms_per_step"][0],
+             serve["ms_per_step"][1], steps, serve["launches"], steps,
+             r0["counts"]["dequant_matmul_ordered"], steps,
+             "/".join(f"{b / 2**30:.2f}" for b in serve["peak_bytes"]),
+             serve["first_ids"]))
+
+    cross = {}
+    for fused, plain in TP_PAIRS:
+        for r in ranks:
+            (ia, la), (ib, lb) = r["traces"][fused], r["traces"][plain]
+            if not (torch.equal(la, lb) and torch.equal(ia, ib)):
+                raise AssertionError(
+                    f"{fused} vs {plain} on rank {r['rank']}: logits not "
+                    f"bit-identical (max gap {(la - lb).abs().max():.3g}) "
+                    f"or ids differ")
+            if not torch.equal(r["traces"][fused][0],
+                               ranks[0]["traces"][fused][0]):
+                raise AssertionError(f"{fused}: the ranks' ids differ")
+        cross[f"{fused} vs {plain}"] = {
+            "bit_identical_logits": True, "ids_equal": True,
+            "ids": ranks[0]["traces"][fused][0].tolist()}
+    toks = torch.from_numpy(greedy_tokens).cuda()
+    ids1, lg1 = _greedy_trace(tp1_engine, toks,
+                              torch.from_numpy(greedy_plen).cuda(), 8)
+    ids2, lg2 = (t.cuda() for t in ranks[0]["traces"]["psum"])
+    text, out = _agree(ids2, ids1, lg2, lg1, "psum at tp=2 vs tp=1")
+    out.update(ids_tp2=ids2.tolist(), ids_tp1=ids1.tolist())
+    cross["psum tp2 vs tp1"] = out
+    line("tp-crosscheck", "greedy 2 prompts x 8 tokens on both ranks: "
+         "quant-int8:fused vs quant-int8 and quant-int4:fused vs quant-int4 "
+         "logits bit-identical and ids equal on every rank; " + text)
+    return serve, cross
+
+
 def _entry(name, source, replaces, launches, max_abs_err, t: dict,
            library_ms=None) -> dict:
     return {"name": name, "route": "cuda", "source": source,
@@ -806,6 +1066,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     forward = phase_forward_flash(engine, cfg)
     materialize = phase_dequantize(engine)
+    serve_tp, tp_cross = phase_serve_tp(cfg, engine)
 
     src = "src/repro_torch/csrc/"
     tpu = "src/repro/kernels/"
@@ -827,6 +1088,11 @@ def main() -> int:
                checks["flash_attention"]["main_max_abs_err"],
                timing["flash_attention"],
                timing["flash_attention"]["library_ms"]),
+        _entry("dequant_matmul_wire_ordered",
+               src + "dequant_matmul_wire_ordered.cu",
+               tpu + "dequant_matmul.py:229", serve_tp["launches"],
+               checks["dequant_matmul_wire_ordered"]["main_max_abs_err"],
+               timing["dequant_matmul_wire_ordered"]["int8"]),
     ]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -835,6 +1101,7 @@ def main() -> int:
                    "crosscheck": cross, "serve_naive": serve_naive,
                    "scheme_crosscheck": scheme_cross,
                    "forward_flash": forward, "dequantize": materialize,
+                   "serve_tp": serve_tp, "tp_crosscheck": tp_cross,
                    "kernels": kernels,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(json.dumps({"kernels": kernels}))

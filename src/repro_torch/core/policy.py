@@ -1,18 +1,24 @@
 """ExecutionPolicy, the a-priori deployment plan; port of
 ``repro/core/policy.py``.
 
-``backend`` keys the kernel registry (``kernels/dispatch.py``).  The
-collective, KV-cache layout and device mesh exist only in their
-single-device forms so far; any other value raises ``ValueError`` naming
-the slice of ``ROADMAP.md`` that ports it.
+``backend`` keys the kernel registry (``kernels/dispatch.py``);
+``collective`` is a ``CollectiveSpec`` or a per-layer ``CollectivePlan``
+(or a shorthand of either) that ``comm/dispatch.py`` runs at each row-TP
+epilogue; ``mesh`` is a ``MeshPlan`` (``dp1xtpN``).  What is not ported
+yet raises ``ValueError`` naming the slice of ``ROADMAP.md`` that ports
+it: the paged KV cache, ``dp > 1`` and ``:overlap`` collectives.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Optional, Union
 
 import torch
+
+from repro_torch.comm.spec import (CollectivePlan, CollectiveSpec,
+                                   parse_collective)
+from repro_torch.dist.topology import MeshPlan
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -33,7 +39,7 @@ class ExecutionPolicy:
     backend: str = "torch"          # key into kernels.dispatch registry
     compute_dtype: Any = torch.float32
     accum_dtype: Any = torch.float32
-    collective: str = "psum"
+    collective: Union[CollectiveSpec, CollectivePlan, str] = CollectiveSpec()
     tiling: KernelTiling = KernelTiling()
     kv: Any = None
     mesh: Any = None
@@ -54,21 +60,14 @@ class ExecutionPolicy:
         if self.accum_dtype != torch.float32:
             raise ValueError("the dequant-GEMMs accumulate in float32 only, "
                              f"got accum_dtype={self.accum_dtype}")
-        if self.collective != "psum":
-            raise ValueError(
-                f"collective {self.collective!r} is not ported yet: only "
-                "'psum' (a no-op on one device) exists until the TP slice "
-                "(ROADMAP.md queue 1, item 6)")
+        object.__setattr__(self, "collective",
+                           parse_collective(self.collective))
+        object.__setattr__(self, "mesh", MeshPlan.parse(self.mesh))
         if self.kv not in (None, "dense"):
             raise ValueError(
                 f"KV-cache layout {self.kv!r} is not ported yet: only the "
                 "dense cache exists until the serving-stack slice "
                 "(ROADMAP.md queue 1, item 7)")
-        if self.mesh is not None:
-            raise ValueError(
-                f"mesh {self.mesh!r} is not ported yet: the port runs on one "
-                "device until the distributed-runtime slice (ROADMAP.md "
-                "queue 1, item 9)")
 
     def with_(self, **kw) -> "ExecutionPolicy":
         return dataclasses.replace(self, **kw)

@@ -3,8 +3,9 @@ port of ``repro/core/reorder.py``.
 
 Schemes: ``naive-actorder`` (original rows + ``g_idx`` gather),
 ``exllama`` (Algorithm-1 sorted rows, runtime P2 permute) and ``tp-aware``
-(Algorithm 3: P2 folded offline into the column-TP weights).  The port
-runs a pair on one device; the TP path follows in a later slice.
+(Algorithm 3: P2 folded offline into the column-TP weights).
+``shard_pair`` splits a plan into the per-rank plans of tensor
+parallelism.
 """
 
 from __future__ import annotations
@@ -36,14 +37,26 @@ class PlannedPair:
     p2: Optional[torch.Tensor]             # (N1,) down-rows perm
     scheme: str
 
-    def forward(self, x: torch.Tensor, policy=None, *,
-                activation: Optional[str] = None) -> torch.Tensor:
-        """Run the pair on one device under ``policy`` (an
-        ``ExecutionPolicy``; None = defaults)."""
+    def forward(self, x: torch.Tensor, policy=None, group=None, *,
+                activation: Optional[str] = None,
+                pair_path: Optional[str] = None) -> torch.Tensor:
+        """Run the pair under ``policy`` (an ``ExecutionPolicy``; None =
+        defaults).  ``group=None`` runs it on one device; with the process
+        group of the TP ranks, ``self`` is this rank's shard
+        (``shard_pair``) and the row-TP epilogue closes with the
+        collective ``policy.collective.resolve(pair_path)``."""
         from repro_torch.core import schemes
 
-        return schemes.pair_forward_reference(x, self, policy,
-                                              activation=activation)
+        if group is None:
+            return schemes.pair_forward_reference(x, self, policy,
+                                                  activation=activation)
+        return schemes.pair_forward_tp(x, self, group, policy,
+                                       activation=activation,
+                                       pair_path=pair_path)
+
+    @property
+    def n1(self) -> int:
+        return self.up.n
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,3 +128,65 @@ def layout_pair(bundle: PairBundle, scheme: str = "tp-aware") -> PlannedPair:
     # p1_gate None: the gate shares p1_up's gather
     return PlannedPair(up=up, gate=gate, down=q_down.ordered,
                        p1_up=q_up.perm, p1_gate=None, p2=p2, scheme=scheme)
+
+
+# ---------------------------------------------------------------------------
+# TP sharding of a plan
+# ---------------------------------------------------------------------------
+
+def _own(t: torch.Tensor) -> torch.Tensor:
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def shard_pair(pp: PlannedPair, tp: int) -> list[PlannedPair]:
+    """Split a planned pair into ``tp`` per-rank plans.
+
+    Column-TP layers split along N1 (qweight and metadata dim 1); the
+    row-TP layer splits along its K == N1 (packed rows and metadata
+    groups), which needs shards that are whole packed words and whole
+    groups of the down projection.  The naive layout's row shard keeps
+    the whole metadata table and global ``g_idx`` values: a shard of
+    unordered rows touches arbitrary groups (the paper's locality
+    problem).  ``p1`` stays replicated, ``p2`` splits into local chunks.
+    Every slice is a contiguous copy, so a rank's plan holds no reference
+    to the whole one.
+    """
+    n1 = pp.n1
+    if n1 % tp:
+        raise ValueError(f"N1={n1} not divisible by tp={tp}")
+    shard = n1 // tp
+    gs_d = pp.down.group_size
+    if shard % qz.PACK:
+        raise ValueError(f"row-TP shard {shard} must be a multiple of the "
+                         f"int4 packing factor {qz.PACK}")
+    if shard % gs_d:
+        raise ValueError(
+            f"row-TP shard {shard} not aligned to down group_size {gs_d}; "
+            f"re-plan with group_size_down="
+            f"{qz.choose_group_size(shard, gs_d)}")
+
+    def col_slice(ql: QuantizedLinear, r: int) -> QuantizedLinear:
+        sl = slice(r * shard, (r + 1) * shard)
+        return dataclasses.replace(ql, qweight=_own(ql.qweight[:, sl]),
+                                   scales=_own(ql.scales[:, sl]),
+                                   zeros=_own(ql.zeros[:, sl]))
+
+    def row_slice(ql: QuantizedLinear, r: int) -> QuantizedLinear:
+        ksl = slice(r * shard // qz.PACK, (r + 1) * shard // qz.PACK)
+        if ql.kind == "naive":
+            return dataclasses.replace(
+                ql, qweight=_own(ql.qweight[ksl]),
+                g_idx=_own(ql.g_idx[r * shard:(r + 1) * shard]))
+        gsl = slice(r * (shard // gs_d), (r + 1) * (shard // gs_d))
+        return dataclasses.replace(ql, qweight=_own(ql.qweight[ksl]),
+                                   scales=_own(ql.scales[gsl]),
+                                   zeros=_own(ql.zeros[gsl]))
+
+    return [PlannedPair(
+        up=col_slice(pp.up, r),
+        gate=col_slice(pp.gate, r) if pp.gate is not None else None,
+        down=row_slice(pp.down, r),
+        p1_up=pp.p1_up, p1_gate=pp.p1_gate,
+        p2=(_own(pp.p2[r * shard:(r + 1) * shard]) if pp.p2 is not None
+            else None),
+        scheme=pp.scheme) for r in range(tp)]

@@ -1,6 +1,18 @@
-"""Runtime dequant-GEMM schemes on one device; port of
+"""Runtime dequant-GEMM schemes (paper Algorithms 2 and 3); port of
 ``repro/core/schemes.py`` (``ACTIVATIONS``, ``qmatmul``,
-``pair_forward_reference``).  The TP forwards follow in a later slice.
+``pair_forward_reference``, ``pair_forward_tp``).
+
+* ``naive-actorder``: original rows, metadata gathered through ``g_idx``;
+  under TP only the trailing collective.
+* ``exllama``: sorted rows; under TP the paper's "Naive Algorithm"
+  (Algorithm 2): all-gather Y1, permute by P2, keep the local chunk.
+* ``tp-aware``: Algorithm 3, P2 folded offline, so the TP path is GEMM,
+  GEMM, trailing collective.
+
+Under TP the kernel half of the plan dispatches through
+``kernels/dispatch.py`` (``policy.backend``) and the collective half
+through ``comm/dispatch.py`` (``policy.collective``); the ranks are the
+processes of a ``torch.distributed`` group.
 """
 
 from __future__ import annotations
@@ -10,6 +22,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.comm import dispatch as comm
 from repro_torch.core.policy import ExecutionPolicy, resolve_policy
 from repro_torch.core.quantization import QuantizedLinear
 from repro_torch.core.reorder import PlannedPair
@@ -36,6 +49,24 @@ def qmatmul(x: torch.Tensor, ql: QuantizedLinear,
     return dispatch.qmatmul(x, ql, resolve_policy(policy))
 
 
+def _column_step(x, pp: PlannedPair, policy, activation):
+    """Y1 of the column-TP layers: up (and the gated product), after the
+    P1 gather of the sorted schemes.  Under TP ``pp`` holds this rank's
+    column shards and Y1 is this rank's chunk."""
+    act = ACTIVATIONS[activation or "identity"]
+    xg = x if pp.scheme == "naive-actorder" else x.index_select(-1,
+                                                                pp.p1_up)
+    y1 = qmatmul(xg, pp.up, policy)
+    if pp.gate is not None:
+        # p1_gate None: the gate shares p1_up's gather
+        xgate = (xg if pp.p1_gate is None or pp.scheme == "naive-actorder"
+                 else x.index_select(-1, pp.p1_gate))
+        y1 = act(qmatmul(xgate, pp.gate, policy)) * y1
+    elif activation:
+        y1 = act(y1)
+    return y1
+
+
 def pair_forward_reference(
     x: torch.Tensor,
     pp: PlannedPair,
@@ -45,28 +76,84 @@ def pair_forward_reference(
 ) -> torch.Tensor:
     """Single-device forward of a planned pair."""
     policy = resolve_policy(policy)
-    act = ACTIVATIONS[activation or "identity"]
-
-    def mm(a, ql):
-        return qmatmul(a, ql, policy)
-
-    if pp.scheme == "naive-actorder":
-        y1 = mm(x, pp.up)
-        if pp.gate is not None:
-            y1 = act(mm(x, pp.gate)) * y1
-        elif activation:
-            y1 = act(y1)
-        return mm(y1, pp.down)
-
-    # exllama and tp-aware gather X by P1 first
-    xg = x.index_select(-1, pp.p1_up)
-    y1 = mm(xg, pp.up)
-    if pp.gate is not None:
-        xgate = (xg if pp.p1_gate is None
-                 else x.index_select(-1, pp.p1_gate))
-        y1 = act(mm(xgate, pp.gate)) * y1
-    elif activation:
-        y1 = act(y1)
+    y1 = _column_step(x, pp, policy, activation)
     if pp.scheme == "exllama":
         y1 = y1.index_select(-1, pp.p2)   # runtime P2 permute
-    return mm(y1, pp.down)
+    return qmatmul(y1, pp.down, policy)
+
+
+_UNFUSABLE_WARNED: set = set()
+
+
+def _warn_unfusable(pair_path, pp: PlannedPair, reason: str) -> None:
+    """Warn once per (site, reason) when a ':fused' collective cannot use
+    the wire kernel here; the dense GEMM and the plain collective run
+    instead."""
+    import warnings
+
+    key = (pair_path, reason)
+    if key in _UNFUSABLE_WARNED:
+        return
+    _UNFUSABLE_WARNED.add(key)
+    warnings.warn(
+        f"collective spec is ':fused' but the wire kernel cannot serve pair "
+        f"{pair_path!r} (scheme={pp.scheme}, down layout {pp.down.kind!r}: "
+        f"{reason}); using the plain epilogue", stacklevel=3)
+
+
+def _pair_local_forward(
+    x: torch.Tensor,
+    pp: PlannedPair,
+    *,
+    group,
+    activation: Optional[str],
+    policy: ExecutionPolicy,
+    pair_path: Optional[str] = None,
+) -> torch.Tensor:
+    """One rank's pair forward.  ``x`` is replicated over the ranks; ``pp``
+    holds this rank's shards (``reorder.shard_pair``).  The trailing
+    collective is what ``policy.collective`` resolves to for
+    ``pair_path``.  A ``:fused`` quantized spec has the down projection
+    emit ring phase 1's payload itself (``kernels/dispatch.qmatmul_wire``)
+    where ``wire_support`` allows, else the dense GEMM and the plain
+    collective run, with a warning."""
+    y1 = _column_step(x, pp, policy, activation)
+    if pp.scheme == "exllama":
+        # Algorithm 2: gather Y1 (l.2), then the local P2 chunk both
+        # permutes and chunks it (l.3 + l.4)
+        y1 = comm.all_gather_cols(y1, group).index_select(-1, pp.p2)
+
+    spec = policy.collective.resolve(pair_path)
+    tp = comm.axis_size(group)
+    if spec.fused:
+        from repro_torch.kernels import dispatch as kdispatch
+
+        use_wire, reason = kdispatch.wire_support(pp.down, spec, tp)
+        if use_wire:
+            wp = kdispatch.qmatmul_wire(y1, pp.down, policy, spec=spec,
+                                        tp=tp)
+            return comm.apply_wire(wp, group, spec, policy)
+        _warn_unfusable(pair_path, pp, reason)
+    y2 = qmatmul(y1, pp.down, policy)
+    return comm.apply(y2, group, spec, policy)
+
+
+def pair_forward_tp(
+    x: torch.Tensor,
+    pp: PlannedPair,
+    group,
+    policy: Optional[ExecutionPolicy] = None,
+    *,
+    activation: Optional[str] = None,
+    pair_path: Optional[str] = None,
+) -> torch.Tensor:
+    """Tensor-parallel forward on this rank of ``group``.
+
+    ``x``: (..., K1), the same on every rank; ``pp``: this rank's shard of
+    the plan.  Returns the closed output (..., N2), or, when the
+    collective scatters its output (``psum_scatter``), this rank's shard
+    of the last dim, as the reference's ``out_specs`` leave it.
+    ``pair_path`` names the pair for a per-layer ``CollectivePlan``."""
+    return _pair_local_forward(x, pp, group=group, activation=activation,
+                               policy=resolve_policy(policy),
+                               pair_path=pair_path)

@@ -1,9 +1,10 @@
 """Build the port's CUDA sources into shared libraries and load them.
 
-Every kernel is a ``csrc/<name>.cu`` with a plain C interface.  ``nvcc``
-compiles it for ``sm_90a`` into ``build/<name>-<hash>.so`` at the
-repository root, where the hash covers the source and the flags, so an
-edited source or flag never loads a stale library.  ``compile_all``
+Every kernel is a ``csrc/<name>.cu`` with a plain C interface (sources may
+include the shared ``csrc/*.cuh`` headers).  ``nvcc`` compiles it for
+``sm_90a`` into ``build/<name>-<hash>.so`` at the repository root, where
+the hash covers the source, the headers and the flags, so an edited
+source, header or flag never loads a stale library.  ``compile_all``
 starts one ``nvcc`` per missing library, all at once, and waits for
 them; ``load`` compiles what is missing, opens the library with
 ``ctypes`` and declares its C functions' signatures.
@@ -46,8 +47,10 @@ class Kernel:
         return CSRC / f"{self.name}.cu"
 
     def library(self) -> Path:
-        src = self.source.read_bytes()
-        digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC.glob("*.cuh")):
+            digest.update(header.read_bytes())
+        digest.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.name}-{digest.hexdigest()[:16]}.so"
 
 

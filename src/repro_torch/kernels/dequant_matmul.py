@@ -7,6 +7,10 @@
   gathering its group through ``g_idx``, ``csrc/dequant_matmul_gidx.cu``.
 * ``dequantize_ordered`` (K5): the ordered-groups weight materializer,
   ``csrc/dequantize_ordered.cu``.
+* ``dequant_matmul_wire_ordered`` (K3): K1's GEMM with ring phase 1's
+  blockwise wire quantize fused into its epilogue,
+  ``csrc/dequant_matmul_wire_ordered.cu`` (K1's main loop comes from
+  ``csrc/dequant_matmul_ordered.cuh``, so its sums are K1's bit for bit).
 
 Each source note says what bounds the kernel and how it is built up.
 ``kernels/build.py`` compiles a source with ``nvcc`` for ``sm_90a`` the
@@ -22,7 +26,9 @@ import ctypes
 from math import gcd
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch.comm import dispatch as comm
 from repro_torch.core import quantization as qz
 from repro_torch.kernels import build
 
@@ -46,7 +52,12 @@ GIDX = build.Kernel("dequant_matmul_gidx", (
 DEQUANTIZE = build.Kernel("dequantize_ordered", (
     ("dequantize_ordered", (_P,) * 4 + (_I,) * 4 + (_P,), _I),
     ("dequantize_ordered_error_string", (_I,), _STR)))
-KERNELS = (ORDERED, GIDX, DEQUANTIZE)
+WIRE = build.Kernel("dequant_matmul_wire_ordered", (
+    ("dequant_matmul_wire_ordered", (_P,) * 8 + (_LL,) + (_I,) * 9 + (_P,),
+     _I),
+    ("dequant_matmul_wire_scratch_floats", (_I,) * 8, _LL),
+    ("dequant_matmul_wire_error_string", (_I,), _STR)))
+KERNELS = (ORDERED, GIDX, DEQUANTIZE, WIRE)
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -104,6 +115,35 @@ def dequantize_ordered_torch(qweight, scales, zeros, *, group_size,
     in float32, rounded to ``out_dtype``."""
     return _gather_dequant(qweight, scales, zeros,
                            _group_rows(qweight, group_size), out_dtype)
+
+
+def quantize_wire(y: torch.Tensor, *, n_pad: int, wire_block: int,
+                  wire_bits: int):
+    """Ring phase 1's quantize of a dense ``(M, N)`` GEMM output: the
+    float32 upcast, zero-padded to ``n_pad``, through the collective's own
+    quantizers.  Returns ``(payload, scales, zeros-or-None)``: payload
+    ``(M, n_pad)`` int8 or ``(M, n_pad // 8)`` int32 words, scales and
+    zeros ``(M, n_pad // wire_block)`` float16."""
+    y32 = y.to(torch.float32)
+    if n_pad != y32.shape[-1]:
+        y32 = F.pad(y32, (0, n_pad - y32.shape[-1]))
+    if wire_bits == 8:
+        q, s = comm._blockwise_quantize(y32, wire_block)
+        return q, s, None
+    q, s, z = comm._blockwise_quantize_int4(y32, wire_block)
+    return comm._pack4_last(q), s, z
+
+
+def dequant_matmul_wire_ordered_torch(x, qweight, scales, zeros, *,
+                                      group_size, n_pad, wire_block,
+                                      wire_bits, compute_dtype=torch.float32):
+    """Plain version: the plain ordered dequant-GEMM, then
+    ``quantize_wire``."""
+    y = dequant_matmul_ordered_torch(x, qweight, scales, zeros,
+                                     group_size=group_size,
+                                     compute_dtype=compute_dtype)
+    return quantize_wire(y, n_pad=n_pad, wire_block=wire_block,
+                         wire_bits=wire_bits)
 
 
 def _check_cuda(x: torch.Tensor, dtype, what: str):
@@ -316,3 +356,84 @@ def dequantize_ordered(
 
 
 dequantize_ordered.launches = 0
+
+
+def dequant_matmul_wire_ordered(
+    x: torch.Tensor,            # (M, K)
+    qweight: torch.Tensor,      # (K // 8, N) int32 words
+    scales: torch.Tensor,       # (G, N) float32
+    zeros: torch.Tensor,        # (G, N) float32
+    *,
+    group_size: int,
+    n_pad: int,
+    wire_block: int,
+    wire_bits: int,
+    compute_dtype=torch.float32,
+):
+    """K1's ``x @ W`` in ``compute_dtype`` with ring phase 1's blockwise
+    quantize of the result fused in: ``(payload, scales, zeros-or-None)``
+    as ``quantize_wire`` gives them, over the wire width ``n_pad >= N``
+    (columns past N are exact zeros) with quant block ``wire_block`` (the
+    block ``comm.wire.wire_params`` chose; it divides ``n_pad``).
+    Bit-identical to ``quantize_wire`` of K1's output.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (counted in ``dequant_matmul_wire_ordered.launches``) or raise.
+    """
+    if wire_bits not in (4, 8):
+        raise ValueError(f"wire_bits must be 4 or 8, got {wire_bits}")
+    if x.device.type == "cpu":
+        return dequant_matmul_wire_ordered_torch(
+            x, qweight, scales, zeros, group_size=group_size, n_pad=n_pad,
+            wire_block=wire_block, wire_bits=wire_bits,
+            compute_dtype=compute_dtype)
+    _check_cuda(x, compute_dtype, "compute type")
+    x, m, k, n = _x_operand(x, qweight, compute_dtype)
+    if k % group_size:
+        raise ValueError(f"K={k} must be a multiple of "
+                         f"group_size={group_size}")
+    if n_pad < n or wire_block <= 0 or n_pad % wire_block or (
+            wire_bits == 4 and n_pad % PACK):
+        raise ValueError(f"wire width n_pad={n_pad} must be >= N={n} and a "
+                         f"multiple of wire_block={wire_block}"
+                         + (f" and of {PACK}" if wire_bits == 4 else ""))
+    g = k // group_size
+    _check_operands(x.device, {
+        "qweight": (qweight, (k // PACK, n), torch.int32),
+        "scales": (scales, (g, n), torch.float32),
+        "zeros": (zeros, (g, n), torch.float32)})
+    bk = pick_block_k(k, group_size)
+    dev = x.device
+    if wire_bits == 8:
+        payload = torch.empty((m, n_pad), dtype=torch.int8, device=dev)
+    else:
+        payload = torch.empty((m, n_pad // PACK), dtype=torch.int32,
+                              device=dev)
+    wscales = torch.empty((m, n_pad // wire_block), dtype=torch.float16,
+                          device=dev)
+    wzeros = torch.empty_like(wscales) if wire_bits == 4 else None
+    if m == 0:
+        return payload, wscales, wzeros
+    lib = build.load(WIRE)
+    with torch.cuda.device(dev):
+        floats = lib.dequant_matmul_wire_scratch_floats(
+            m, n, k, group_size, bk, n_pad, wire_block, wire_bits)
+        if floats < 0:
+            err = -floats
+        else:
+            scratch = torch.empty(floats, dtype=torch.float32, device=dev)
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.dequant_matmul_wire_ordered(
+                x.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
+                zeros.data_ptr(), payload.data_ptr(), wscales.data_ptr(),
+                None if wzeros is None else wzeros.data_ptr(),
+                scratch.data_ptr(), floats, m, n, k, group_size, bk, n_pad,
+                wire_block, wire_bits, _KERNEL_DTYPES[compute_dtype], stream)
+    _raise_on(err, lib, "dequant_matmul_wire", f"M={m} N={n} K={k} "
+              f"gs={group_size} bk={bk} n_pad={n_pad} block={wire_block} "
+              f"bits={wire_bits}")
+    dequant_matmul_wire_ordered.launches += 1
+    return payload, wscales, wzeros
+
+
+dequant_matmul_wire_ordered.launches = 0

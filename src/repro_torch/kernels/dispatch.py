@@ -9,9 +9,16 @@ Entries:
   dequant-GEMM for ordered layouts, the ``g_idx`` dequant-GEMM for naive
   ones (the reference's ``pallas``).
 
-The CUDA kernels take any K that is a multiple of 8, so the reference's
-non-tileable fallback has no counterpart: ``cuda`` never quietly runs
-another path, and on CPU tensors it raises.
+The wire form (the reference's ``pallas-fused`` entry) is no registry
+entry: its output is ring phase 1's wire tuple, not a dense ``y``, so
+``qmatmul`` cannot serve it.  A ``:fused`` quantized collective reaches
+it through ``qmatmul_wire``, which runs the fused dequant-GEMM + wire
+quantize kernel (K3) when ``policy.backend`` is ``cuda``, else its plain
+version, for ordered layouts only (``wire_support``).
+
+The CUDA kernels take any K that is a multiple of 8 and of the group
+size, so the reference's non-tileable fallback has no counterpart:
+``cuda`` never quietly runs another path, and on CPU tensors it raises.
 
 Kernel contract: ``fn(x, ql, policy) -> y`` with ``x: (..., K)``; returns
 ``(..., N)`` in ``policy.compute_dtype``.
@@ -31,6 +38,8 @@ from repro_torch.core.quantization import QuantizedLinear
 # calls only under repro/kernels/, so `ops.dequant_matmul(...)` here would
 # read as a registry bypass.
 from repro_torch.kernels.ops import dequant_matmul as ops_dequant_matmul
+from repro_torch.kernels.ops import \
+    dequant_matmul_wire as ops_dequant_matmul_wire
 from repro_torch.kernels.ref import dequant_matmul as ref_dequant_matmul
 
 KernelFn = Callable[[torch.Tensor, QuantizedLinear, ExecutionPolicy],
@@ -75,6 +84,49 @@ def qmatmul(x: torch.Tensor, ql: QuantizedLinear,
     return resolve(ql.kind, policy.backend)(x, ql, policy)
 
 
+def _needs_card(x: torch.Tensor, what: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"backend 'cuda' runs {what} and needs tensors on "
+                         f"the card; got x on {x.device} (use backend "
+                         f"'torch' on the CPU)")
+
+
+def qmatmul_wire(x: torch.Tensor, ql: QuantizedLinear,
+                 policy: ExecutionPolicy, *, spec, tp: int):
+    """Fused GEMM + wire quantize -> a ``comm.wire.WirePayload`` for
+    ``comm.dispatch.apply_wire``.  ``spec`` is the resolved quant-int8 or
+    quant-int4 ``CollectiveSpec``; the caller has checked
+    ``wire_support(ql, spec, tp)``.  Backend ``cuda`` runs the kernel
+    (and raises on CPU tensors), the others its plain version."""
+    from repro_torch.comm.wire import WirePayload, wire_params
+
+    cuda = policy.backend == "cuda"
+    if cuda:
+        _needs_card(x, "the wire kernel")
+    payload, scales, zeros = ops_dequant_matmul_wire(
+        x, ql, tp=tp, wire_bits=spec.bits, wire_block=spec.block_size,
+        compute_dtype=policy.compute_dtype, plain=not cuda)
+    _, _, bs = wire_params(ql.n, tp, spec.bits, spec.block_size)
+    return WirePayload(payload, scales, zeros, n=ql.n, tp=tp,
+                       bits=spec.bits, block=bs,
+                       out_dtype=policy.compute_dtype)
+
+
+def wire_support(ql: QuantizedLinear, spec, tp: int) -> tuple[bool, str]:
+    """Whether the fused wire epilogue can serve this GEMM site, with the
+    reason when it cannot: ``(True, "")`` for a quantized full-output
+    collective, a real ring (``tp > 1``) and the ordered layout, else
+    ``(False, why)``."""
+    name = getattr(spec, "name", None)
+    if name not in ("quant-int8", "quant-int4"):
+        return False, f"collective {name!r} has no wire payload form"
+    if tp <= 1:
+        return False, "tp=1 (no ring to feed)"
+    if ql.kind != "ordered":
+        return False, f"layout {ql.kind!r} has no wire-epilogue kernel"
+    return True, ""
+
+
 @register("ordered", "ref")
 @register("naive", "ref")
 def _ref_dequant_matmul(x, ql, policy):
@@ -91,8 +143,5 @@ def _torch_dequant_matmul(x, ql, policy):
 @register("ordered", "cuda")
 @register("naive", "cuda")
 def _cuda_dequant_matmul(x, ql, policy):
-    if x.device.type != "cuda":
-        raise ValueError(f"backend 'cuda' runs the CUDA kernel and needs "
-                         f"tensors on the card; got x on {x.device} (use "
-                         f"backend 'torch' on the CPU)")
+    _needs_card(x, "the CUDA kernel")
     return ops_dequant_matmul(x, ql, compute_dtype=policy.compute_dtype)

@@ -2,8 +2,8 @@
 
 Flattens leading dims into M, checks K against the weight and dispatches
 on the layout kind (ordered groups or the naive ``g_idx`` gather).  The
-CUDA kernels mask ragged M/N edges themselves, so no padding happens
-here.
+CUDA kernels mask ragged M/N edges themselves, and the wire kernel writes
+the ring's zero padding past N itself, so no padding happens here.
 """
 
 from __future__ import annotations
@@ -53,6 +53,38 @@ def dequant_matmul_gidx(x: torch.Tensor, ql: QuantizedLinear, *,
     if ql.kind != "naive":
         raise ValueError(f"g_idx kernel got layout kind {ql.kind!r}")
     return _qmatmul(x, ql, compute_dtype)
+
+
+def dequant_matmul_wire(x: torch.Tensor, ql: QuantizedLinear, *, tp: int,
+                        wire_bits: int, wire_block: int,
+                        compute_dtype=torch.float32, plain: bool = False):
+    """Fused GEMM + blockwise wire quantize (K3); ``plain`` runs its plain
+    version instead, on any device.
+
+    ``x``: (..., K).  Returns the flat wire tuple over the ring-padded
+    width ``n_pad`` (``comm/wire.wire_params``): ``(payload, scales,
+    zeros-or-None)`` of shapes ``(..., n_pad)`` int8 or ``(..., n_pad //
+    8)`` int32 words, and ``(..., n_pad // block)`` float16, bit-identical
+    to quantizing the zero-padded dense kernel output.  ``wire_block`` is
+    the spec's preferred block; the block used is
+    ``choose_group_size(n_pad // tp, wire_block)``, as the unfused
+    collective picks it."""
+    from repro_torch.comm.wire import wire_params
+
+    if ql.kind != "ordered":
+        raise ValueError(f"wire kernel needs the ordered layout, "
+                         f"got {ql.kind!r}")
+    *lead, k = x.shape
+    if k != ql.k:
+        raise ValueError(f"x K={k} != weight K={ql.k}")
+    n_pad, _, bs = wire_params(ql.n, tp, wire_bits, wire_block)
+    kernel = (dk.dequant_matmul_wire_ordered_torch if plain
+              else dk.dequant_matmul_wire_ordered)
+    p, s, z = kernel(x.reshape(-1, k), ql.qweight, ql.scales, ql.zeros,
+                     group_size=ql.group_size, n_pad=n_pad, wire_block=bs,
+                     wire_bits=wire_bits, compute_dtype=compute_dtype)
+    return (p.reshape(*lead, p.shape[-1]), s.reshape(*lead, s.shape[-1]),
+            None if z is None else z.reshape(*lead, z.shape[-1]))
 
 
 def dequantize(ql: QuantizedLinear, *,

@@ -1,8 +1,8 @@
 """Plain-torch oracles for the kernels; port of ``repro/kernels/ref.py``.
 
-``dequant_matmul_ordered`` and ``dequant_matmul_gidx`` are the kernels'
-plain versions, defined once beside the kernels in
-``kernels/dequant_matmul.py``.
+``dequant_matmul_ordered``, ``dequant_matmul_gidx`` and
+``dequant_matmul_wire_ordered`` are the kernels' plain versions, defined
+once beside the kernels in ``kernels/dequant_matmul.py``.
 """
 
 from __future__ import annotations
@@ -13,7 +13,8 @@ from repro_torch.core import quantization as qz
 from repro_torch.core.quantization import QuantizedLinear
 from repro_torch.kernels.dequant_matmul import (  # noqa: F401
     dequant_matmul_gidx_torch as dequant_matmul_gidx,
-    dequant_matmul_ordered_torch as dequant_matmul_ordered)
+    dequant_matmul_ordered_torch as dequant_matmul_ordered,
+    dequant_matmul_wire_ordered_torch as dequant_matmul_wire_ordered)
 from repro_torch.kernels.flash_attention import NEG_INF, attention_mask
 
 

@@ -3,7 +3,16 @@
 Params are plain dicts of tensors, one dict per layer (the reference
 stacks layers along a leading L dim for ``lax.scan``).  Where the
 reference passes a ``ParallelContext``, the port passes the
-``ExecutionPolicy`` alone: it runs on one device.
+``ExecutionPolicy`` and the process group of the TP ranks (``group``;
+None runs on one device).
+
+Tensor parallelism follows the reference's sharding (``*_specs``, which
+name the dim of each leaf that is split over the ranks) with GSPMD's
+implicit collectives written out: attention runs this rank's heads and
+closes its row-sharded output projection with a float32 all-reduce; the
+vocab-sharded embedding closes with an all-reduce and the column-sharded
+``lm_head`` with an all-gather of the logits; the MLP pair runs the
+paper's schemes (``core/schemes.pair_forward_tp``).
 
 Dtypes follow what JAX reaches: activations enter a layer in bf16
 (``cfg.dtype``), every product with an f32 weight promotes to f32, and
@@ -18,9 +27,11 @@ from typing import Optional
 
 import torch
 
+from repro_torch.comm import dispatch as comm
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import schemes
 from repro_torch.core.policy import ExecutionPolicy
+from repro_torch.core.quantization import QuantizedLinear
 from repro_torch.core.reorder import PlannedPair
 
 
@@ -200,8 +211,22 @@ def _flash_sdpa(q, k, v, *, causal: bool, window):
 ATTN_BACKENDS = ("xla", "flash")
 
 
+def _local_heads(cfg: ModelConfig, p) -> tuple[int, int]:
+    """(query heads, KV heads) this rank holds: the whole padded grid on
+    one device, its ``1/tp`` under TP."""
+    hd = cfg.head_dim
+    return p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
+
+
+def _out_proj(p, out, group):
+    """The output projection; under TP ``wo`` holds this rank's rows, so
+    the product is a partial sum closed by a float32 all-reduce."""
+    return comm.raw_psum(matmul(out, p["wo"]), group)
+
+
 def attention_forward(cfg: ModelConfig, p, x, *, positions=None,
-                      window=None, causal=True, attn_backend="xla"):
+                      window=None, causal=True, attn_backend="xla",
+                      group=None):
     """Full-sequence self-attention.
 
     ``attn_backend`` as in the reference's ``ParallelContext``: ``"xla"``
@@ -213,7 +238,7 @@ def attention_forward(cfg: ModelConfig, p, x, *, positions=None,
                          f"one of {ATTN_BACKENDS}")
     b, s, _ = x.shape
     hd = cfg.head_dim
-    kvh, _, h = head_grid(cfg)
+    h, kvh = _local_heads(cfg, p)
     q = matmul(x, p["wq"]).reshape(b, s, h, hd)
     k = matmul(x, p["wk"]).reshape(b, s, kvh, hd)
     v = matmul(x, p["wv"]).reshape(b, s, kvh, hd)
@@ -226,8 +251,8 @@ def attention_forward(cfg: ModelConfig, p, x, *, positions=None,
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     if attn_backend == "flash":
-        return matmul(_flash_sdpa(q, k, v, causal=causal, window=window),
-                      p["wo"])
+        return _out_proj(p, _flash_sdpa(q, k, v, causal=causal,
+                                        window=window), group)
     mask = None
     if causal:
         i = torch.arange(s, device=x.device)[:, None]
@@ -236,11 +261,11 @@ def attention_forward(cfg: ModelConfig, p, x, *, positions=None,
         if window is not None:
             m = m & (j > i - window)
         mask = m.expand(b, s, s)
-    out = _sdpa(q, k, v, mask)
-    return matmul(out, p["wo"])
+    return _out_proj(p, _sdpa(q, k, v, mask), group)
 
 
-def attention_decode(cfg: ModelConfig, p, x, cache, pos, *, window=None):
+def attention_decode(cfg: ModelConfig, p, x, cache, pos, *, window=None,
+                     group=None):
     """One-token decode over a dense KV cache.
 
     x: (B, 1, d); cache: {"k", "v": (B, C, KV, D)}; pos: an int (all rows
@@ -251,7 +276,7 @@ def attention_decode(cfg: ModelConfig, p, x, cache, pos, *, window=None):
     """
     b = x.shape[0]
     hd = cfg.head_dim
-    kvh, _, h = head_grid(cfg)
+    h, kvh = _local_heads(cfg, p)
     per_slot = torch.is_tensor(pos) and pos.dim() == 1
 
     q = matmul(x, p["wq"]).reshape(b, 1, h, hd)
@@ -286,16 +311,17 @@ def attention_decode(cfg: ModelConfig, p, x, cache, pos, *, window=None):
         valid = valid | (pb >= cap)
     mask = valid[:, None, :].expand(b, 1, cap)
     out = _sdpa(q, ck.to(x.dtype), cv.to(x.dtype), mask)
-    return matmul(out, p["wo"]), cache
+    return _out_proj(p, out, group), cache
 
 
 def init_kv_cache(cfg: ModelConfig, num_layers: int, batch: int,
                   seq_len: int, *, window=None, dtype=torch.bfloat16,
-                  device=None) -> dict:
-    """Layer-stacked dense cache: {"k", "v": (L, B, C, KVp, D)}."""
+                  device=None, tp: int = 1) -> dict:
+    """Layer-stacked dense cache of this rank's KV heads:
+    {"k", "v": (L, B, C, KVp / tp, D)}."""
     cap = min(seq_len, window) if window else seq_len
     kvp, _, _ = head_grid(cfg)
-    shape = (num_layers, batch, cap, kvp, cfg.head_dim)
+    shape = (num_layers, batch, cap, kvp // tp, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -314,17 +340,27 @@ def mlp_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
 
 
 def mlp_forward(cfg: ModelConfig, p, x, policy: ExecutionPolicy, *,
-                activation=None):
-    """Apply an MLP block: a quantized ``PlannedPair`` or raw weights."""
+                activation=None, group=None, path="layers.mlp"):
+    """Apply an MLP block: a quantized ``PlannedPair`` or raw weights.
+
+    Under TP the pair runs ``pair_forward_tp`` on this rank's shard, with
+    the collective ``policy.collective`` resolves for ``path``.  A
+    scattering collective (``psum_scatter``) leaves each rank its shard
+    of the output; as the reference's replicated residual stream does
+    under GSPMD, the shards are then all-gathered."""
     act = activation or cfg.activation
     if isinstance(p, PlannedPair):
         lead = x.shape[:-1]
-        y = p.forward(x.reshape(-1, x.shape[-1]), policy, activation=act)
+        y = p.forward(x.reshape(-1, x.shape[-1]), policy, group,
+                      activation=act, pair_path=path)
+        if group is not None and comm.scatters_output(
+                policy.collective.resolve(path)):
+            y = comm.all_gather_cols(y, group)
         return y.reshape(*lead, -1).to(x.dtype)
     a = schemes.ACTIVATIONS[act]
     h = matmul(x, p["w_up"])
     h = a(matmul(x, p["w_gate"])) * h if "w_gate" in p else a(h)
-    return matmul(h, p["w_down"])
+    return comm.raw_psum(matmul(h, p["w_down"]), group)
 
 
 # ---------------------------------------------------------------------------
@@ -341,15 +377,88 @@ def embed_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     return {"embedding": emb, "lm_head": head}
 
 
-def embed_tokens(cfg: ModelConfig, p, tokens: torch.Tensor) -> torch.Tensor:
-    x = p["embedding"][tokens]
+def embed_tokens(cfg: ModelConfig, p, tokens: torch.Tensor, *,
+                 group=None) -> torch.Tensor:
+    """Look the tokens up.  Under TP the table is split by vocab rows: each
+    rank looks up the tokens it holds, zeros elsewhere, and an all-reduce
+    adds the exact rows."""
+    emb = p["embedding"]
+    if emb.shape[0] != cfg.padded_vocab():          # vocab rows split
+        rows = emb.shape[0]
+        local = tokens - comm.axis_index(group) * rows
+        mine = (local >= 0) & (local < rows)
+        x = torch.where(mine[..., None], emb[local.clamp(0, rows - 1)],
+                        torch.zeros((), dtype=emb.dtype, device=emb.device))
+        x = comm.raw_psum(x, group)
+    else:
+        x = emb[tokens]
     return x.to(torch.bfloat16) if cfg.dtype == "bfloat16" else x
 
 
-def lm_head(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
-    logits = x.to(torch.float32) @ p["lm_head"].to(torch.float32)
+def lm_head(cfg: ModelConfig, p, x: torch.Tensor, *,
+            group=None) -> torch.Tensor:
+    """Logits over the padded vocab.  Under TP the head is split by vocab
+    columns and the logit shards are all-gathered."""
+    logits = comm.all_gather_cols(
+        x.to(torch.float32) @ p["lm_head"].to(torch.float32), group)
     v, vp = cfg.vocab_size, cfg.padded_vocab()
     if vp != v:
         # padded vocab columns: exp(-1e30) == 0, softmax stays exact
         logits[..., v:] += -1e30
     return logits
+
+
+# ---------------------------------------------------------------------------
+# TP sharding: per leaf, the dim split over the ranks (None: replicated)
+# ---------------------------------------------------------------------------
+
+def norm_specs(p: dict) -> dict:
+    return {k: None for k in p}
+
+
+def attention_specs(cfg: ModelConfig, p: dict, tp: int) -> dict:
+    """Q/K/V split by columns (whole heads), the output projection by
+    rows; the qk norms replicated."""
+    kvp, _, hp = head_grid(cfg)
+    if hp % tp or kvp % tp:
+        raise ValueError(f"{cfg.arch_id}: {hp} query and {kvp} KV heads "
+                         f"do not split over tp={tp} ranks")
+    spec = {"wq": 1, "wk": 1, "wv": 1, "wo": 0}
+    return {k: spec.get(k) for k in p}
+
+
+def embed_specs(cfg: ModelConfig, tp: int) -> dict:
+    """Vocab-dim split (the reference's ``embed_specs`` when the padded
+    vocab divides the ranks; its ``d_model`` fallback is not ported)."""
+    if cfg.padded_vocab() % tp:
+        raise ValueError(f"{cfg.arch_id}: padded vocab "
+                         f"{cfg.padded_vocab()} does not split over tp={tp} "
+                         f"ranks; set attn_tp_pad to pad it")
+    return {"embedding": 0, "lm_head": 1}
+
+
+def _pair_specs(pp: PlannedPair) -> PlannedPair:
+    """Column-TP up/gate (dim 1), row-TP down (dim 0; the naive layout's
+    metadata replicated, its ``g_idx`` split), ``p1`` replicated, ``p2``
+    split: the slices ``reorder.shard_pair`` takes."""
+    def col(ql):
+        return QuantizedLinear(qweight=1, scales=1, zeros=1, g_idx=None,
+                               group_size=ql.group_size, kind=ql.kind)
+
+    def row(ql):
+        naive = ql.kind == "naive"
+        return QuantizedLinear(qweight=0, scales=None if naive else 0,
+                               zeros=None if naive else 0,
+                               g_idx=0 if naive else None,
+                               group_size=ql.group_size, kind=ql.kind)
+
+    return PlannedPair(up=col(pp.up),
+                       gate=col(pp.gate) if pp.gate is not None else None,
+                       down=row(pp.down), p1_up=None, p1_gate=None, p2=0,
+                       scheme=pp.scheme)
+
+
+def mlp_specs(p) -> object:
+    if isinstance(p, PlannedPair):
+        return _pair_specs(p)
+    return {k: (0 if k == "w_down" else 1) for k in p}

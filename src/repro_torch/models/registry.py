@@ -26,43 +26,58 @@ class Model:
     cfg: ModelConfig
     module: Any
 
-    def init(self, seed: int = 0, *, device: DeviceLike = None) -> Any:
+    def init(self, seed: int = 0, *, device: DeviceLike = None,
+             tp: int = 1, rank: int = 0) -> Any:
         """Raw init from ``seed``, then, for quantized configs, the plan
-        compiler (RTN quantize + layout), one layer at a time.  Runs on
+        compiler (RTN quantize + layout), one layer at a time; with
+        ``tp > 1`` only rank ``rank``'s slices of each piece are kept
+        (every rank draws the same whole weights from ``seed``).  Runs on
         the CUDA card unless ``device`` says otherwise."""
-        dev = resolve_device(device)
-        gen = new_generator(seed, dev)
-        if self.cfg.quant.mode != "mlp":
-            return self.module.init_params(self.cfg, gen)
         from repro_torch.plan import compiler
 
+        dev = resolve_device(device)
+        gen = new_generator(seed, dev)
         plan_gen = new_generator(
             derive_seed(seed, compiler.PLAN_RNG_STREAM), dev)
-        return self.module.init_params(
-            self.cfg, gen,
-            compile_layer=lambda layer: compiler.compile_params(
-                self.cfg, layer, generator=plan_gen))
+        quantized = self.cfg.quant.mode == "mlp"
+
+        def stage(key, node):
+            if key == "layers" and quantized:
+                node = compiler.compile_params(self.cfg, node,
+                                               generator=plan_gen)
+            if tp > 1:
+                specs = self.module.piece_specs(self.cfg, key, node, tp)
+                node = compiler.stage_shard(node, specs, tp, rank)
+            return node
+
+        return self.module.init_params(self.cfg, gen, stage=stage)
 
     def init_raw(self, seed: int = 0, *, device: DeviceLike = None) -> Any:
         """The raw fp params (no quantization): the compiler's input."""
         return self.module.init_params(
             self.cfg, new_generator(seed, resolve_device(device)))
 
+    def param_specs(self, params, tp: int):
+        """Per leaf, the dim split over ``tp`` ranks (None: replicated)."""
+        return self.module.param_specs(self.cfg, params, tp)
+
     def forward(self, params, batch, policy: ExecutionPolicy, *,
-                window=None, attn_backend="xla"):
+                window=None, attn_backend="xla", group=None):
         return self.module.forward(self.cfg, params, batch, policy,
-                                   window=window, attn_backend=attn_backend)
+                                   window=window, attn_backend=attn_backend,
+                                   group=group)
 
     def init_cache(self, batch: int, seq_len: int, *, window=None,
-                   dtype=torch.bfloat16, device: DeviceLike = None):
+                   dtype=torch.bfloat16, device: DeviceLike = None,
+                   tp: int = 1):
         return self.module.init_cache(self.cfg, batch, seq_len, window=window,
                                       dtype=dtype,
-                                      device=resolve_device(device))
+                                      device=resolve_device(device), tp=tp)
 
     def decode_step(self, params, cache, tokens, pos,
-                    policy: ExecutionPolicy, *, window=None):
+                    policy: ExecutionPolicy, *, window=None, group=None):
         return self.module.decode_step(self.cfg, params, cache, tokens, pos,
-                                       policy, window=window)
+                                       policy, window=window, group=group)
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -2,7 +2,9 @@
 quantized MLP); port of ``repro/models/transformer.py``.
 
 Layers are a list of per-layer dicts driven by a Python loop (the
-reference stacks them and runs ``lax.scan``).
+reference stacks them and runs ``lax.scan``).  ``group`` is the process
+group of the TP ranks (None: one device); under TP ``params`` are this
+rank's slices (``param_specs``) and the cache holds this rank's KV heads.
 """
 
 from __future__ import annotations
@@ -15,66 +17,96 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.policy import ExecutionPolicy
 from repro_torch.models import common as cm
 
+#: the pair path of every layer's MLP (the key a per-layer
+#: ``CollectivePlan`` resolves), as the reference's layer body passes it
+MLP_PATH = "layers.mlp"
+
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, *,
-                compile_layer: Optional[Callable[[dict], dict]] = None):
-    """Random params on ``gen.device``.  ``compile_layer`` (the plan
-    compiler) is applied to each layer as soon as it exists, so only one
-    layer's raw MLP weights are alive at a time."""
+                stage: Optional[Callable[[str, object], object]] = None):
+    """Random params on ``gen.device``.  ``stage(key, node)`` (the plan
+    compiler: quantize and lay out each layer, then keep one rank's
+    slices) is applied to the embedding, each layer and the final norm as
+    soon as each exists, so only one layer's raw or unsharded weights are
+    alive at a time."""
     dev = gen.device
-    embed = cm.embed_params(cfg, gen)
+    stage = stage or (lambda key, node: node)
+    embed = stage("embed", cm.embed_params(cfg, gen))
     layers = []
     for _ in range(cfg.num_layers):
-        layer = {"ln1": cm.norm_params(cfg, dev),
-                 "attn": cm.attention_params(cfg, gen),
-                 "ln2": cm.norm_params(cfg, dev),
-                 "mlp": cm.mlp_params(cfg, gen)}
-        layers.append(compile_layer(layer) if compile_layer else layer)
+        layers.append(stage("layers", {
+            "ln1": cm.norm_params(cfg, dev),
+            "attn": cm.attention_params(cfg, gen),
+            "ln2": cm.norm_params(cfg, dev),
+            "mlp": cm.mlp_params(cfg, gen)}))
     return {"embed": embed, "layers": layers,
-            "final_norm": cm.norm_params(cfg, dev)}
+            "final_norm": stage("final_norm", cm.norm_params(cfg, dev))}
 
 
-def _mlp_residual(cfg, lp, x, h, policy):
+def piece_specs(cfg: ModelConfig, key: str, node, tp: int):
+    """TP specs of one top-level piece (``"embed"``, one of ``"layers"``,
+    ``"final_norm"``): per leaf the dim split over the ranks, or None."""
+    if key == "embed":
+        return cm.embed_specs(cfg, tp)
+    if key == "layers":
+        return {"ln1": cm.norm_specs(node["ln1"]),
+                "attn": cm.attention_specs(cfg, node["attn"], tp),
+                "ln2": cm.norm_specs(node["ln2"]),
+                "mlp": cm.mlp_specs(node["mlp"])}
+    return cm.norm_specs(node)
+
+
+def param_specs(cfg: ModelConfig, params, tp: int):
+    """The reference's ``param_specs``: every leaf's TP split."""
+    return {"embed": piece_specs(cfg, "embed", params["embed"], tp),
+            "layers": [piece_specs(cfg, "layers", lp, tp)
+                       for lp in params["layers"]],
+            "final_norm": piece_specs(cfg, "final_norm",
+                                      params["final_norm"], tp)}
+
+
+def _mlp_residual(cfg, lp, x, h, policy, group):
     """``x + h`` then the MLP block's residual, cast back to x's dtype
     (the reference's scan carry keeps its dtype; bf16 + f32 promotes to
     f32 in both frameworks)."""
     y = x + h
     y = y + cm.mlp_forward(cfg, lp["mlp"], cm.apply_norm(cfg, lp["ln2"], y),
-                           policy)
+                           policy, group=group, path=MLP_PATH)
     return y.to(x.dtype)
 
 
 def forward(cfg: ModelConfig, params, batch: dict, policy: ExecutionPolicy,
-            *, window=None, attn_backend="xla") -> torch.Tensor:
+            *, window=None, attn_backend="xla", group=None) -> torch.Tensor:
     """Train/prefill forward: batch={"tokens": (B, S)} -> logits.
     ``attn_backend``: ``"xla"`` (einsum) or ``"flash"`` (the kernel)."""
-    x = cm.embed_tokens(cfg, params["embed"], batch["tokens"])
+    x = cm.embed_tokens(cfg, params["embed"], batch["tokens"], group=group)
     for lp in params["layers"]:
         h = cm.attention_forward(cfg, lp["attn"],
                                  cm.apply_norm(cfg, lp["ln1"], x),
                                  window=window, causal=cfg.causal,
-                                 attn_backend=attn_backend)
-        x = _mlp_residual(cfg, lp, x, h, policy)
+                                 attn_backend=attn_backend, group=group)
+        x = _mlp_residual(cfg, lp, x, h, policy, group)
     x = cm.apply_norm(cfg, params["final_norm"], x)
-    return cm.lm_head(cfg, params["embed"], x)
+    return cm.lm_head(cfg, params["embed"], x, group=group)
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *, window=None,
-               dtype=torch.bfloat16, device=None) -> dict:
+               dtype=torch.bfloat16, device=None, tp: int = 1) -> dict:
     return cm.init_kv_cache(cfg, cfg.num_layers, batch, seq_len,
-                            window=window, dtype=dtype, device=device)
+                            window=window, dtype=dtype, device=device, tp=tp)
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos,
-                policy: ExecutionPolicy, *, window=None):
+                policy: ExecutionPolicy, *, window=None, group=None):
     """One-token decode. tokens: (B,), pos: int or (B,) -> (logits (B, V),
     cache); the cache is updated in place."""
-    x = cm.embed_tokens(cfg, params["embed"], tokens[:, None])
+    x = cm.embed_tokens(cfg, params["embed"], tokens[:, None], group=group)
     for i, lp in enumerate(params["layers"]):
         layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
         h, _ = cm.attention_decode(cfg, lp["attn"],
                                    cm.apply_norm(cfg, lp["ln1"], x),
-                                   layer_cache, pos, window=window)
-        x = _mlp_residual(cfg, lp, x, h, policy)
+                                   layer_cache, pos, window=window,
+                                   group=group)
+        x = _mlp_residual(cfg, lp, x, h, policy, group)
     x = cm.apply_norm(cfg, params["final_norm"], x)
-    return cm.lm_head(cfg, params["embed"], x)[:, 0], cache
+    return cm.lm_head(cfg, params["embed"], x, group=group)[:, 0], cache

@@ -1,16 +1,20 @@
 """Offline plan compiler, in-memory stages; port of
 ``repro/plan/compiler.py`` (``stage_quantize``, ``stage_layout``,
-``compile_params``, ``_pair_group_sizes``).
+``compile_params``, ``_pair_group_sizes``, ``shard_params``,
+``stage_shard``).
 
 The stages walk a raw param tree and replace every MLP weight dict
 (``{"w_up", "w_down"[, "w_gate"]}``) first by a scheme-agnostic
-``PairBundle``, then by a ``PlannedPair`` in the deployment scheme.
-``Model.init`` runs them one layer at a time, so the raw f32 MLP weights
-of all layers never sit in memory together.
+``PairBundle``, then by a ``PlannedPair`` in the deployment scheme;
+``stage_shard`` then keeps one TP rank's slices, as the model's
+``param_specs`` name them.  ``Model.init`` runs the stages one layer at a
+time, so neither the raw f32 MLP weights nor the unsharded plan of all
+layers ever sit in memory together.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Optional
 
 import torch
@@ -18,7 +22,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import reorder
 from repro_torch.core.quantization import choose_group_size
-from repro_torch.core.reorder import PairBundle
+from repro_torch.core.quantization import QuantizedLinear
+from repro_torch.core.reorder import PairBundle, PlannedPair
 from repro_torch.device import new_generator
 
 #: seed part separating the quantization stream from the init stream
@@ -81,3 +86,74 @@ def compile_params(cfg: ModelConfig, raw_params: Any, *,
     gen = generator if generator is not None else new_generator(0)
     bundles = stage_quantize(cfg, raw_params, gen)
     return stage_layout(bundles, scheme or cfg.quant.scheme)
+
+
+# ---------------------------------------------------------------------------
+# TP pre-shard
+# ---------------------------------------------------------------------------
+
+def _slice_leaf(t: torch.Tensor, dim: Optional[int], tp: int, rank: int,
+                key: str) -> torch.Tensor:
+    """Rank ``rank``'s 1/tp slice of ``t`` along ``dim``; the whole leaf
+    when ``dim`` is None (replicated).
+
+    The reference keeps a leaf whose dim does not divide ``tp`` whole in
+    an artifact, for its loader to put back together.  The port has no
+    artifact reader: these slices are the live per-rank params, and the
+    TP forward sums every sharded leaf's partials over the ranks, so such
+    a leaf raises."""
+    if dim is None:
+        return t
+    if t.shape[dim] % tp:
+        raise ValueError(f"leaf {key!r}: dim {dim} of size {t.shape[dim]} "
+                         f"does not split over tp={tp} ranks")
+    n = t.shape[dim] // tp
+    return t.narrow(dim, rank * n, n).clone(
+        memory_format=torch.contiguous_format)
+
+
+def stage_shard(node: Any, specs: Any, tp: int, rank: int, *,
+                leaf_shards: Optional[dict] = None, key: str = "") -> Any:
+    """Rank ``rank``'s slices of the planned (sub)tree ``node``.
+
+    ``specs`` mirrors ``node`` (the model's ``param_specs``): at each
+    tensor leaf the dim sharded over the TP ranks, or None.  A sharded
+    dim that does not divide ``tp`` raises; ``leaf_shards`` (when given)
+    records the dim each leaf was sliced along, or None, under its
+    ``||``-joined key path.  ``PlannedPair`` leaves slice exactly as
+    ``core/reorder.shard_pair`` does."""
+    def sub(n, sp, k):
+        return stage_shard(n, sp, tp, rank, leaf_shards=leaf_shards,
+                           key=f"{key}||{k}" if key else str(k))
+
+    if node is None:
+        return None
+    if torch.is_tensor(node):
+        if leaf_shards is not None:
+            leaf_shards[key] = specs
+        return _slice_leaf(node, specs, tp, rank, key)
+    if isinstance(node, dict):
+        return {k: sub(v, specs[k], k) for k, v in node.items()}
+    if isinstance(node, list):
+        return [sub(v, sp, i) for i, (v, sp) in enumerate(zip(node, specs))]
+    if isinstance(node, (PlannedPair, QuantizedLinear)):
+        return dataclasses.replace(node, **{
+            f.name: sub(getattr(node, f.name), getattr(specs, f.name), f.name)
+            for f in dataclasses.fields(node)
+            if f.name not in ("group_size", "kind", "scheme")})
+    raise TypeError(f"cannot shard a {type(node).__name__} at {key!r}")
+
+
+def shard_params(cfg: ModelConfig, params: Any,
+                 tp: int) -> tuple[list, dict]:
+    """Pre-split a planned tree into ``tp`` per-rank trees, driven by the
+    model's ``param_specs``.  Returns ``(rank_trees, {leaf key: sliced dim
+    | None})``."""
+    from repro_torch.models.registry import build_model
+
+    specs = build_model(cfg).param_specs(params, tp)
+    leaf_shards: dict = {}
+    trees = [stage_shard(params, specs, tp, r,
+                         leaf_shards=leaf_shards if r == 0 else None)
+             for r in range(tp)]
+    return trees, leaf_shards

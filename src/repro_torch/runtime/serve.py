@@ -7,6 +7,12 @@ reference does, so prompt and generation share one numeric path.
 ``prefill_logits`` is the full-sequence forward (the reference's
 ``prefill_logits``), whose attention ``attn_backend`` picks.  Batching
 across requests is the scheduler's job (``runtime/scheduler.py``).
+
+Under tensor parallelism every rank runs its own ``Engine`` over its
+slices of the params with the ranks' process group (``group``); the
+logits are gathered whole on every rank, so every rank samples the same
+tokens from identically seeded generators.  The policy's ``mesh`` names
+the TP degree the plan was made for, and it must be the group's.
 """
 
 from __future__ import annotations
@@ -16,8 +22,10 @@ from typing import Any, Optional
 
 import torch
 
+from repro_torch.comm import dispatch as comm
 from repro_torch.core.policy import ExecutionPolicy
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.dist.topology import MeshPlan
 from repro_torch.models.registry import Model, build_model
 from repro_torch.runtime import sampling
 
@@ -30,22 +38,31 @@ class Engine:
     max_seq: int = 2048
     window: Optional[int] = None
     # The deployment plan every quantized GEMM runs under; None derives
-    # it from the model config for ``device``.
+    # it from the model config for ``device`` and the group's TP degree.
     policy: Optional[ExecutionPolicy] = None
     # Attention of the full-sequence forward (``prefill_logits``): "xla"
     # (einsum) or "flash" (the kernel); the reference's
     # ``ParallelContext.attn_backend``.  Decode never uses it.
     attn_backend: str = "xla"
+    # The process group of the TP ranks (``launch/mesh.py``); None runs on
+    # one device.  ``params`` are then this rank's slices.
+    group: Any = None
 
     def __post_init__(self):
         self.device = torch.device(self.device)
         if self.policy is None:
-            self.policy = ExecutionPolicy.from_config(self.model.cfg,
-                                                      device=self.device)
+            self.policy = ExecutionPolicy.from_config(
+                self.model.cfg, device=self.device).with_(
+                    mesh=MeshPlan(tp=self.tp))
+        check_mesh(self.policy, self.tp)
+
+    @property
+    def tp(self) -> int:
+        return comm.axis_size(self.group)
 
     def init_cache(self, batch: int):
         return self.model.init_cache(batch, self.max_seq, window=self.window,
-                                     device=self.device)
+                                     device=self.device, tp=self.tp)
 
     @torch.inference_mode()
     def prefill_logits(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -53,13 +70,15 @@ class Engine:
         (the reference's ``prefill_logits``)."""
         return self.model.forward(self.params, {"tokens": tokens},
                                   self.policy, window=self.window,
-                                  attn_backend=self.attn_backend)
+                                  attn_backend=self.attn_backend,
+                                  group=self.group)
 
     @torch.inference_mode()
     def decode(self, cache, tokens: torch.Tensor, pos):
         """One decode step: tokens (B,), pos int or (B,) -> (logits, cache)."""
         return self.model.decode_step(self.params, cache, tokens, pos,
-                                      self.policy, window=self.window)
+                                      self.policy, window=self.window,
+                                      group=self.group)
 
     @torch.inference_mode()
     def prefill(self, tokens: torch.Tensor, cache, prompt_len: torch.Tensor):
@@ -94,13 +113,28 @@ class Engine:
         return torch.stack(out, dim=1)
 
 
+def check_mesh(policy: ExecutionPolicy, tp: int) -> None:
+    """Raise unless ``policy.mesh`` plans the ``tp`` ranks that run it."""
+    if policy.mesh.tp != tp:
+        raise ValueError(
+            f"policy mesh {policy.mesh.shorthand()} plans tp="
+            f"{policy.mesh.tp}, but {tp} rank(s) run it")
+
+
 def make_engine(cfg, seed: int = 0, *, device: DeviceLike = None,
                 max_seq: int = 2048, window=None,
-                policy: Optional[ExecutionPolicy] = None) -> Engine:
-    """Build an engine whose params ``Model.init`` makes from ``seed``.
-    Runs on the CUDA card unless ``device`` says otherwise."""
+                policy: Optional[ExecutionPolicy] = None,
+                group=None) -> Engine:
+    """Build an engine whose params ``Model.init`` makes from ``seed``;
+    with the TP ranks' ``group``, this rank's slices of them.  Runs on the
+    CUDA card unless ``device`` says otherwise.  A ``policy`` whose mesh
+    does not match the group raises before any weight is made."""
     dev = resolve_device(device)
+    tp = comm.axis_size(group)
+    if policy is not None:
+        check_mesh(policy, tp)
     model = build_model(cfg)
-    params = model.init(seed, device=dev)
+    params = model.init(seed, device=dev, tp=tp,
+                        rank=comm.axis_index(group))
     return Engine(model=model, params=params, device=dev, max_seq=max_seq,
-                  window=window, policy=policy)
+                  window=window, policy=policy, group=group)

@@ -2,9 +2,11 @@
 CPU against the JAX Pallas kernels in interpret mode, at the shapes of
 ``tests/test_kernels.py`` plus the full-width down projection's group size
 76 (groups straddle packed words): the ordered dequant-GEMM (K1), the
-``g_idx`` dequant-GEMM of the naive layout (K4) and the dequantize kernel
-(K5).  On the card, each CUDA kernel against its plain version (``gpu``
-marker; skips without a card).
+``g_idx`` dequant-GEMM of the naive layout (K4), the dequantize kernel
+(K5) and the fused dequant-GEMM + wire quantize (K3, at the shapes of
+``tests/test_fused_wire.py``).  On the card, each CUDA kernel against its
+plain version (``gpu`` marker; skips without a card), and K3 bit for bit
+against K1 followed by the collective's quantizer.
 
 JAX is imported inside the parity tests only, so the ``gpu`` tests also
 run on a machine that has the card but no JAX:
@@ -123,6 +125,12 @@ def test_cuda_backend_refuses_cpu_tensors():
         with pytest.raises(ValueError, match="needs tensors on the card"):
             dispatch.qmatmul(torch.zeros(2, 128), ql,
                              ExecutionPolicy(backend="cuda"))
+    from repro_torch.comm.spec import CollectiveSpec
+
+    with pytest.raises(ValueError, match="needs tensors on the card"):
+        dispatch.qmatmul_wire(torch.zeros(2, 128), _port(res.ordered),
+                              ExecutionPolicy(backend="cuda"),
+                              spec=CollectiveSpec.parse("quant-int8"), tp=2)
     assert dispatch.backends("ordered") == ("cuda", "ref", "torch")
     assert dispatch.backends("naive") == ("cuda", "ref", "torch")
 
@@ -268,3 +276,159 @@ def test_cuda_dequantize_kernel_bit_equal_to_plain_version(dtype):
         ref = tdk.dequantize_ordered_torch(
             ql.qweight, ql.scales, ql.zeros, group_size=gs, out_dtype=dtype)
         assert torch.equal(w, ref), (k, n, gs)
+
+
+#: (k, n, gs, tp, bits, preferred block): ``tests/test_fused_wire.py``'s
+#: four, gs 76 with padded wire widths (N 90 and 100; the int4 wire ends
+#: in all-zero blocks), and int4 blocks of 10 (a packed word holds values
+#: of two quant blocks)
+WIRE_SHAPES = [
+    (128, 96, 32, 4, 8, 32),
+    (64, 128, 8, 8, 8, 128),
+    (128, 96, 32, 2, 4, 32),
+    (256, 256, 64, 2, 4, 16),
+    (608, 90, 76, 4, 8, 128),
+    (608, 100, 76, 4, 4, 12),
+    (608, 80, 76, 2, 4, 12),
+]
+
+
+def _dequantized_wire(p, s, z, bits, bs):
+    """The values a wire tuple carries, in float32 (numpy in, numpy out)."""
+    from repro_torch.comm import dispatch as comm
+
+    p, s = torch.from_numpy(p), torch.from_numpy(s)
+    if bits == 8:
+        return comm._blockwise_dequantize(p, s, bs).numpy()
+    return comm._blockwise_dequantize_int4(comm._unpack4_last(p), s,
+                                           torch.from_numpy(z), bs).numpy()
+
+
+@pytest.mark.parametrize("k,n,gs,tp,bits,blk", WIRE_SHAPES)
+def test_wire_plain_version_within_a_level_of_jax_kernel(k, n, gs, tp, bits,
+                                                         blk):
+    """K3's plain version (``ops.dequant_matmul_wire`` on the CPU) against
+    the JAX Pallas wire kernel in interpret mode.  The two GEMMs sum in
+    different orders, so a value near a rounding boundary may land one
+    quantization level away: every carried value is within one level (its
+    block's scale) of the reference's, the payload shapes and types are
+    the reference's, and padded columns carry exact zeros."""
+    from repro.comm.wire import wire_params
+    from repro.kernels import ops as jops
+
+    jql = _ordered(k + n + tp, k, n, gs)
+    x = np.random.default_rng(k + bits).standard_normal((16, k)).astype(
+        np.float32)
+    jp, js, jz = (None if t is None else np.array(t) for t in
+                  jops.dequant_matmul_wire(x, jql, tp=tp, wire_bits=bits,
+                                           wire_block=blk))
+    p, s, z = ops.dequant_matmul_wire(torch.from_numpy(x), _port(jql),
+                                      tp=tp, wire_bits=bits, wire_block=blk)
+    n_pad, _, bs = wire_params(n, tp, bits, blk)
+    if bits == 4:
+        jp = jp.view(np.int32)
+        assert z.shape == jz.shape and z.dtype == torch.float16
+    else:
+        assert z is None and jz is None
+    assert p.shape == jp.shape and p.numpy().dtype == jp.dtype
+    assert s.shape == js.shape == (16, n_pad // bs)
+    got = _dequantized_wire(p.numpy(), s.numpy(),
+                            None if z is None else z.numpy(), bits, bs)
+    ref = _dequantized_wire(jp, js, jz, bits, bs)
+    step = np.repeat(np.maximum(s.numpy(), js).astype(np.float32), bs,
+                     axis=-1)
+    assert (np.abs(got - ref) <= 1.001 * step).all()
+    assert (got[:, n:] == 0).all()
+    np.testing.assert_allclose(s.numpy().astype(np.float32), js, rtol=2e-3)
+
+
+def test_wire_wrapper_flattens_lead_dims_and_counts_nothing_on_cpu():
+    """Leading dims flatten and come back; on the CPU the wrapper runs the
+    plain version and launches nothing."""
+    jql = _ordered(7, 64, 64, 32)
+    ql = _port(jql)
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (2, 3, 64)).astype(np.float32))
+    launches = tdk.dequant_matmul_wire_ordered.launches
+    p, s, z = ops.dequant_matmul_wire(x, ql, tp=2, wire_bits=8, wire_block=32)
+    assert tdk.dequant_matmul_wire_ordered.launches == launches
+    assert p.shape == (2, 3, 64) and p.dtype == torch.int8
+    assert s.shape == (2, 3, 2) and s.dtype == torch.float16 and z is None
+    p2, s2, _ = ops.dequant_matmul_wire(x.reshape(6, 64), ql, tp=2,
+                                        wire_bits=8, wire_block=32)
+    assert torch.equal(p.reshape(6, 64), p2)
+    assert torch.equal(s.reshape(6, 2), s2)
+    with pytest.raises(ValueError, match="ordered layout"):
+        ops.dequant_matmul_wire(x, _port(_quantized(7, 64, 64, 32).naive),
+                                tp=2, wire_bits=8, wire_block=32)
+
+
+def test_wire_support_gates_and_qmatmul_wire_runs_plain_off_cuda():
+    """``wire_support`` admits a quantized ring at tp > 1 on the ordered
+    layout only; the wire form is no ``qmatmul`` backend; off backend
+    ``cuda``, ``qmatmul_wire`` runs K3's plain version."""
+    from repro_torch.comm.spec import CollectiveSpec
+
+    ql = _port(_ordered(3, 64, 64, 32))
+    with pytest.raises(ValueError, match="no kernel registered"):
+        dispatch.qmatmul(torch.zeros(2, 64), ql,
+                         ExecutionPolicy(backend="cuda-fused"))
+    q8 = CollectiveSpec.parse("quant-int8:fused")
+    assert dispatch.wire_support(ql, q8, 2) == (True, "")
+    assert not dispatch.wire_support(ql, q8, 1)[0]
+    assert not dispatch.wire_support(ql, CollectiveSpec.parse("psum"), 2)[0]
+    naive = _port(_quantized(3, 64, 64, 32).naive)
+    ok, why = dispatch.wire_support(naive, q8, 2)
+    assert not ok and "naive" in why
+    x = torch.ones(3, 64)
+    launches = tdk.dequant_matmul_wire_ordered.launches
+    wp = dispatch.qmatmul_wire(x, ql, ExecutionPolicy(backend="torch"),
+                               spec=q8, tp=2)
+    assert (wp.n, wp.tp, wp.bits, wp.block, wp.n_pad) == (64, 2, 8, 32, 64)
+    want = ops.dequant_matmul_wire(x, ql, tp=2, wire_bits=8, wire_block=128,
+                                   plain=True)
+    assert torch.equal(wp.payload, want[0]) and torch.equal(wp.scales,
+                                                            want[1])
+    assert tdk.dequant_matmul_wire_ordered.launches == launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_wire_kernel_bit_equal_to_k1_and_quantizer(dtype):
+    """K3 on the card: bit-equal to K1 followed by the collective's own
+    quantizer (payload, scales, zeros), and within one quantization level
+    of its plain version, whose ``torch.matmul`` sums in another order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.comm.wire import wire_params
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cases = [(m, k, n, gs, tp, bits, blk)
+             for (k, n, gs, tp, bits, blk) in WIRE_SHAPES for m in (1, 4, 64)]
+    cases += [(4, 4864, 2560, 76, 2, bits, blk)      # the tp=2 down shard
+              for bits, blk in ((8, 128), (4, 32))]
+    for m, k, n, gs, tp, bits, blk in cases:
+        ql = _cuda_quantized(gen, k, n, gs).ordered
+        x = torch.randn(m, k, generator=gen, device="cuda")
+        n_pad, _, bs = wire_params(n, tp, bits, blk)
+        launches = tdk.dequant_matmul_wire_ordered.launches
+        got = ops.dequant_matmul_wire(x, ql, tp=tp, wire_bits=bits,
+                                      wire_block=blk, compute_dtype=dtype)
+        torch.cuda.synchronize()
+        assert tdk.dequant_matmul_wire_ordered.launches == launches + 1
+        want = tdk.quantize_wire(
+            ops.dequant_matmul(x, ql, compute_dtype=dtype), n_pad=n_pad,
+            wire_block=bs, wire_bits=bits)
+        for a, b in zip(got, want):
+            assert (a is None and b is None) or torch.equal(a, b), \
+                (m, k, n, gs, tp, bits, blk)
+        plain = tdk.dequant_matmul_wire_ordered_torch(
+            x, ql.qweight, ql.scales, ql.zeros, group_size=gs, n_pad=n_pad,
+            wire_block=bs, wire_bits=bits, compute_dtype=dtype)
+        cpu = [None if t is None else t.cpu().numpy() for t in got]
+        ref = [None if t is None else t.cpu().numpy() for t in plain]
+        step = np.repeat(np.maximum(cpu[1], ref[1]).astype(np.float32), bs,
+                         axis=-1)
+        diff = np.abs(_dequantized_wire(*cpu, bits, bs)
+                      - _dequantized_wire(*ref, bits, bs))
+        assert (diff <= 1.001 * step).all(), (m, k, n, gs, tp, bits, blk)

@@ -15,7 +15,7 @@ from repro.runtime import sampling as jax_sampling
 from repro_torch.configs import get_smoke_config
 from repro_torch.runtime import sampling
 from repro_torch.runtime.scheduler import Request, Scheduler
-from repro_torch.runtime.serve import make_engine
+from repro_torch.runtime.serve import Engine, make_engine
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 
@@ -89,6 +89,21 @@ def test_scheduler_cancel_frees_slot(engine):
     assert [rid for _, rid in sched.admissions] == [0, 1]
 
 
+def test_engine_holds_policy_mesh_to_its_ranks(engine):
+    """``policy.mesh`` names the TP degree the plan was made for: an engine
+    whose ranks do not match it raises, and so does ``make_engine``
+    before it makes any weight; a derived policy takes the group's
+    degree (one rank here; two in ``tests/test_torch_tp.py``)."""
+    assert engine.policy.mesh.shorthand() == "dp1xtp1"
+    pol = engine.policy.with_(mesh="dp1xtp2")
+    with pytest.raises(ValueError, match="plans tp=2, but 1 rank"):
+        Engine(model=engine.model, params=engine.params, device="cpu",
+               policy=pol)
+    with pytest.raises(ValueError, match="plans tp=2, but 1 rank"):
+        make_engine(get_smoke_config("qwen3-4b"), 0, device="cpu",
+                    policy=pol)
+
+
 @pytest.mark.parametrize("t,p,k", [(0.7, 0.9, 0), (1.2, 0.5, 0),
                                    (0.9, 1.0, 10), (1.0, 0.8, 5)])
 def test_masked_logits_matches_jax(t, p, k):
@@ -133,6 +148,26 @@ def test_cli_smoke_on_cpu():
     assert proc.returncode == 0, proc.stderr
     assert "req 1: prompt" in proc.stdout
     assert "tok/s" in proc.stdout and "backend=torch" in proc.stdout
+
+
+def test_cli_tp_on_cpu_names_transport_and_matches_tp1():
+    """``--tp 2`` spawns two gloo ranks; rank 0 prints the banner, which
+    names the transport, and the ranks emit the one-device run's ids
+    (the quantized wire does not flip a greedy-or-sampled token of this
+    smoke model)."""
+    base = ["-m", "repro_torch.launch.serve", "--smoke", "--device", "cpu",
+            "--requests", "2", "--max-new", "4"]
+    tp = _run(base + ["--tp", "2", "--collective", "quant-int8:fused"])
+    one = _run(base)
+    assert tp.returncode == 0 and one.returncode == 0, tp.stderr
+    assert "mesh=dp1xtp2 (gloo, 2 ranks on the CPU)" in tp.stdout
+    assert "collective=quant-int8:128:fused" in tp.stdout
+    ids = [ln for ln in tp.stdout.splitlines() if ln.startswith("req ")]
+    assert len(ids) == 2
+    assert ids == [ln for ln in one.stdout.splitlines()
+                   if ln.startswith("req ")]
+    bad = _run(base + ["--collective", "quant-int8:overlap"])
+    assert bad.returncode != 0 and "item 9" in bad.stderr
 
 
 def test_cli_without_card_names_it():
