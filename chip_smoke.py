@@ -11,15 +11,19 @@ Phases, one line each:
      bfloat16: the ordered dequant-GEMM (K1) and the g_idx dequant-GEMM
      (K4) at the reference's test shapes, gs=76, ragged edges and the
      full-width qwen3-4b MLP shapes; the dequantize kernel (K5) bit-equal;
-     flash attention (K2) at the reference's test shapes and the
-     full-width forward's; the fused dequant-GEMM + wire quantize (K3)
-     bit-equal to K1 followed by the collective's quantizer, and within
+     flash attention (K2) at the reference's test shapes, the edges of
+     its 128-query, 64-key tiling (ragged S, windows, S != T, every head
+     dim at S 2048) and the full-width forward's; the fused dequant-GEMM
+     + wire quantize (K3) bit-equal to K1 followed by the collective's quantizer, and within
      one quantization level of its plain version
   4. timing: full-width launches (CUDA-graph replay, weights beyond L2)
      against their bounds and plain versions: K1 and K4 at M=4 (their
-     ratio is the naive-versus-ordered comparison), K5, K2 beside
-     torch's scaled_dot_product_attention, and K3 at the tp=2 down
-     projection (int8 and int4) beside K1 followed by the plain quantizer
+     ratio is the naive-versus-ordered comparison), K5, K2 against its
+     3xTF32 tensor-core bound and the float32 CUDA-core bound, beside
+     torch's scaled_dot_product_attention (its backend named, and the
+     memory-efficient and math backends timed alone), K3 at the tp=2 down
+     projection (int8 and int4) beside K1 followed by the plain quantizer,
+     and K1 at the forward's M=2048 (up/gate and down)
   5. serve: full-width qwen3-4b (36 layers) built by the port's
      ``make_engine`` on the card from seed 0, four requests through the
      ``Scheduler``; every decode step must launch K1 108 times
@@ -86,9 +90,11 @@ from repro_torch.runtime.scheduler import Request, Scheduler  # noqa: E402
 from repro_torch.runtime.serve import Engine, make_engine  # noqa: E402
 
 #: H100 SXM data-sheet peaks (dense): HBM bytes/s, float32 FLOP/s outside
-#: the tensor cores (the kernels' float32 policy uses plain FMA)
+#: the tensor cores (the GEMM kernels' float32 policy uses plain FMA), and
+#: TF32 FLOP/s on the tensor cores (flash attention, split 3xTF32)
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+PEAK_TF32 = 495e12
 #: full-width qwen3-4b MLP GEMMs: (name, K, N, group size); the down
 #: projection's gs is choose_group_size(9728 / 16, 128) = 76
 UP = ("up/gate", 2560, 9728, 128)
@@ -109,6 +115,18 @@ FLASH_FULL = (1, 32, 2048, 128, True, None)
 FLASH_SWEEP = [(1, 2, 128, 32, True, None), (2, 2, 256, 64, True, None),
                (1, 1, 128, 32, False, None), (1, 2, 256, 32, True, 64),
                (1, 2, 128, 32, True, None), FLASH_FULL]
+#: (B, H, S, T, D, causal, window) the kernel's 128-query, 64-key tiling
+#: can get wrong: S not a multiple of 16 or 64, windows below and across a
+#: tile, S != T, the other head dims at S 2048
+FLASH_EDGES = [(1, 2, 100, 100, 128, True, None),
+               (1, 2, 1000, 1000, 128, True, None),
+               (1, 2, 300, 300, 128, True, 16), (1, 2, 300, 300, 64, True, 48),
+               (1, 2, 300, 300, 128, True, 80),
+               (1, 2, 300, 300, 128, False, 80),
+               (1, 2, 100, 300, 128, False, None),
+               (2, 2, 300, 70, 64, False, None),
+               (1, 2, 2048, 2048, 32, True, None),
+               (1, 2, 2048, 2048, 64, True, None)]
 #: tolerance of a kernel against its plain version, (relative to
 #: max|ref|, absolute): the GEMMs' float32 sums in another order, or one
 #: bf16 ulp of the output; flash as the reference's own tests
@@ -193,7 +211,9 @@ def phase_build() -> dict:
         dk.GIDX.name: {name: gidx.dequant_matmul_gidx_smem_bytes(4, k // gs)
                        for name, k, _, gs in (UP, DOWN)},
         dk.DEQUANTIZE.name: 0,
-        fa.FLASH.name: libs[fa.FLASH.name].flash_attention_smem_bytes(128)}
+        fa.FLASH.name: {
+            str(dt): libs[fa.FLASH.name].flash_attention_smem_bytes(
+                128, fa.KERNEL_DTYPES[dt]) for dt in FLASH_TOL}}
     out = {"wall_seconds": wall, "kernels": {}}
     for k in kernels:
         info = kbuild.info[k.name]
@@ -279,31 +299,38 @@ def _check_dequantize(gen) -> dict:
 
 
 def _check_flash(gen) -> dict:
-    rows, worst, main = [], {}, 0.0
-    for case in FLASH_SWEEP:
-        b, h, s, d, causal, window = case
+    rows, worst, main, main_rel = [], {}, 0.0, 0.0
+    cases = [(b, h, s, s, d, causal, window)
+             for b, h, s, d, causal, window in FLASH_SWEEP] + FLASH_EDGES
+    for case in cases:
+        b, h, s, t, d, causal, window = case
         for dtype, (rtol, atol) in FLASH_TOL.items():
-            q, k, v = (torch.randn(b, h, s, d, generator=gen,
-                                   device="cuda").to(dtype)
-                       for _ in range(3))
+            q = torch.randn(b, h, s, d, generator=gen, device="cuda").to(dtype)
+            k, v = (torch.randn(b, h, t, d, generator=gen,
+                                device="cuda").to(dtype) for _ in range(2))
             y = fa.flash_attention(q, k, v, causal=causal, window=window)
             ref = fa.flash_attention_torch(q, k, v, causal=causal,
                                            window=window)
             torch.cuda.synchronize()
             err = (y.float() - ref.float()).abs().max().item()
             rel = _within(rows, err, ref, rtol, atol, "flash_attention",
-                          shape=[b, h, s, d], causal=causal, window=window,
-                          dtype=str(dtype))
+                          shape=[b, h, s, t, d], causal=causal,
+                          window=window, dtype=str(dtype))
             worst[str(dtype)] = max(worst.get(str(dtype), 0.0), rel)
-            if case == FLASH_FULL and dtype == torch.float32:
+            if (b, h, s, d, causal, window) == FLASH_FULL and (
+                    dtype == torch.float32):
                 main = err
+                main_rel = rel
             del q, k, v, y, ref
-    line("check", f"flash_attention: {len(rows)} cases within tolerance; "
-                  f"max err / max|ref|: f32 {worst['torch.float32']:.3g}, "
-                  f"bf16 {worst['torch.bfloat16']:.3g}; f32 max_abs_err at "
-                  f"the full-width shape {main:.3g}; tol f32 "
-                  f"1e-5*max|ref|+1e-5, bf16 2e-2*max|ref|")
-    return {"worst_rel": worst, "main_max_abs_err": main, "cases": rows}
+    line("check", f"flash_attention: {len(rows)} cases (the reference's, "
+                  f"{len(FLASH_EDGES)} tiling edges, the full-width shape) "
+                  f"within tolerance; max err / max|ref|: f32 "
+                  f"{worst['torch.float32']:.3g}, bf16 "
+                  f"{worst['torch.bfloat16']:.3g}; f32 max_abs_err at the "
+                  f"full-width shape {main:.3g} ({main_rel:.3g} of max|ref|); "
+                  f"tol f32 1e-5*max|ref|+1e-5, bf16 2e-2*max|ref|")
+    return {"worst_rel": worst, "main_max_abs_err": main,
+            "main_rel_err": main_rel, "cases": rows}
 
 
 def _wire_values(p, s, z, bits, bs):
@@ -422,11 +449,13 @@ def _time(fn, args_list, reps: int, batches: int = 5,
     return statistics.median(out)
 
 
-def _bound(nbytes: float, flops: float) -> tuple[float, str]:
+def _bound(nbytes: float, flops: float,
+           peak: float = PEAK_F32) -> tuple[float, str]:
     """(least ms, what bounds it): the bytes over the memory rate or the
-    float32 operations over the float32 rate, whichever is larger."""
+    operations over their rate (float32 on CUDA cores unless ``peak`` says
+    otherwise), whichever is larger."""
     by_bytes = nbytes / PEAK_BYTES * 1e3
-    by_ops = flops / PEAK_F32 * 1e3
+    by_ops = flops / peak * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
                                    else "operations")
 
@@ -521,7 +550,57 @@ def _flash_flops(b, h, s, t, d, causal, window) -> float:
     return 4.0 * d * b * h * mask.sum().item()
 
 
+def _sdpa_kernels(fn) -> list:
+    """Names of the device kernels one call of ``fn`` launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")})
+
+
+def _time_sdpa(qkv) -> dict:
+    """``scaled_dot_product_attention(is_causal=True)`` on the same
+    tensors: the default call (the library yardstick), the backend behind
+    it (the one whose kernels a call restricted to it launches), and the
+    memory-efficient and math backends alone."""
+    import warnings
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v = qkv[0]
+    default = _sdpa_kernels(lambda: sdpa(q, k, v, is_causal=True))
+    out = {"default_ms": _time(lambda q, k, v: sdpa(q, k, v, is_causal=True),
+                               qkv, reps=6, batches=5),
+           "default_kernels": default, "backend": None}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            # a backend that cannot take these inputs warns why, then raises
+            with warnings.catch_warnings(), sdpa_kernel(backend):
+                warnings.simplefilter("ignore", UserWarning)
+                names = _sdpa_kernels(lambda: sdpa(q, k, v, is_causal=True))
+        except RuntimeError:
+            continue
+        if names == default and out["backend"] is None:
+            out["backend"] = backend.name
+    for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        with sdpa_kernel(backend):
+            out[f"{backend.name.lower()}_ms"] = _time(
+                lambda q, k, v: sdpa(q, k, v, is_causal=True), qkv,
+                reps=6 if backend == SDPBackend.EFFICIENT_ATTENTION else 3,
+                batches=5 if backend == SDPBackend.EFFICIENT_ATTENTION else 3)
+    return out
+
+
 def _time_flash(gen) -> dict:
+    """K2 at the full-width forward's shape beside its plain version, the
+    library call, and two bounds: its route's (3xTF32 on the tensor cores:
+    three TF32 operations for each float32 one) and, for comparison with
+    earlier CUDA-core versions, the float32 CUDA-core bound."""
     b, h, s, d, causal, window = FLASH_FULL
     qkv = [tuple(torch.randn(b, h, s, d, generator=gen, device="cuda")
                  for _ in range(3)) for _ in range(2)]
@@ -530,18 +609,40 @@ def _time_flash(gen) -> dict:
                qkv, reps=6, batches=5)
     plain_ms = _time(lambda q, k, v: fa.flash_attention_torch(
         q, k, v, causal=causal, window=window), qkv, reps=4, batches=3)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = _time(lambda q, k, v: sdpa(q, k, v, is_causal=True), qkv,
-                       reps=6, batches=5)
+    library = _time_sdpa(qkv)
     nbytes = 4 * 4 * b * h * s * d                  # q, k, v read; o written
     flops = _flash_flops(b, h, s, s, d, causal, window)
-    bound, by = _bound(nbytes, flops)
+    bound, by = _bound(nbytes, 3 * flops, PEAK_TF32)
+    f32_bound, _ = _bound(nbytes, flops)
     return {"shape": [b, h, s, d], "causal": causal, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
+            "plain_ms": plain_ms, "library_ms": library["default_ms"],
             "library": "torch.nn.functional.scaled_dot_product_attention "
-                       "(is_causal=True)",
+                       "(is_causal=True)", "sdpa": library,
             "bytes": nbytes, "flops": flops, "bound_ms": bound,
-            "bound_by": by}
+            "bound_by": by, "f32_cuda_core_bound_ms": f32_bound}
+
+
+def _time_k1_large(gen, m: int = 2048) -> dict:
+    """K1 at the full-sequence forward's M (2048 tokens), up/gate and
+    down, CUDA-graph replay, against its float32 operations bound: the
+    start of the large-M path's redesign."""
+    res = {}
+    for name, k, n, gs in (UP, DOWN):
+        ql = _quantized(gen, k, n, gs).ordered
+        meta = [ql.qweight, ql.scales, ql.zeros]
+        wbytes = sum(t.numel() * t.element_size() for t in meta)
+        x = torch.randn(m, k, generator=gen, device="cuda")
+        ms = _time(lambda qw, s, z: dk.dequant_matmul_ordered(
+            x, qw, s, z, group_size=gs), [tuple(meta)], reps=3, batches=3)
+        nbytes = 4 * (m * k + m * n) + wbytes
+        bound, by = _bound(nbytes, 2 * m * k * n)
+        res[name] = {"m": m, "k": k, "n": n, "gs": gs, "ms": ms,
+                     "bytes": nbytes, "bound_ms": bound, "bound_by": by,
+                     "tflops": 2 * m * k * n / ms / 1e9}
+    res["per_layer_ms"] = _per_layer(res, "ms")
+    res["per_layer_bound_ms"] = _per_layer(res, "bound_ms")
+    res["per_forward_ms"] = LAYERS * res["per_layer_ms"]
+    return res
 
 
 def _time_wire(gen, m: int = 4) -> dict:
@@ -586,6 +687,7 @@ def phase_timing(gen) -> dict:
     deq = _time_dequantize(gen)
     flash = _time_flash(gen)
     wire = _time_wire(gen)
+    large = _time_k1_large(gen)
     u, d = ordered[UP[0]], ordered[DOWN[0]]
     line("timing", "K1 f32 M=4, CUDA-graph replay: up/gate {:.4f} ms (bound "
          "{:.4f}, plain {:.4f}, matmul on dequantized weight {:.4f} "
@@ -614,11 +716,17 @@ def phase_timing(gen) -> dict:
          "{:.4f}, plain {:.4f}); down {:.4f} ms (bound {:.4f}, plain "
          "{:.4f})".format(du["ms"], du["bound_ms"], du["plain_ms"],
                           dd["ms"], dd["bound_ms"], dd["plain_ms"]))
+    sd = flash["sdpa"]
     line("timing", "K2 f32 B1 H32 S=T=2048 D128 causal: {:.4f} ms (bound "
-         "{:.4f} by {}, {:.3g} GFLOP; plain {:.4f}; "
-         "scaled_dot_product_attention {:.4f} [library])".format(
+         "{:.4f} by {}: 3 x {:.3g} GFLOP at the TF32 tensor-core rate; "
+         "float32 CUDA-core bound {:.4f}; plain {:.4f}); "
+         "scaled_dot_product_attention {:.4f} [library; backend {}, kernels "
+         "{}] (EFFICIENT_ATTENTION alone {:.4f}, MATH alone {:.4f})".format(
              flash["ms"], flash["bound_ms"], flash["bound_by"],
-             flash["flops"] / 1e9, flash["plain_ms"], flash["library_ms"]))
+             flash["flops"] / 1e9, flash["f32_cuda_core_bound_ms"],
+             flash["plain_ms"], flash["library_ms"], sd["backend"],
+             ", ".join(k[:48] for k in sd["default_kernels"]),
+             sd["efficient_attention_ms"], sd["math_ms"]))
     for bits in (8, 4):
         w = wire[f"int{bits}"]
         line("timing", "K3 int{} f32 M=4 K={} N={} (tp=2 down shard), "
@@ -627,7 +735,16 @@ def phase_timing(gen) -> dict:
              "epilogue], K1 alone {:.4f})".format(
                  bits, w["k"], w["n"], w["ms"], w["bound_ms"], w["bound_by"],
                  w["plain_ms"], w["unfused_ms"], wire["k1_alone_ms"]))
+    lu, ld = large[UP[0]], large[DOWN[0]]
+    line("timing", "K1 f32 M=2048 (the forward's MLP), CUDA-graph replay: "
+         "up/gate {:.3f} ms (bound {:.3f} by {}, {:.1f} TFLOP/s); down "
+         "{:.3f} ms (bound {:.3f}, {:.1f} TFLOP/s); per layer {:.3f} ms, "
+         "x 36 layers = {:.1f} ms per forward (108 launches)".format(
+             lu["ms"], lu["bound_ms"], lu["bound_by"], lu["tflops"],
+             ld["ms"], ld["bound_ms"], ld["tflops"], large["per_layer_ms"],
+             large["per_forward_ms"]))
     return {"dequant_matmul_ordered": ordered, "dequant_matmul_gidx": gidx,
+            "dequant_matmul_ordered_m2048": large,
             "gidx_over_ordered_per_layer": ratio,
             "gidx_naive_over_ordered_layout_per_layer": in_kernel,
             "dequantize_ordered": deq, "flash_attention": flash,

@@ -2,8 +2,10 @@
 ``repro/kernels/flash_attention.py``.
 
 The kernel is CUDA C++ (``src/repro_torch/csrc/flash_attention.cu``; its
-source note says what bounds it and how it is built up), compiled by
-``kernels/build.py`` the first time a CUDA tensor reaches the wrapper.
+source note says what bounds it and how it is built up: both products on
+the tensor cores, float32 split 3xTF32, K/V tiles double-buffered with
+``cp.async``), compiled by ``kernels/build.py`` the first time a CUDA
+tensor reaches the wrapper.
 
 Layout as in the reference: q (B, H, S, D), k and v (B, H, T, D); GQA
 callers repeat the KV heads before the call.  ``flash_attention`` runs
@@ -29,10 +31,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 FLASH = build.Kernel("flash_attention", (
     ("flash_attention", (_P,) * 4 + (_I,) * 6 + (ctypes.c_float, _I, _P),
      _I),
-    ("flash_attention_smem_bytes", (_I,), _I),
+    ("flash_attention_smem_bytes", (_I, _I), _I),
     ("flash_attention_error_string", (_I,), ctypes.c_char_p)))
 
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def attention_mask(s: int, t: int, *, causal: bool, window: Optional[int],
@@ -75,7 +77,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_torch(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    if q.dtype not in _KERNEL_DTYPES:
+    if q.dtype not in KERNEL_DTYPES:
         raise ValueError(f"the CUDA kernel takes float32, bfloat16 or "
                          f"float16, got {q.dtype}")
     if q.dim() != 4:
@@ -106,7 +108,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         err = lib.flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b * h, s,
             t, d, int(causal), -1 if window is None else int(window),
-            d ** -0.5, _KERNEL_DTYPES[q.dtype], stream)
+            d ** -0.5, KERNEL_DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(
             f"flash_attention kernel launch failed: cuda error {err} "

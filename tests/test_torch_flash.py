@@ -83,24 +83,84 @@ def test_flash_refuses_empty_window():
         ops.flash_attention(q, q, q, window=0)
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round float32 to TF32 (10 mantissa bits), nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32``: add half an ulp to the magnitude
+    bits and clear the 13 low bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_product(a, b, eq, split):
+    """``einsum(eq, a, b)`` with TF32 operands, as the kernel's mma.sync
+    takes them: split 3xTF32 (small*big + big*small + big*big, the
+    products exact in float32) or one TF32 product."""
+    ab, bb = _tf32(a), _tf32(b)
+    if not split:
+        return torch.einsum(eq, ab, bb)
+    asm, bsm = _tf32(a - ab), _tf32(b - bb)
+    return (torch.einsum(eq, asm, bb) + torch.einsum(eq, ab, bsm)
+            + torch.einsum(eq, ab, bb))
+
+
+def _tf32_attention(q, k, v, *, split):
+    s, d = q.shape[2], q.shape[3]
+    sc = _tf32_product(q, k, "bhsd,bhtd->bhst", split) * d ** -0.5
+    mask = tfa.attention_mask(s, k.shape[2], causal=True, window=None)
+    p = torch.softmax(sc.masked_fill(~mask, tfa.NEG_INF), dim=-1)
+    return _tf32_product(p, v, "bhst,bhtd->bhsd", split)
+
+
+def test_3xtf32_split_holds_the_float32_tolerance():
+    """The numeric design of the CUDA kernel, on the CPU: both products
+    with 3xTF32 operands stay within the float32 check limit
+    (1e-5 * max|ref| + 1e-5) of the plain version; a single TF32 product
+    does not, which is why the kernel splits float32 operands."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(7, (1, 2, 256, 128)))
+    want = tfa.flash_attention_torch(q, k, v, causal=True)
+    limit = 1e-5 * want.abs().max().item() + 1e-5
+    err3 = (_tf32_attention(q, k, v, split=True) - want).abs().max().item()
+    err1 = (_tf32_attention(q, k, v, split=False) - want).abs().max().item()
+    assert err3 <= limit, (err3, limit)
+    assert err1 > 4 * limit, (err1, limit)
+
+
+#: (b, h, s, t, d, causal, window) of the card's test: the reference's
+#: sweep, ragged S = T, windows inside and across a 64-key tile, S != T,
+#: every head dim at S 2048, and 8 heads of the full-width forward
+CUDA_CASES = [(b, h, s, s, d, causal, window)
+              for b, h, s, d, causal, window, _, _ in SWEEP] + [
+    (1, 3, 100, 100, 64, True, None),       # ragged S = T
+    (2, 2, 77, 77, 128, False, None),
+    (1, 2, 200, 200, 32, True, 48),
+    (1, 2, 100, 100, 128, True, None),      # S not a multiple of 16 or 64
+    (1, 2, 1000, 1000, 128, True, None),
+    (1, 2, 300, 300, 128, True, 16),        # windows below, across a tile
+    (1, 2, 300, 300, 64, True, 48),
+    (1, 2, 300, 300, 128, True, 80),
+    (1, 2, 300, 300, 128, False, 80),
+    (1, 2, 100, 300, 128, False, None),     # S != T
+    (2, 2, 300, 70, 64, False, None),
+    (1, 2, 2048, 2048, 32, True, None),     # every head dim at S 2048
+    (1, 2, 2048, 2048, 64, True, None),
+    (1, 8, 2048, 2048, 128, True, None)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
-                                       (torch.bfloat16, 2e-2)])
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 2e-3)])
 def test_cuda_flash_kernel_matches_plain_version(dtype, tol):
-    """K2 against its plain version on the card, at the reference's test
-    shapes, ragged S/T, and 8 heads of the full-width forward (D 128, S
-    2048); tolerance relative to max|ref| (plus 1e-5 in float32)."""
+    """K2 against its plain version on the card at ``CUDA_CASES``;
+    tolerance relative to max|ref| (plus 1e-5 in float32): float32 as the
+    reference's own tests, bfloat16 and float16 two ulps of the output."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    shapes = [case[:6] for case in SWEEP] + [
-        (1, 3, 100, 64, True, None),        # ragged S = T
-        (2, 2, 77, 128, False, None),
-        (1, 2, 200, 32, True, 48),
-        (1, 8, 2048, 128, True, None)]
-    for b, h, s, d, causal, window in shapes:
-        q, k, v = (torch.randn(b, h, s, d, generator=gen,
-                               device="cuda").to(dtype) for _ in range(3))
+    for b, h, s, t, d, causal, window in CUDA_CASES:
+        q = torch.randn(b, h, s, d, generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn(b, h, t, d, generator=gen,
+                            device="cuda").to(dtype) for _ in range(2))
         launches = tfa.flash_attention.launches
         y = ops.flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
@@ -110,4 +170,4 @@ def test_cuda_flash_kernel_matches_plain_version(dtype, tol):
         err = (y.float() - want.float()).abs().max().item()
         limit = tol * want.float().abs().max().item() + (
             1e-5 if dtype == torch.float32 else 0.0)
-        assert err <= limit, (b, h, s, d, causal, window, err)
+        assert err <= limit, (b, h, s, t, d, causal, window, err, limit)
