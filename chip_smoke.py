@@ -10,12 +10,16 @@ Phases, one line each:
   3. check: each CUDA kernel against its plain torch version, float32 and
      bfloat16: the ordered dequant-GEMM (K1) and the g_idx dequant-GEMM
      (K4) at the reference's test shapes, gs=76, ragged edges and the
-     full-width qwen3-4b MLP shapes; the dequantize kernel (K5) bit-equal;
+     full-width qwen3-4b MLP shapes, and K1 at large M (its tensor-core
+     loop in float32: the full-width shapes at M=2048, ragged M around the
+     loop's threshold, ragged N and K); the dequantize kernel (K5)
+     bit-equal;
      flash attention (K2) at the reference's test shapes, the edges of
      its 128-query, 64-key tiling (ragged S, windows, S != T, every head
      dim at S 2048) and the full-width forward's; the fused dequant-GEMM
-     + wire quantize (K3) bit-equal to K1 followed by the collective's quantizer, and within
-     one quantization level of its plain version
+     + wire quantize (K3) bit-equal to K1 followed by the collective's
+     quantizer (also above K1's tensor-core threshold), and within one
+     quantization level of its plain version
   4. timing: full-width launches (CUDA-graph replay, weights beyond L2)
      against their bounds and plain versions: K1 and K4 at M=4 (their
      ratio is the naive-versus-ordered comparison), K5, K2 against its
@@ -23,7 +27,10 @@ Phases, one line each:
      torch's scaled_dot_product_attention (its backend named, and the
      memory-efficient and math backends timed alone), K3 at the tp=2 down
      projection (int8 and int4) beside K1 followed by the plain quantizer,
-     and K1 at the forward's M=2048 (up/gate and down)
+     and K1 at the forward's M=2048 (up/gate and down; its tensor-core
+     loop) against its bounds, its plain version and, as context,
+     ``torch.matmul`` on the weight pre-dequantized by K5 (the cuBLAS
+     kernel named)
   5. serve: full-width qwen3-4b (36 layers) built by the port's
      ``make_engine`` on the card from seed 0, four requests through the
      ``Scheduler``; every decode step must launch K1 108 times
@@ -38,7 +45,8 @@ Phases, one line each:
      tp-aware (K1), both planned from seed 0
  10. forward flash: the full-sequence forward (``Engine.prefill_logits``)
      of 2048 tokens with attn_backend="flash" (36 K2 launches) against
-     attn_backend="xla" on the same params
+     attn_backend="xla" on the same params; all 108 K1 launches take its
+     tensor-core loop, and the profiler's K1 and split-add times
  11. dequantize: every MLP weight of the full-width engine materialized
      through ``ops.dequantize`` (108 K5 launches), bit-equal to the plain
      dequantize
@@ -151,6 +159,9 @@ WIRE_SWEEP = [(128, 96, 32, 4, 8, 32), (64, 128, 8, 8, 8, 128),
 TP_SERVE = "quant-int8:fused"
 TP_PAIRS = (("quant-int8:fused", "quant-int8"),
             ("quant-int4:fused", "quant-int4"))
+#: the launches of K1 that took its tensor-core loop (float32, large M),
+#: counted beside the wrappers' own counts
+TC = "dequant_matmul_ordered (tensor cores)"
 #: the kernels' wrappers, each with its launch count
 COUNTED = {"dequant_matmul_ordered": dk.dequant_matmul_ordered,
            "dequant_matmul_gidx": dk.dequant_matmul_gidx,
@@ -166,16 +177,19 @@ def line(phase: str, text: str):
 def reset_counts():
     for fn in COUNTED.values():
         fn.launches = 0
+    dk.dequant_matmul_ordered.tensor_core_launches = 0
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in COUNTED.items()}
+    counts = {name: fn.launches for name, fn in COUNTED.items()}
+    counts[TC] = dk.dequant_matmul_ordered.tensor_core_launches
+    return counts
 
 
 def expect_counts(counts: dict, want: dict, what: str):
     """Each counted kernel launched exactly ``want[name]`` times (0 for
     those ``want`` does not name)."""
-    full = {name: want.get(name, 0) for name in COUNTED}
+    full = {name: want.get(name, 0) for name in (*COUNTED, TC)}
     if counts != full:
         raise AssertionError(f"{what}: kernel launches {counts}, expected "
                              f"{full}")
@@ -198,16 +212,18 @@ def phase_build() -> dict:
     wall = time.perf_counter() - t0
     libs = {k.name: kbuild.load(k) for k in kernels}
     ordered, gidx = libs[dk.ORDERED.name], libs[dk.GIDX.name]
-    # dynamic shared memory per block at the main paths' shapes (f32, M<=4)
+    # dynamic shared memory per block at the main paths' shapes (f32,
+    # M<=4, and M=2048 for K1's tensor-core loop)
     smem = {
         dk.ORDERED.name: {
-            name: ordered.dequant_matmul_smem_bytes(
-                4, gs, dk.pick_block_k(k, gs), 0)
-            for name, k, _, gs in (UP, DOWN)},
+            f"{name} M={m}": ordered.dequant_matmul_smem_bytes(
+                m, n, gs, dk.pick_block_k(k, gs), 0)
+            for name, k, n, gs in (UP, DOWN) for m in (4, 2048)},
         # K3's GEMM is K1's main loop; its epilogue kernels use none
         dk.WIRE.name: {
             DOWN_TP[0]: ordered.dequant_matmul_smem_bytes(
-                4, DOWN_TP[3], dk.pick_block_k(DOWN_TP[1], DOWN_TP[3]), 0)},
+                4, DOWN_TP[2], DOWN_TP[3],
+                dk.pick_block_k(DOWN_TP[1], DOWN_TP[3]), 0)},
         dk.GIDX.name: {name: gidx.dequant_matmul_gidx_smem_bytes(4, k // gs)
                        for name, k, _, gs in (UP, DOWN)},
         dk.DEQUANTIZE.name: 0,
@@ -250,8 +266,9 @@ def _within(rows: list, err: float, ref: torch.Tensor, rtol: float,
 def _check_gemm(gen, name, shapes, layout, kernel, plain) -> dict:
     """A dequant-GEMM kernel against its plain version; returns the worst
     relative error per dtype, the largest float32 error at the main
-    path's shapes (M=4, full width) and every case's record."""
-    rows, worst, main = [], {}, 0.0
+    path's shapes (M=4, full width) and at the forward's (M=2048, full
+    width) where those run, and every case's record."""
+    rows, worst, main, large = [], {}, 0.0, None
     for m, k, n, gs in shapes:
         ql = getattr(_quantized(gen, k, n, gs), layout)
         x = torch.randn(m, k, generator=gen, device="cuda")
@@ -268,12 +285,17 @@ def _check_gemm(gen, name, shapes, layout, kernel, plain) -> dict:
             worst[str(dtype)] = max(worst.get(str(dtype), 0.0), rel)
             if dtype == torch.float32 and m == 4 and k >= 2560:
                 main = max(main, err)
+            if dtype == torch.float32 and m == 2048 and k >= 2560:
+                large = max(large or 0.0, err)
     line("check", f"{name}: {len(rows)} cases within tolerance; max err / "
                   f"max|ref|: f32 {worst['torch.float32']:.3g}, bf16 "
                   f"{worst['torch.bfloat16']:.3g}; f32 max_abs_err at the "
-                  f"main path's shapes {main:.3g}; tol f32 "
-                  f"1e-5*max|ref|+1e-4, bf16 1e-2*max|ref|")
-    return {"worst_rel": worst, "main_max_abs_err": main, "cases": rows}
+                  f"main path's shapes {main:.3g}"
+                  + ("" if large is None else
+                     f", at the forward's (M=2048) {large:.3g}")
+                  + "; tol f32 1e-5*max|ref|+1e-4, bf16 1e-2*max|ref|")
+    return {"worst_rel": worst, "main_max_abs_err": main,
+            "m2048_max_abs_err": large, "cases": rows}
 
 
 def _check_dequantize(gen) -> dict:
@@ -346,12 +368,15 @@ def _check_wire(gen) -> dict:
     torch.matmul sums in another order (within one quantization level:
     the block's scale)."""
     rows, main = [], 0.0
+    # above K1's tensor-core threshold at the tp=2 down shard, in float32
+    # (the one compute type that takes that loop)
+    m_tc = dk.tensor_core_min_m() + 3
     for k, n, gs, tp, bits, blk in WIRE_SWEEP:
         ql = _quantized(gen, k, n, gs).ordered
         n_pad, _, bs = wire_params(n, tp, bits, blk)
-        for m in (1, 4, 64):
+        for m in (1, 4, 64) + ((m_tc,) if (k, n) == DOWN_TP[1:3] else ()):
             x = torch.randn(m, k, generator=gen, device="cuda")
-            for dtype in TOL:
+            for dtype in TOL if m != m_tc else (torch.float32,):
                 got = ops.dequant_matmul_wire(x, ql, tp=tp, wire_bits=bits,
                                               wire_block=blk,
                                               compute_dtype=dtype)
@@ -386,23 +411,53 @@ def _check_wire(gen) -> dict:
     worst = max(r["levels_from_plain"] for r in rows)
     line("check", f"dequant_matmul_wire_ordered: {len(rows)} cases (int8 "
                   f"and int4, f32 and bf16, M 1/4/64, padded wires, the "
-                  f"tp=2 down shard) bit-equal to K1 + the collective's "
+                  f"tp=2 down shard, also at M={m_tc} in f32) bit-equal "
+                  f"to K1 + "
+                  f"the collective's "
                   f"quantizer; against the plain version at most "
                   f"{worst:.3g} quantization levels (tol 1); max_abs_err "
                   f"at the main path's shape (M=4, int8, f32) {main:.3g}")
     return {"main_max_abs_err": main, "worst_levels": worst, "cases": rows}
 
 
+def _large_m_cases(t: int) -> list:
+    """K1 cases (M, K, N, gs) at and around its tensor-core threshold
+    ``t``: the full-width MLP shapes at M=2048 (blocks of 128 rows for
+    up/gate, of 160 for down), ragged M (t - 1 on the decode loop, t,
+    t + 1, 2047), ragged N (102 and 200, not multiples of 4; 2501, odd,
+    in blocks of 160 rows) at gs 76 and 64, a K step past K (K 152), gs 8
+    (many groups a K step)."""
+    return [(2048,) + UP[1:], (2048,) + DOWN[1:],
+            (t - 1, 608, 200, 76), (t, 608, 200, 76), (t + 1, 608, 200, 76),
+            (2047, 608, 200, 76), (t + 1, 256, 102, 64), (2047, 256, 102, 64),
+            (t + 3, 152, 200, 76), (t + 5, 64, 128, 8),
+            (2047, 152, 2501, 76)]
+
+
 def phase_check(gen) -> dict:
     full = [(m, k, n, gs) for _, k, n, gs in (UP, DOWN) for m in (1, 4, 32)]
+    t = dk.tensor_core_min_m()
+    large = _large_m_cases(t)
+    wire = _check_wire(gen)
+    tc0 = dk.dequant_matmul_ordered.tensor_core_launches
+    ordered = _check_gemm(
+        gen, "dequant_matmul_ordered", SWEEP + full + large, "ordered",
+        lambda x, ql, dt: ops.dequant_matmul(x, ql, compute_dtype=dt),
+        lambda x, ql, dt: dk.dequant_matmul_ordered_torch(
+            x, ql.qweight, ql.scales, ql.zeros,
+            group_size=ql.group_size, compute_dtype=dt))
+    tc = dk.dequant_matmul_ordered.tensor_core_launches - tc0
+    want = sum(m >= t for m, *_ in SWEEP + full + large)  # float32 only
+    if tc != want:
+        raise AssertionError(f"K1's tensor-core loop ran {tc} times in the "
+                             f"check, expected {want} (float32, M >= {t})")
+    ordered["tensor_core_min_m"] = t
+    ordered["tensor_core_launches"] = tc
+    line("check", f"dequant_matmul_ordered: tensor-core loop from M={t} "
+                  f"(float32): {tc} of the cases above ran it")
     return {
-        "dequant_matmul_wire_ordered": _check_wire(gen),
-        "dequant_matmul_ordered": _check_gemm(
-            gen, "dequant_matmul_ordered", SWEEP + full, "ordered",
-            lambda x, ql, dt: ops.dequant_matmul(x, ql, compute_dtype=dt),
-            lambda x, ql, dt: dk.dequant_matmul_ordered_torch(
-                x, ql.qweight, ql.scales, ql.zeros,
-                group_size=ql.group_size, compute_dtype=dt)),
+        "dequant_matmul_wire_ordered": wire,
+        "dequant_matmul_ordered": ordered,
         "dequant_matmul_gidx": _check_gemm(
             gen, "dequant_matmul_gidx", GIDX_SWEEP + SWEEP + full, "naive",
             lambda x, ql, dt: ops.dequant_matmul(x, ql, compute_dtype=dt),
@@ -550,7 +605,7 @@ def _flash_flops(b, h, s, t, d, causal, window) -> float:
     return 4.0 * d * b * h * mask.sum().item()
 
 
-def _sdpa_kernels(fn) -> list:
+def _kernel_names(fn) -> list:
     """Names of the device kernels one call of ``fn`` launches."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -572,7 +627,7 @@ def _time_sdpa(qkv) -> dict:
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     q, k, v = qkv[0]
-    default = _sdpa_kernels(lambda: sdpa(q, k, v, is_causal=True))
+    default = _kernel_names(lambda: sdpa(q, k, v, is_causal=True))
     out = {"default_ms": _time(lambda q, k, v: sdpa(q, k, v, is_causal=True),
                                qkv, reps=6, batches=5),
            "default_kernels": default, "backend": None}
@@ -582,7 +637,7 @@ def _time_sdpa(qkv) -> dict:
             # a backend that cannot take these inputs warns why, then raises
             with warnings.catch_warnings(), sdpa_kernel(backend):
                 warnings.simplefilter("ignore", UserWarning)
-                names = _sdpa_kernels(lambda: sdpa(q, k, v, is_causal=True))
+                names = _kernel_names(lambda: sdpa(q, k, v, is_causal=True))
         except RuntimeError:
             continue
         if names == default and out["backend"] is None:
@@ -624,8 +679,12 @@ def _time_flash(gen) -> dict:
 
 def _time_k1_large(gen, m: int = 2048) -> dict:
     """K1 at the full-sequence forward's M (2048 tokens), up/gate and
-    down, CUDA-graph replay, against its float32 operations bound: the
-    start of the large-M path's redesign."""
+    down, CUDA-graph replay: its tensor-core loop against its route's
+    bound (three TF32 operations for each float32 one, at the TF32
+    tensor-core rate) and the float32 CUDA-core bound, its plain version,
+    and, as context, ``torch.matmul`` of the same x with the weight
+    pre-dequantized by K5 (default float32 precision; the cuBLAS kernel
+    it launches named)."""
     res = {}
     for name, k, n, gs in (UP, DOWN):
         ql = _quantized(gen, k, n, gs).ordered
@@ -633,14 +692,29 @@ def _time_k1_large(gen, m: int = 2048) -> dict:
         wbytes = sum(t.numel() * t.element_size() for t in meta)
         x = torch.randn(m, k, generator=gen, device="cuda")
         ms = _time(lambda qw, s, z: dk.dequant_matmul_ordered(
-            x, qw, s, z, group_size=gs), [tuple(meta)], reps=3, batches=3)
+            x, qw, s, z, group_size=gs), [tuple(meta)], reps=6, batches=5)
+        plain_ms = _time(lambda qw, s, z: dk.dequant_matmul_ordered_torch(
+            x, qw, s, z, group_size=gs), [tuple(meta)], reps=2, batches=3)
+        w = dk.dequantize_ordered(*meta, group_size=gs)
+        matmul_ms = _time(lambda w: torch.matmul(x, w), [(w,)], reps=6,
+                          batches=5)
+        matmul_kernels = _kernel_names(lambda: torch.matmul(x, w))
+        del w
+        flops = 2 * m * k * n
         nbytes = 4 * (m * k + m * n) + wbytes
-        bound, by = _bound(nbytes, 2 * m * k * n)
+        bound, by = _bound(nbytes, 3 * flops, PEAK_TF32)
+        f32_bound, _ = _bound(nbytes, flops)
         res[name] = {"m": m, "k": k, "n": n, "gs": gs, "ms": ms,
-                     "bytes": nbytes, "bound_ms": bound, "bound_by": by,
-                     "tflops": 2 * m * k * n / ms / 1e9}
-    res["per_layer_ms"] = _per_layer(res, "ms")
-    res["per_layer_bound_ms"] = _per_layer(res, "bound_ms")
+                     "plain_ms": plain_ms, "bytes": nbytes, "flops": flops,
+                     "bound_ms": bound, "bound_by": by,
+                     "f32_cuda_core_bound_ms": f32_bound,
+                     "tflops": flops / ms / 1e9,
+                     "matmul_dequantized_ms": matmul_ms,
+                     "matmul_kernels": matmul_kernels,
+                     "over_matmul": ms / matmul_ms}
+    for key in ("ms", "plain_ms", "bound_ms", "f32_cuda_core_bound_ms",
+                "matmul_dequantized_ms"):
+        res[f"per_layer_{key}"] = _per_layer(res, key)
     res["per_forward_ms"] = LAYERS * res["per_layer_ms"]
     return res
 
@@ -735,14 +809,25 @@ def phase_timing(gen) -> dict:
              "epilogue], K1 alone {:.4f})".format(
                  bits, w["k"], w["n"], w["ms"], w["bound_ms"], w["bound_by"],
                  w["plain_ms"], w["unfused_ms"], wire["k1_alone_ms"]))
-    lu, ld = large[UP[0]], large[DOWN[0]]
-    line("timing", "K1 f32 M=2048 (the forward's MLP), CUDA-graph replay: "
-         "up/gate {:.3f} ms (bound {:.3f} by {}, {:.1f} TFLOP/s); down "
-         "{:.3f} ms (bound {:.3f}, {:.1f} TFLOP/s); per layer {:.3f} ms, "
-         "x 36 layers = {:.1f} ms per forward (108 launches)".format(
-             lu["ms"], lu["bound_ms"], lu["bound_by"], lu["tflops"],
-             ld["ms"], ld["bound_ms"], ld["tflops"], large["per_layer_ms"],
-             large["per_forward_ms"]))
+    for name in (UP[0], DOWN[0]):
+        r = large[name]
+        line("timing", "K1 f32 M=2048 {} (the forward's MLP; tensor-core "
+             "loop), CUDA-graph replay: {:.3f} ms, {:.1f} TFLOP/s (bound "
+             "{:.3f} by {}: 3 x {:.1f} GFLOP at the TF32 tensor-core rate; "
+             "float32 CUDA-core bound {:.3f}; plain {:.3f}); torch.matmul "
+             "on the K5-dequantized weight {:.3f} ms [context; kernels {}], "
+             "K1 / matmul = {:.2f}".format(
+                 name, r["ms"], r["tflops"], r["bound_ms"], r["bound_by"],
+                 r["flops"] / 1e9, r["f32_cuda_core_bound_ms"],
+                 r["plain_ms"], r["matmul_dequantized_ms"],
+                 ", ".join(k[:60] for k in r["matmul_kernels"]),
+                 r["over_matmul"]))
+    line("timing", "K1 f32 M=2048 per layer {:.3f} ms (bound {:.3f}, "
+         "matmul {:.3f}), x 36 layers = {:.1f} ms per forward (108 "
+         "launches)".format(large["per_layer_ms"],
+                            large["per_layer_bound_ms"],
+                            large["per_layer_matmul_dequantized_ms"],
+                            large["per_forward_ms"]))
     return {"dequant_matmul_ordered": ordered, "dequant_matmul_gidx": gidx,
             "dequant_matmul_ordered_m2048": large,
             "gidx_over_ordered_per_layer": ratio,
@@ -855,10 +940,10 @@ def _greedy_compare(eng_a, eng_b, cfg, text: str) -> tuple[str, dict]:
     return text, out
 
 
-def _device_kernels(run, per: int) -> tuple[float, float, dict]:
+def _device_kernels(run, per: int) -> tuple[float, float, dict, dict]:
     """Profile ``run()`` with ``torch.profiler``: (device ms of kernels and
-    copies, how many were launched, the five largest by ms), each per
-    one of the ``per`` repetitions ``run`` makes."""
+    copies, how many were launched, the five largest by ms, ms by name),
+    each per one of the ``per`` repetitions ``run`` makes."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -871,7 +956,7 @@ def _device_kernels(run, per: int) -> tuple[float, float, dict]:
                               + e.self_device_time_total / 1e3 / per)
             events += e.count
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    return sum(by_name.values()), events / per, dict(top)
+    return sum(by_name.values()), events / per, dict(top), by_name
 
 
 def phase_trace(engine) -> dict:
@@ -892,7 +977,7 @@ def phase_trace(engine) -> dict:
     t0 = time.perf_counter()
     run()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    device_ms, events, top = _device_kernels(run, steps)
+    device_ms, events, top, _ = _device_kernels(run, steps)
     out = {"wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
            "busy_share": device_ms / wall_ms,
            "device_events_per_step": events,
@@ -945,16 +1030,31 @@ def phase_forward_flash(engine, cfg) -> dict:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
         counts = read_counts()
+        # every K1 launch of the forward (M = 2048) takes its tensor-core
+        # loop
         expect_counts(counts, {
             "dequant_matmul_ordered": LAUNCHES_PER_STEP,
+            TC: LAUNCHES_PER_STEP,
             "flash_attention": LAYERS if name == "flash" else 0},
             f"forward {name}")
         res[name] = {"wall_ms": wall, "counts": counts, "logits": logits}
-        device_ms, events, top = _device_kernels(
+        device_ms, events, top, by_name = _device_kernels(
             lambda eng=eng: (eng.prefill_logits(toks),
                              torch.cuda.synchronize()), 1)
+        # K1's loops (dequant_matmul_tc_kernel, dequant_matmul_ordered_
+        # kernel) and the decode loop's split-add pass, by kernel name
+        k1_ms = sum(v for key, v in by_name.items()
+                    if "dequant_matmul_tc_kernel" in key
+                    or "dequant_matmul_ordered_kernel" in key)
+        split_add_ms = sum(v for key, v in by_name.items()
+                           if "add_splits_kernel" in key)
         res[name].update(device_ms=device_ms, device_events=events,
-                         top_kernels_ms=top)
+                         top_kernels_ms=top, k1_ms=k1_ms,
+                         split_add_ms=split_add_ms)
+        if split_add_ms != 0:
+            raise AssertionError(f"forward {name}: K1's split-add ran "
+                                 f"({split_add_ms:.3f} ms); the tensor-core "
+                                 f"loop splits no K")
     lf, lx = res["flash"].pop("logits"), res["xla"].pop("logits")
     if lf.shape != (1, s, cfg.vocab_size) or not torch.isfinite(lf).all():
         raise AssertionError(f"flash forward logits {tuple(lf.shape)} not "
@@ -985,6 +1085,9 @@ def phase_forward_flash(engine, cfg) -> dict:
         line("forward-flash", f"{name} forward under torch.profiler: "
                               f"{r['device_ms']:.1f} ms of kernels, "
                               f"{r['device_events']:.0f} kernels/copies; "
+                              f"K1 {r['k1_ms']:.1f} ms ({r['counts'][TC]} of "
+                              f"its launches on the tensor-core loop), "
+                              f"split-add {r['split_add_ms']:.1f} ms; "
                               f"top ms: " + ", ".join(
                                   f"{k[:40]} {v:.1f}"
                                   for k, v in r["top_kernels_ms"].items()))
@@ -1187,11 +1290,22 @@ def main() -> int:
 
     src = "src/repro_torch/csrc/"
     tpu = "src/repro/kernels/"
+    large = timing["dequant_matmul_ordered_m2048"]
     kernels = [
         _entry("dequant_matmul_ordered", src + "dequant_matmul_ordered.cu",
                tpu + "dequant_matmul.py:104", serve["launches"],
                checks["dequant_matmul_ordered"]["main_max_abs_err"],
                _layer(timing["dequant_matmul_ordered"])),
+        # K1's tensor-core loop, on the forward's path (M=2048, per layer)
+        _entry("dequant_matmul_ordered (tensor cores, M=2048)",
+               src + "dequant_matmul_ordered.cuh",
+               tpu + "dequant_matmul.py:104",
+               forward["flash"]["counts"][TC],
+               checks["dequant_matmul_ordered"]["m2048_max_abs_err"],
+               {"ms": large["per_layer_ms"],
+                "plain_ms": large["per_layer_plain_ms"],
+                "bound_ms": large["per_layer_bound_ms"],
+                "bound_by": "operations"}),
         _entry("dequant_matmul_gidx", src + "dequant_matmul_gidx.cu",
                tpu + "dequant_matmul.py:333", serve_naive["launches"],
                checks["dequant_matmul_gidx"]["main_max_abs_err"],

@@ -11,13 +11,17 @@
 // bfloat16) before the multiply, the sum kept in float32, and y written in
 // the compute type.
 //
-// What bounds it: in decode M is 1..32, so the kernel does ~2*M*K*N flops
-// against ~K*N/2 bytes of packed weight; at M = 4 that is 16 flops per
-// byte, far below the card's ridge, so its floor is the bytes it reads
-// from device memory (packed weight + scales + zeros).  The float32 policy
-// forbids tensor cores (no TF32), so each weight element also costs M
+// Two main loops, chosen by M, the group size and the compute type
+// (tensor_core_path in the header):
+//
+// The decode loop (M < kTcMinM, every bfloat16 call, and groups of fewer
+// than kTcMinGroup rows).  What bounds it: in decode M is 1..32, so the
+// kernel does ~2*M*K*N flops against ~K*N/2 bytes of packed weight; at
+// M = 4 that is 16 flops per byte, far below the card's ridge, so its
+// floor is the bytes it reads from device memory (packed weight + scales
+// + zeros).  Under the float32 policy each weight element also costs M
 // CUDA-core FMAs plus its unpack and dequantize; at M = 4 that instruction
-// stream, not the memory, is what this form of the kernel runs into.
+// stream, not the memory, is what this loop runs into.
 //
 // Design (no TMA, no wgmma yet):
 //  * One thread block per (BM rows x 128 columns) output tile and K range,
@@ -38,16 +42,79 @@
 //    has 20), the K steps are split over blockIdx.z (choose_split, from
 //    the device's SM count); each split writes its float32 partial tile
 //    and a second kernel adds the splits in a fixed order.  The split
-//    depends only on N, K and the card, never on M, so a row's result
-//    does not depend on the batch it runs in.  The caller asks
+//    depends only on N, K and the card, never on M.  The caller asks
 //    dequant_matmul_partial_floats for the scratch this takes.
-//  * The group of each row is k / gs per row, never per word: with gs = 76
-//    a packed word straddles two groups.
-//  * A nibble q becomes the float 2^23 + q by OR-ing it into the mantissa
-//    of 2^23; subtracting 2^23 + z (exact for the integer zero-points
-//    0..15 that the quantizer writes) gives q - z exactly, so w is
-//    bit-equal to the reference's (q - z) * s without an int-to-float
-//    conversion per element.
+//
+// The tensor-core loop (float32, M >= kTcMinM, groups of at least
+// kTcMinGroup rows: the full-sequence forward's MLP, M = 2048 tokens).
+// What bounds it: operations; at the full-width shapes one launch is
+// 2 * 2048 * 2560 * 9728 = 102 GFLOP against about 100 MB.  On CUDA cores that
+// is 1.52 ms at the float32 rate, which the decode loop's design missed by
+// 5.5x.  So the products run on the tensor cores with mma.sync m16n8k8
+// TF32.  The float32 policy holds the kernel to 1e-5 of max|ref| + 1e-4,
+// and one TF32 product (10 mantissa bits) misses that by 26-32x at these
+// K, so both operands are split 3xTF32 as in flash_attention.cu:
+// v = big + small with big = cvt.rna.tf32(v) and small =
+// cvt.rna.tf32(v - big); each
+// k-step adds small*big, big*small and big*big.  The floor is then 3 x 102
+// GFLOP at the dense TF32 rate (0.62 ms), and mma.sync reaches about 62%
+// of that rate (tools/mma_tf32_probe.py).
+//
+// Design (no TMA, no wgmma yet):
+//  * One block of 8 warps per output tile of 128 columns and 32 MT rows;
+//    warp (wm, wn) owns rows 16 MT wm..+16 MT - 1 and columns 32 wn..+31:
+//    MT m16 x 4 n8 accumulator tiles in registers.  No K split: at
+//    M = 2048 the tiles alone give 1216 blocks (up/gate) and 320 (down)
+//    for 132 SMs, so no partial tiles and no second pass;
+//    dequant_matmul_partial_floats asks for no scratch.  MT is 4, or 5
+//    where that leaves each SM fewer rows (tc_mtiles): the down
+//    projection's 320 blocks of 128 rows take 3 waves, the last 42% full,
+//    and its 260 blocks of 160 rows take 2.
+//  * K steps of 32 through a 4-stage cp.async ring: the x tile (rows of
+//    32 + 16 floats, so each 16-byte fragment read is conflict-free), the
+//    4 packed rows (rows of 128 + 8 words) and the scale and zero rows of
+//    every group the step touches.  The step is decoupled from the
+//    groups: each lane takes the group of its own k, k / gs, followed by
+//    a running boundary; at gs = 76 a group boundary falls inside a
+//    packed word and inside a k-step.
+//  * The sum over k runs in any order, so in each pair of k-steps lane c
+//    takes k = 4c..4c + 3: its x values are one 16-byte read a row, and
+//    its B fragments are 4 nibbles of one packed word.  Each lane
+//    dequantizes and splits its 16 weights of a chunk once, in registers,
+//    and reuses them for the warp's MT m16 tiles; x is split per warp.
+//    Two forms that split once per block into shared memory were slower
+//    at both full-width shapes (PERF.md §6): x and the weights as big
+//    and small TF32 planes, and x alone (big parts in place, small parts
+//    in a second buffer).  Both read x's fragments from shared memory
+//    twice over (big and small parts), and the split's arithmetic they
+//    save (at most 14-19% of the loop's time: tools/k1_tc_cost.py,
+//    no_split) did not pay for that.
+//  * Each chunk of 16 k is summed in zeroed fragments, then added to the
+//    float32 sums with rounded adds: the tensor cores truncate when they
+//    accumulate, and one accumulator over all of K keeps its sign and
+//    gathers a bias above the limit (5e-3 at K 2560, 3.6e-2 at K 9728:
+//    tools/k1_tc_cost.py, no_part), while the chunks' truncations cancel.
+//  * The nibble dequantize is the decode loop's (2^23 | q minus 2^23 + z),
+//    so the weight the tensor cores see is bit-equal to (q - z) * s
+//    before its split.
+//  * Tiles past M, N or K are zero-filled by the copies (a ragged K step,
+//    N not a multiple of 4 through 4-byte copies) and never stored.
+//    Groups of fewer than 4 rows would stage more scale and zero rows a
+//    step than shared memory holds; those shapes keep the decode loop.
+//
+// Sum order: within each loop a row's float32 sum depends on N, K, the
+// group size and the card, never on M, so a row's result does not depend
+// on the batch it runs in as long as the batch stays on one side of
+// kTcMinM.  The two loops sum in different orders.  K3
+// (dequant_matmul_wire_ordered.cu) takes the same loop at the same M, so
+// its sums are K1's bit for bit.
+//
+// Both loops: the group of each row is k / gs per row, never per word:
+// with gs = 76 a packed word straddles two groups.  A nibble q becomes the
+// float 2^23 + q by OR-ing it into the mantissa of 2^23; subtracting
+// 2^23 + z (exact for the integer zero-points 0..15 that the quantizer
+// writes) gives q - z exactly, so w is bit-equal to the reference's
+// (q - z) * s without an int-to-float conversion per element.
 #include "dequant_matmul_ordered.cuh"
 
 namespace {
@@ -70,16 +137,17 @@ cudaError_t launch(const void* x, const void* qweight, const void* scales,
 }  // namespace
 
 // Floats of scratch that dequant_matmul_ordered needs in `partial` for
-// this shape on the current device (0 when K is not split), or minus a
-// CUDA error code.
+// this shape and compute type (bf16 != 0: bfloat16) on the current
+// device (0 when K is not split), or minus a CUDA error code.
 extern "C" long long dequant_matmul_partial_floats(int m, int n, int k,
                                                    int group_size,
-                                                   int block_k) {
+                                                   int block_k, int bf16) {
   if (!valid_shape(m, n, k, group_size, block_k)) {
     return -static_cast<long long>(cudaErrorInvalidValue);
   }
   Split split;
-  const cudaError_t err = choose_split(n, k, block_k, &split);
+  const cudaError_t err =
+      plan_split(m, n, k, group_size, block_k, bf16 != 0, &split);
   if (err != cudaSuccess) return -static_cast<long long>(err);
   return split.splits == 1
              ? 0
@@ -101,6 +169,12 @@ extern "C" int dequant_matmul_ordered(const void* x, const void* qweight,
   if (!valid_shape(m, n, k, group_size, block_k)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tensor_core_path(m, group_size, bf16 != 0)) {
+    return static_cast<int>(launch_tc(x, qweight, scales, zeros,
+                                      static_cast<float*>(y), m, n, k,
+                                      group_size, s));
+  }
   Split split;
   const cudaError_t err = choose_split(n, k, block_k, &split);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -109,7 +183,6 @@ extern "C" int dequant_matmul_ordered(const void* x, const void* qweight,
        partial_floats < static_cast<long long>(split.splits) * m * n)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool small = block_m(m) == 4;
   if (bf16) {
     return static_cast<int>(
@@ -127,9 +200,15 @@ extern "C" int dequant_matmul_ordered(const void* x, const void* qweight,
                                 k, group_size, block_k, split, s));
 }
 
-// Dynamic shared memory of one block for M rows of x.
-extern "C" int dequant_matmul_smem_bytes(int m, int group_size, int block_k,
-                                         int bf16) {
+// Dynamic shared memory of one block for an (M, N) output, or minus a
+// CUDA error code.
+extern "C" int dequant_matmul_smem_bytes(int m, int n, int group_size,
+                                         int block_k, int bf16) {
+  if (tensor_core_path(m, group_size, bf16 != 0)) {
+    int bytes = 0;
+    const cudaError_t err = tc_block_smem(m, n, group_size, &bytes);
+    return err == cudaSuccess ? bytes : -static_cast<int>(err);
+  }
   const bool small = block_m(m) == 4;
   if (bf16) {
     return small ? smem_bytes<__nv_bfloat16, 4>(block_k, group_size)
@@ -138,6 +217,15 @@ extern "C" int dequant_matmul_smem_bytes(int m, int group_size, int block_k,
   return small ? smem_bytes<float, 4>(block_k, group_size)
                : smem_bytes<float, 16>(block_k, group_size);
 }
+
+// 1 when an M-row call with this group size and compute type takes the
+// tensor-core loop.
+extern "C" int dequant_matmul_tensor_cores(int m, int group_size, int bf16) {
+  return tensor_core_path(m, group_size, bf16 != 0) ? 1 : 0;
+}
+
+// The smallest M that takes the tensor-core path in float32.
+extern "C" int dequant_matmul_tensor_core_min_m() { return kTcMinM; }
 
 extern "C" const char* dequant_matmul_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

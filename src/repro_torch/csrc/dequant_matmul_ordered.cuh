@@ -1,6 +1,7 @@
-// The ordered-groups int4 dequant-GEMM's main loop, its K split and the
-// split order, shared by K1 (dequant_matmul_ordered.cu, whose note says
-// how it is built up and what bounds it) and K3
+// The ordered-groups int4 dequant-GEMM's two main loops (the decode loop
+// with its K split and split order, and the large-M tensor-core loop) and
+// the rule that picks one, shared by K1 (dequant_matmul_ordered.cu, whose
+// note says how they are built up and what bounds them) and K3
 // (dequant_matmul_wire_ordered.cu), so that K3's float32 sums are K1's
 // bit for bit.
 #pragma once
@@ -324,13 +325,14 @@ inline int block_m(int m) { return m <= 4 ? 4 : 16; }
 // How the K steps are split over blockIdx.z on the current device: the
 // column tiles times the splits give about kSplitBlocksPerSM blocks per
 // SM (the down projection alone has 20 column tiles for 132 SMs).  It
-// depends on N, K and the card, never on M, so a row's float32 sum order
-// does not depend on the batch it runs in.
+// depends on N, K and the card, never on M, so within the decode loop a
+// row's float32 sum order does not depend on the batch it runs in.
 struct Split {
   int steps_per_split, splits;
 };
 
-cudaError_t choose_split(int n, int k, int bk, Split* out) {
+// The current device's SM count.
+cudaError_t device_sm_count(int* out) {
   static int sm_count[64] = {0};            // per device, read once
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -341,9 +343,17 @@ cudaError_t choose_split(int n, int k, int bk, Split* out) {
                                  cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
   }
+  *out = sm_count[dev];
+  return cudaSuccess;
+}
+
+cudaError_t choose_split(int n, int k, int bk, Split* out) {
+  int sms = 0;
+  const cudaError_t err = device_sm_count(&sms);
+  if (err != cudaSuccess) return err;
   const int nsteps = k / bk;
   const int tiles = (n + kBlockN - 1) / kBlockN;
-  int splits = (kSplitBlocksPerSM * sm_count[dev] + tiles - 1) / tiles;
+  int splits = (kSplitBlocksPerSM * sms + tiles - 1) / tiles;
   splits = splits < 1 ? 1 : (splits > nsteps ? nsteps : splits);
   out->steps_per_split = (nsteps + splits - 1) / splits;
   out->splits = (nsteps + out->steps_per_split - 1) / out->steps_per_split;
@@ -380,6 +390,410 @@ bool valid_shape(int m, int n, int k, int group_size, int block_k) {
   return m > 0 && n > 0 && k > 0 && group_size > 0 && block_k > 0 &&
          k % 8 == 0 && block_k % 8 == 0 && block_k % group_size == 0 &&
          k % block_k == 0;
+}
+
+// ---------------------------------------------------------------------
+// The large-M main loop: float32 on the tensor cores (mma.sync m16n8k8
+// TF32, operands split 3xTF32), no K split.  The note in
+// dequant_matmul_ordered.cu says why and how.
+
+// Smallest M that takes it (float32 only): the smallest M from which it
+// beat the BM = 16 loop at both full-width qwen3-4b MLP shapes on an H100
+// (tools/k1_threshold.py).
+constexpr int kTcMinM = 256;
+// Smallest group size it takes: a K step stages the scale and zero rows
+// of every group it touches, and smaller groups overflow shared memory.
+constexpr int kTcMinGroup = 4;
+// The BM that K3's templates take for this loop.
+constexpr int kTcLoop = 0;
+constexpr int kTcBN = 128;                  // output columns per block
+constexpr int kTcBK = 32;                   // K per pipeline stage
+constexpr int kTcWarpsN = 4;                // warps across N ...
+constexpr int kTcWarpsM = 2;                // ... and across M
+constexpr int kTcThreads = 32 * kTcWarpsM * kTcWarpsN;
+constexpr int kTcNTiles = kTcBN / kTcWarpsN / 8;   // n8 tiles a warp
+constexpr int kTcStages = 4;                // cp.async ring depth
+// Row strides in 32-bit words.  x: 16 mod 32, so the 8 lanes of a
+// 16-byte read phase (rows g, g + 1, columns 4c..4c + 3) hit distinct
+// banks.  Packed words: 8 mod 32, so rows 2i and 2i + 1, read together,
+// sit on distinct banks.
+constexpr int kTcXStride = kTcBK + 16;
+constexpr int kTcWStride = kTcBN + 8;
+
+inline bool tensor_core_path(int m, int gs, bool bf16) {
+  return !bf16 && m >= kTcMinM && gs >= kTcMinGroup;
+}
+
+// Byte offsets of the tiles inside one stage of a block of bm rows: x,
+// the packed words, and the scales and zeros of every group a K step can
+// touch.
+struct TcLayout {
+  int x, w, s, z, meta_rows, bytes;
+};
+
+__host__ __device__ inline TcLayout tc_layout(int gs, int bm) {
+  TcLayout l;
+  l.meta_rows = (kTcBK + gs - 2) / gs + 1;
+  l.x = 0;
+  l.w = l.x + bm * kTcXStride * 4;
+  l.s = l.w + (kTcBK / 8) * kTcWStride * 4;
+  l.z = l.s + l.meta_rows * kTcBN * 4;
+  l.bytes = l.z + l.meta_rows * kTcBN * 4;
+  return l;
+}
+
+inline int tc_smem_bytes(int gs, int bm) {
+  return kTcStages * tc_layout(gs, bm).bytes;
+}
+
+// m16 tiles a warp, MT: a block takes 32 MT rows of x.  4 (128 rows), or
+// 5 where that leaves each SM fewer rows to compute: the down projection
+// at M 2048 has 320 blocks of 128 rows for 132 SMs (3 waves, the last
+// 42% full) but 260 of 160 rows (2 waves).  A row's sums do not depend
+// on MT.
+int tc_mtiles(int m, int n, int sms) {
+  const long long tiles_n = (n + kTcBN - 1) / kTcBN;
+  auto rows_per_sm = [&](int mt) {
+    const int bm = kTcWarpsM * 16 * mt;
+    const long long blocks = (m + bm - 1) / bm * tiles_n;
+    return (blocks + sms - 1) / sms * bm;
+  };
+  return rows_per_sm(5) < rows_per_sm(4) ? 5 : 4;
+}
+
+// 16 or 4 bytes from global to shared memory; zero-filled when !valid
+// (src is then not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+// `rows` rows of kTcBN consecutive 32-bit values (row r at src + r *
+// stride) into dst[r * dstride + c]; rows >= vrows and columns >= vcols
+// are zeros.  16-byte copies when every row start is 16-byte aligned.
+__device__ __forceinline__ void tc_stage_rows(uint32_t* dst, int dstride,
+                                              const uint32_t* src,
+                                              size_t stride, int rows,
+                                              int vrows, int vcols, bool vec,
+                                              int tid) {
+  if (vec) {
+    for (int i = tid; i < rows * (kTcBN / 4); i += kTcThreads) {
+      const int r = i / (kTcBN / 4), c = (i % (kTcBN / 4)) * 4;
+      const bool valid = r < vrows && c < vcols;
+      cp_async16(dst + r * dstride + c, valid ? src + r * stride + c : src,
+                 valid);
+    }
+  } else {
+    for (int i = tid; i < rows * kTcBN; i += kTcThreads) {
+      const int r = i / kTcBN, c = i % kTcBN;
+      const bool valid = r < vrows && c < vcols;
+      cp_async4(dst + r * dstride + c, valid ? src + r * stride + c : src,
+                valid);
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// v = big + small, each a TF32 value in a 32-bit register.  The mma reads
+// only the top 19 bits of a TF32 operand and cvt.rna need not clear the
+// other 13, so big's value is its bits with those cleared; v - big is
+// finite whenever v is, and then cvt.rna of it is an add of half an ulp
+// (0x1000) to its bits.
+__device__ __forceinline__ void split(float v, uint32_t& big,
+                                      uint32_t& small) {
+  big = tf32(v);
+  small = __float_as_uint(v - __uint_as_float(big & 0xffffe000u)) + 0x1000u;
+}
+
+// c += a * b, m16n8k8, TF32 in, float32 accumulate
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// y[row, col], y[row, col + 1] where they exist (col is even)
+__device__ __forceinline__ void tc_store2(float* y, int M, int N, int row,
+                                          int col, float a, float b) {
+  if (row >= M) return;
+  float* p = y + static_cast<size_t>(row) * N + col;
+  if (N % 2 == 0 && col + 1 < N) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  } else {
+    if (col < N) p[0] = a;
+    if (col + 1 < N) p[1] = b;
+  }
+}
+
+template <int MT>
+__global__ void __launch_bounds__(kTcThreads, 1)
+dequant_matmul_tc_kernel(const float* __restrict__ x,
+                         const uint32_t* __restrict__ qweight,
+                         const float* __restrict__ scales,
+                         const float* __restrict__ zeros,
+                         float* __restrict__ y, int M, int N, int K, int gs) {
+  constexpr int kBM = kTcWarpsM * 16 * MT;  // rows of x per block
+  extern __shared__ __align__(16) unsigned char smem[];
+  const TcLayout lay = tc_layout(gs, kBM);
+  const int tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, c = lane % 4;
+  const int wm = warp / kTcWarpsN, wn = warp % kTcWarpsN;
+  const int n0 = blockIdx.x * kTcBN;
+  const int m0 = blockIdx.y * kBM;
+  const int groups = K / gs;
+  const int nsteps = (K + kTcBK - 1) / kTcBK;
+  const int valid_n = N - n0;
+  const bool vec = N % 4 == 0;              // 16-byte aligned weight rows
+
+  // Start the copies of K step `j` into its ring slot.  x rows are
+  // 16-byte aligned (K is a multiple of 8), and a K step past K (a ragged
+  // last step) copies zeros.
+  auto issue = [&](int j) {
+    unsigned char* st = smem + (j % kTcStages) * lay.bytes;
+    const int k0 = j * kTcBK;
+    float* xs = reinterpret_cast<float*>(st + lay.x);
+    for (int i = tid; i < kBM * (kTcBK / 4); i += kTcThreads) {
+      const int r = i / (kTcBK / 4), u = (i % (kTcBK / 4)) * 4;
+      const bool valid = m0 + r < M && k0 + u < K;
+      cp_async16(xs + r * kTcXStride + u,
+                 valid ? x + static_cast<size_t>(m0 + r) * K + k0 + u : x,
+                 valid);
+    }
+    const int w0 = k0 / 8, g0 = k0 / gs;
+    tc_stage_rows(reinterpret_cast<uint32_t*>(st + lay.w), kTcWStride,
+                  qweight + static_cast<size_t>(w0) * N + n0, N, kTcBK / 8,
+                  K / 8 - w0, valid_n, vec, tid);
+    tc_stage_rows(reinterpret_cast<uint32_t*>(st + lay.s), kTcBN,
+                  reinterpret_cast<const uint32_t*>(scales) +
+                      static_cast<size_t>(g0) * N + n0,
+                  N, lay.meta_rows, groups - g0, valid_n, vec, tid);
+    tc_stage_rows(reinterpret_cast<uint32_t*>(st + lay.z), kTcBN,
+                  reinterpret_cast<const uint32_t*>(zeros) +
+                      static_cast<size_t>(g0) * N + n0,
+                  N, lay.meta_rows, groups - g0, valid_n, vec, tid);
+  };
+
+  float acc[MT][kTcNTiles][4];
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi) {
+#pragma unroll
+    for (int ni = 0; ni < kTcNTiles; ++ni) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+    }
+  }
+
+  for (int j = 0; j < kTcStages - 1; ++j) {
+    if (j < nsteps) issue(j);
+    asm volatile("cp.async.commit_group;" ::);
+  }
+  // The group of this lane's k = k0 + 16 kk + 4c, followed with a running
+  // boundary (k only grows) instead of a division per chunk.
+  int grp = 0, next = gs;
+  for (int j = 0; j < nsteps; ++j) {
+    asm volatile("cp.async.wait_group %0;" ::"n"(kTcStages - 2) : "memory");
+    __syncthreads();                        // step j landed; j - 1 done
+    if (j + kTcStages - 1 < nsteps) issue(j + kTcStages - 1);
+    asm volatile("cp.async.commit_group;" ::);
+
+    const unsigned char* st = smem + (j % kTcStages) * lay.bytes;
+    const float* xs = reinterpret_cast<const float*>(st + lay.x) +
+                      (wm * MT * 16 + g) * kTcXStride + 4 * c;
+    const uint32_t* ws = reinterpret_cast<const uint32_t*>(st + lay.w) +
+                         (c >> 1) * kTcWStride + wn * kTcNTiles * 8 + g;
+    const float* ss = reinterpret_cast<const float*>(st + lay.s) +
+                      wn * kTcNTiles * 8 + g;
+    const float* zs = reinterpret_cast<const float*>(st + lay.z) +
+                      wn * kTcNTiles * 8 + g;
+    const int k0 = j * kTcBK;
+    const int gbase = k0 / gs;              // the stage's first group
+    // Each chunk of 16 k is two k-steps.  The sum over k runs in any
+    // order, so lane c takes the 4 consecutive k = kb..kb + 3 (kb = 16 kk
+    // + 4c): the first k-step's k = c and c + 4 are kb and kb + 1, the
+    // second's kb + 2 and kb + 3.  Its x values are one 16-byte read a
+    // row, and its weights nibbles 4(c & 1)..+3 of packed row
+    // 2 kk + c / 2.
+#pragma unroll
+    for (int kk = 0; kk < kTcBK / 16; ++kk) {
+      const int kb = k0 + 16 * kk + 4 * c;
+      while (kb >= next) {
+        ++grp;
+        next += gs;
+      }
+      // B fragments: dequantize the lane's 4 weights of each n8 tile and
+      // split them; shared by the warp's MT m16 tiles
+      uint32_t bb[kTcNTiles][4], bsm[kTcNTiles][4];
+      const int shift = 16 * (c & 1);
+      if (kb + 3 < next) {                  // all 4 in one group
+        const int r = (grp - gbase) * kTcBN;
+#pragma unroll
+        for (int ni = 0; ni < kTcNTiles; ++ni) {
+          const uint32_t word = ws[2 * kk * kTcWStride + 8 * ni] >> shift;
+          const float s = ss[r + 8 * ni];
+          const float zm = kMagic + zs[r + 8 * ni];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float qm =
+                __uint_as_float(kMagicBits | ((word >> (4 * e)) & 0xFu));
+            split((qm - zm) * s, bb[ni][e], bsm[ni][e]);
+          }
+        }
+      } else {                              // a group boundary inside
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          int ge = grp, ne = next;
+          while (kb + e >= ne) {
+            ++ge;
+            ne += gs;
+          }
+          const int r = (ge - gbase) * kTcBN;
+#pragma unroll
+          for (int ni = 0; ni < kTcNTiles; ++ni) {
+            const uint32_t word = ws[2 * kk * kTcWStride + 8 * ni] >> shift;
+            const float qm =
+                __uint_as_float(kMagicBits | ((word >> (4 * e)) & 0xFu));
+            split((qm - (kMagic + zs[r + 8 * ni])) * ss[r + 8 * ni],
+                  bb[ni][e], bsm[ni][e]);
+          }
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+        const float* xr = xs + mi * 16 * kTcXStride + 16 * kk;
+        const float4 r0 = *reinterpret_cast<const float4*>(xr);
+        const float4 r8 = *reinterpret_cast<const float4*>(xr + 8 * kTcXStride);
+        const float a0[4] = {r0.x, r0.y, r0.z, r0.w};
+        const float a8[4] = {r8.x, r8.y, r8.z, r8.w};
+        // The chunk's 6 mma per tile go to a zeroed fragment, which is
+        // then added to the float32 sum with a rounded add: the tensor
+        // cores truncate each accumulation, and over the whole of K into
+        // one accumulator (whose sign stays) that bias exceeds the
+        // float32 limit.  Chunk sums change sign, so their truncations do
+        // not add up.
+        float part[kTcNTiles][4];
+#pragma unroll
+        for (int ni = 0; ni < kTcNTiles; ++ni) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[ni][e] = 0.f;
+        }
+#pragma unroll
+        for (int h = 0; h < 4; h += 2) {
+          uint32_t ab[4], as[4];
+          split(a0[h], ab[0], as[0]);
+          split(a8[h], ab[1], as[1]);
+          split(a0[h + 1], ab[2], as[2]);
+          split(a8[h + 1], ab[3], as[3]);
+          // small*big, big*small, big*big: the small*small term is below
+          // 2^-22 of the product
+#pragma unroll
+          for (int ni = 0; ni < kTcNTiles; ++ni) {
+            mma(part[ni], as, bb[ni][h], bb[ni][h + 1]);
+          }
+#pragma unroll
+          for (int ni = 0; ni < kTcNTiles; ++ni) {
+            mma(part[ni], ab, bsm[ni][h], bsm[ni][h + 1]);
+          }
+#pragma unroll
+          for (int ni = 0; ni < kTcNTiles; ++ni) {
+            mma(part[ni], ab, bb[ni][h], bb[ni][h + 1]);
+          }
+        }
+#pragma unroll
+        for (int ni = 0; ni < kTcNTiles; ++ni) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][ni][e] += part[ni][e];
+        }
+      }
+    }
+  }
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+
+  // C fragment: rows g and g + 8, columns 2c and 2c + 1 of each tile
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi) {
+    const int row = m0 + wm * MT * 16 + mi * 16 + g;
+#pragma unroll
+    for (int ni = 0; ni < kTcNTiles; ++ni) {
+      const int col = n0 + wn * kTcNTiles * 8 + ni * 8 + 2 * c;
+      tc_store2(y, M, N, row, col, acc[mi][ni][0], acc[mi][ni][1]);
+      tc_store2(y, M, N, row + 8, col, acc[mi][ni][2], acc[mi][ni][3]);
+    }
+  }
+}
+
+template <int MT>
+cudaError_t launch_tc_mt(const void* x, const void* qweight,
+                         const void* scales, const void* zeros, float* y,
+                         int m, int n, int k, int gs, cudaStream_t stream) {
+  constexpr int kBM = kTcWarpsM * 16 * MT;
+  const int smem = tc_smem_bytes(gs, kBM);
+  static int opted_in = 48 * 1024;          // bytes allowed without opt-in
+  if (smem > opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        dequant_matmul_tc_kernel<MT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    opted_in = smem;
+  }
+  const dim3 grid((n + kTcBN - 1) / kTcBN, (m + kBM - 1) / kBM);
+  dequant_matmul_tc_kernel<MT><<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const uint32_t*>(qweight),
+      static_cast<const float*>(scales), static_cast<const float*>(zeros), y,
+      m, n, k, gs);
+  return cudaGetLastError();
+}
+
+// Launch the tensor-core GEMM on `stream`: y (M, N) float32, written
+// whole by the blocks (no K split).
+cudaError_t launch_tc(const void* x, const void* qweight, const void* scales,
+                      const void* zeros, float* y, int m, int n, int k,
+                      int gs, cudaStream_t stream) {
+  int sms = 0;
+  const cudaError_t err = device_sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  return tc_mtiles(m, n, sms) == 5
+             ? launch_tc_mt<5>(x, qweight, scales, zeros, y, m, n, k, gs,
+                               stream)
+             : launch_tc_mt<4>(x, qweight, scales, zeros, y, m, n, k, gs,
+                               stream);
+}
+
+// Dynamic shared memory of one block of the tensor-core loop.
+cudaError_t tc_block_smem(int m, int n, int gs, int* out) {
+  int sms = 0;
+  const cudaError_t err = device_sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  *out = tc_smem_bytes(gs, kTcWarpsM * 16 * tc_mtiles(m, n, sms));
+  return cudaSuccess;
+}
+
+// The K split a shape takes: none on the tensor-core path, else
+// choose_split's.
+cudaError_t plan_split(int m, int n, int k, int gs, int bk, bool bf16,
+                       Split* out) {
+  if (tensor_core_path(m, gs, bf16)) {
+    out->steps_per_split = k / bk;
+    out->splits = 1;
+    return cudaSuccess;
+  }
+  return choose_split(n, k, bk, out);
 }
 
 }  // namespace

@@ -20,8 +20,10 @@
 //
 // The contract is bit-identity with K1 followed by the collective's own
 // quantizer (repro_torch/comm/dispatch.py _blockwise_quantize[_int4]):
-//  * The GEMM is K1's main loop and K split (dequant_matmul_ordered.cuh),
-//    with the split K1 takes for the same (N, K): every split writes its
+//  * The GEMM is K1's main loop (dequant_matmul_ordered.cuh), the one K1
+//    takes for the same M and compute type: the decode loop with the
+//    split K1 takes for the same (N, K), or, at large M in float32, the
+//    tensor-core loop, which takes no split.  Every split writes its
 //    float32 partial tile, also when K is not split, and the epilogue adds
 //    the splits in K1's order (0.f + split 0 + split 1 + ...).
 //  * The epilogue does the quantizer's operations one at a time, each
@@ -163,14 +165,21 @@ long long scratch_floats(const WireShape& w, const Split& split) {
          2LL * w.m * (w.n_pad / w.bs);
 }
 
+// BM = kTcLoop: the tensor-core loop (float32 only), writing its one
+// partial tile to scratch.
 template <typename T, int BM, int BITS>
 cudaError_t launch(const void* x, const void* qweight, const void* scales,
                    const void* zeros, void* payload, void* wscales,
                    void* wzeros, float* scratch, const WireShape& w,
                    Split split, cudaStream_t stream) {
-  cudaError_t err = launch_gemm<T, BM>(x, qweight, scales, zeros, nullptr,
-                                       scratch, w.m, w.n, w.k, w.gs, w.bk,
-                                       split, stream);
+  cudaError_t err;
+  if constexpr (BM == kTcLoop) {
+    err = launch_tc(x, qweight, scales, zeros, scratch, w.m, w.n, w.k, w.gs,
+                    stream);
+  } else {
+    err = launch_gemm<T, BM>(x, qweight, scales, zeros, nullptr, scratch,
+                             w.m, w.n, w.k, w.gs, w.bk, split, stream);
+  }
   if (err != cudaSuccess) return err;
   float* sz = scratch + static_cast<size_t>(split.splits) * w.m * w.n;
   const int items = w.m * (w.n_pad / w.bs);
@@ -203,14 +212,16 @@ cudaError_t launch_bits(const void* x, const void* qweight,
 }  // namespace
 
 // Floats of scratch that dequant_matmul_wire_ordered needs for this shape
-// on the current device, or minus a CUDA error code.
+// and compute type (bf16 != 0: bfloat16) on the current device, or minus
+// a CUDA error code.
 extern "C" long long dequant_matmul_wire_scratch_floats(
     int m, int n, int k, int group_size, int block_k, int n_pad,
-    int wire_block, int bits) {
+    int wire_block, int bits, int bf16) {
   const WireShape w{m, n, k, group_size, block_k, n_pad, wire_block, bits};
   if (!valid_wire(w)) return -static_cast<long long>(cudaErrorInvalidValue);
   Split split;
-  const cudaError_t err = choose_split(n, k, block_k, &split);
+  const cudaError_t err = plan_split(m, n, k, group_size, block_k, bf16 != 0,
+                                     &split);
   if (err != cudaSuccess) return -static_cast<long long>(err);
   return scratch_floats(w, split);
 }
@@ -234,7 +245,8 @@ extern "C" int dequant_matmul_wire_ordered(
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Split split;
-  const cudaError_t err = choose_split(n, k, block_k, &split);
+  const cudaError_t err = plan_split(m, n, k, group_size, block_k, bf16 != 0,
+                                     &split);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (scratch == nullptr ||
       scratch_floats_given < scratch_floats(w, split)) {
@@ -242,6 +254,11 @@ extern "C" int dequant_matmul_wire_ordered(
   }
   float* sc = static_cast<float*>(scratch);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tensor_core_path(m, group_size, bf16 != 0)) {
+    return static_cast<int>(launch_bits<float, kTcLoop>(
+        x, qweight, scales, zeros, payload, wscales, wzeros, sc, w, split,
+        s));
+  }
   const bool small = block_m(m) == 4;
   if (bf16) {
     return static_cast<int>(

@@ -2,14 +2,16 @@
 ``repro/kernels/dequant_matmul.py``.
 
 * ``dequant_matmul_ordered`` (K1): the ordered-groups dequant-GEMM,
-  ``csrc/dequant_matmul_ordered.cu``.
+  ``csrc/dequant_matmul_ordered.cu``: a decode loop on the CUDA cores,
+  and for float32 at ``M >= tensor_core_min_m()`` a loop on the tensor
+  cores (3xTF32 ``mma.sync``).
 * ``dequant_matmul_gidx`` (K4): the naive act-order dequant-GEMM, each row
   gathering its group through ``g_idx``, ``csrc/dequant_matmul_gidx.cu``.
 * ``dequantize_ordered`` (K5): the ordered-groups weight materializer,
   ``csrc/dequantize_ordered.cu``.
 * ``dequant_matmul_wire_ordered`` (K3): K1's GEMM with ring phase 1's
   blockwise wire quantize fused into its epilogue,
-  ``csrc/dequant_matmul_wire_ordered.cu`` (K1's main loop comes from
+  ``csrc/dequant_matmul_wire_ordered.cu`` (K1's main loops come from
   ``csrc/dequant_matmul_ordered.cuh``, so its sums are K1's bit for bit).
 
 Each source note says what bounds the kernel and how it is built up.
@@ -41,8 +43,10 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _STR = ctypes.c_char_p
 ORDERED = build.Kernel("dequant_matmul_ordered", (
     ("dequant_matmul_ordered", (_P,) * 6 + (_LL,) + (_I,) * 6 + (_P,), _I),
-    ("dequant_matmul_partial_floats", (_I,) * 5, _LL),
-    ("dequant_matmul_smem_bytes", (_I,) * 4, _I),
+    ("dequant_matmul_partial_floats", (_I,) * 6, _LL),
+    ("dequant_matmul_smem_bytes", (_I,) * 5, _I),
+    ("dequant_matmul_tensor_cores", (_I,) * 3, _I),
+    ("dequant_matmul_tensor_core_min_m", (), _I),
     ("dequant_matmul_error_string", (_I,), _STR)))
 GIDX = build.Kernel("dequant_matmul_gidx", (
     ("dequant_matmul_gidx", (_P,) * 7 + (_LL,) + (_I,) * 5 + (_P,), _I),
@@ -55,7 +59,7 @@ DEQUANTIZE = build.Kernel("dequantize_ordered", (
 WIRE = build.Kernel("dequant_matmul_wire_ordered", (
     ("dequant_matmul_wire_ordered", (_P,) * 8 + (_LL,) + (_I,) * 9 + (_P,),
      _I),
-    ("dequant_matmul_wire_scratch_floats", (_I,) * 8, _LL),
+    ("dequant_matmul_wire_scratch_floats", (_I,) * 9, _LL),
     ("dequant_matmul_wire_error_string", (_I,), _STR)))
 KERNELS = (ORDERED, GIDX, DEQUANTIZE, WIRE)
 
@@ -209,7 +213,10 @@ def dequant_matmul_ordered(
     ``compute_dtype`` with float32 accumulation.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (counted in ``dequant_matmul_ordered.launches``) or raise.
+    (counted in ``dequant_matmul_ordered.launches``; those that take its
+    tensor-core loop, float32 at ``M >= tensor_core_min_m()`` with groups
+    of at least 4 rows, also in
+    ``dequant_matmul_ordered.tensor_core_launches``) or raise.
     """
     if x.device.type == "cpu":
         return dequant_matmul_ordered_torch(
@@ -230,10 +237,12 @@ def dequant_matmul_ordered(
     if m == 0 or n == 0:
         return y
     lib = build.load(ORDERED)
+    bf16 = _KERNEL_DTYPES[compute_dtype]
     with torch.cuda.device(x.device):
-        # the kernel splits K from the card's SM count; it says how much
-        # float32 scratch that takes
-        floats = lib.dequant_matmul_partial_floats(m, n, k, group_size, bk)
+        # the kernel splits K from the card's SM count (never on its
+        # tensor-core loop); it says how much float32 scratch that takes
+        floats = lib.dequant_matmul_partial_floats(m, n, k, group_size, bk,
+                                                   bf16)
         if floats < 0:
             err = -floats
         else:
@@ -244,14 +253,23 @@ def dequant_matmul_ordered(
                 x.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
                 zeros.data_ptr(), y.data_ptr(),
                 None if partial is None else partial.data_ptr(), floats, m,
-                n, k, group_size, bk, _KERNEL_DTYPES[compute_dtype], stream)
+                n, k, group_size, bk, bf16, stream)
     _raise_on(err, lib, "dequant_matmul", f"M={m} N={n} K={k} "
               f"gs={group_size} bk={bk}")
     dequant_matmul_ordered.launches += 1
+    dequant_matmul_ordered.tensor_core_launches += \
+        lib.dequant_matmul_tensor_cores(m, group_size, bf16)
     return y
 
 
 dequant_matmul_ordered.launches = 0
+dequant_matmul_ordered.tensor_core_launches = 0
+
+
+def tensor_core_min_m() -> int:
+    """The smallest M whose float32 calls take K1's (and K3's)
+    tensor-core loop; read from the kernel's source, so it builds K1."""
+    return build.load(ORDERED).dequant_matmul_tensor_core_min_m()
 
 
 def dequant_matmul_gidx(
@@ -417,7 +435,8 @@ def dequant_matmul_wire_ordered(
     lib = build.load(WIRE)
     with torch.cuda.device(dev):
         floats = lib.dequant_matmul_wire_scratch_floats(
-            m, n, k, group_size, bk, n_pad, wire_block, wire_bits)
+            m, n, k, group_size, bk, n_pad, wire_block, wire_bits,
+            _KERNEL_DTYPES[compute_dtype])
         if floats < 0:
             err = -floats
         else:

@@ -5,8 +5,10 @@ CPU against the JAX Pallas kernels in interpret mode, at the shapes of
 ``g_idx`` dequant-GEMM of the naive layout (K4), the dequantize kernel
 (K5) and the fused dequant-GEMM + wire quantize (K3, at the shapes of
 ``tests/test_fused_wire.py``).  On the card, each CUDA kernel against its
-plain version (``gpu`` marker; skips without a card), and K3 bit for bit
-against K1 followed by the collective's quantizer.
+plain version (``gpu`` marker; skips without a card), K1's tensor-core
+loop at large M among them, and K3 bit for bit against K1 followed by the
+collective's quantizer.  On the CPU, the tensor-core loop's 3xTF32
+arithmetic, emulated with bit operations, against the float32 limit.
 
 JAX is imported inside the parity tests only, so the ``gpu`` tests also
 run on a machine that has the card but no JAX:
@@ -226,6 +228,82 @@ def test_cuda_kernel_matches_plain_version(dtype, tol):
             (m, k, n, gs, err)
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round float32 to TF32 (10 mantissa bits), nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32``: add half an ulp to the magnitude
+    bits and clear the 13 low bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+@pytest.mark.parametrize("k,gs", [(2560, 128), (9728, 76)])
+def test_3xtf32_split_holds_the_float32_tolerance(k, gs):
+    """The numeric design of K1's tensor-core loop, on the CPU, at the
+    full-width up/gate and down K and group sizes (M 64, N 256): x and the
+    dequantized weight split 3xTF32 (small*big + big*small + big*big, the
+    products exact in float32) stay within the float32 check limit
+    (1e-5 * max|ref| + 1e-4) of the plain version; a single TF32 product
+    lies more than 4x above it, which is why the loop splits."""
+    from repro_torch.core import quantization as tqz
+
+    gen = torch.Generator().manual_seed(k)
+    rng = np.random.default_rng(gs)
+    ql = tqz.quantize(torch.from_numpy(rng.standard_normal(
+        (k, 256)).astype(np.float32)), gs, generator=gen).ordered
+    x = torch.from_numpy(rng.standard_normal((64, k)).astype(np.float32))
+    want = tdk.dequant_matmul_ordered_torch(x, ql.qweight, ql.scales,
+                                            ql.zeros, group_size=gs)
+    limit = 1e-5 * want.abs().max().item() + 1e-4
+    w = tdk.dequantize_ordered_torch(ql.qweight, ql.scales, ql.zeros,
+                                     group_size=gs)
+    xb, wb = _tf32(x), _tf32(w)
+    xs, wsm = _tf32(x - xb), _tf32(w - wb)
+    err3 = (xs @ wb + xb @ wsm + xb @ wb - want).abs().max().item()
+    err1 = (xb @ wb - want).abs().max().item()
+    assert err3 <= limit, (err3, limit)
+    assert err1 > 4 * limit, (err1, limit)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_cuda_kernel_large_m_matches_plain_version(dtype, tol):
+    """K1 at and above the tensor-core loop's threshold against its plain
+    version, with the decode loop's tolerance: the full-width MLP shapes
+    at M 2048 (blocks of 128 rows for up/gate, of 160 for down), ragged M
+    (the threshold - 1, + 1, 2047), ragged N (102, 200; 2501, odd, in
+    blocks of 160 rows) at gs 76 and 64, a K step past K (K 152), groups
+    smaller than a K step (gs 8).  float32 calls at M >= the threshold
+    take the tensor-core loop, and only those; bfloat16 stays on the
+    decode loop."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    t = tdk.tensor_core_min_m()
+    cases = [(2048, 2560, 9728, 128), (2048, 9728, 2560, 76),
+             (t - 1, 608, 200, 76), (t, 608, 200, 76), (t + 1, 608, 200, 76),
+             (2047, 256, 102, 64), (t + 1, 256, 102, 64),
+             (t + 3, 152, 200, 76), (t + 5, 64, 128, 8),
+             (2047, 152, 2501, 76)]
+    for m, k, n, gs in cases:
+        ql = _cuda_quantized(gen, k, n, gs).ordered
+        x = torch.randn(m, k, generator=gen, device="cuda")
+        launches = tdk.dequant_matmul_ordered.launches
+        tc = tdk.dequant_matmul_ordered.tensor_core_launches
+        y = ops.dequant_matmul(x, ql, compute_dtype=dtype)
+        torch.cuda.synchronize()
+        assert tdk.dequant_matmul_ordered.launches == launches + 1
+        assert tdk.dequant_matmul_ordered.tensor_core_launches == tc + int(
+            dtype == torch.float32 and m >= t), (m, dtype)
+        ref = tdk.dequant_matmul_ordered_torch(
+            x, ql.qweight, ql.scales, ql.zeros, group_size=gs,
+            compute_dtype=dtype)
+        assert y.shape == ref.shape and torch.isfinite(y.float()).all()
+        err = (y.float() - ref.float()).abs().max().item()
+        assert err <= tol * ref.float().abs().max().item() + 1e-4, \
+            (m, k, n, gs, err)
+
+
 def _cuda_quantized(gen, k, n, gs):
     from repro_torch.core import quantization as tqz
 
@@ -407,6 +485,13 @@ def test_cuda_wire_kernel_bit_equal_to_k1_and_quantizer(dtype):
              for (k, n, gs, tp, bits, blk) in WIRE_SHAPES for m in (1, 4, 64)]
     cases += [(4, 4864, 2560, 76, 2, bits, blk)      # the tp=2 down shard
               for bits, blk in ((8, 128), (4, 32))]
+    if dtype == torch.float32:
+        # above the tensor-core loop's threshold, where K1 takes it
+        m_tc = tdk.tensor_core_min_m() + 3
+        cases += [(m_tc, 4864, 2560, 76, 2, bits, blk)
+                  for bits, blk in ((8, 128), (4, 32))]
+        cases += [(m_tc, k, n, gs, tp, bits, blk)
+                  for (k, n, gs, tp, bits, blk) in WIRE_SHAPES[4:]]
     for m, k, n, gs, tp, bits, blk in cases:
         ql = _cuda_quantized(gen, k, n, gs).ordered
         x = torch.randn(m, k, generator=gen, device="cuda")
