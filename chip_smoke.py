@@ -10,7 +10,10 @@ Phases, one line each:
   3. check: each CUDA kernel against its plain torch version, float32 and
      bfloat16: the ordered dequant-GEMM (K1) and the g_idx dequant-GEMM
      (K4) at the reference's test shapes, gs=76, ragged edges and the
-     full-width qwen3-4b MLP shapes, and K1 at large M (its tensor-core
+     full-width qwen3-4b MLP shapes (K4 also at G 304, N 130, and M 1, 5,
+     17 and 33 at both full-width shapes, and its batch invariance: rows
+     of M=4 and M=17 calls bit-equal to M=1 calls, and its 16- and
+     32-column tiles bit-equal), and K1 at large M (its tensor-core
      loop in float32: the full-width shapes at M=2048, ragged M around the
      loop's threshold, ragged N and K); the dequantize kernel (K5)
      bit-equal;
@@ -22,7 +25,8 @@ Phases, one line each:
      quantization level of its plain version
   4. timing: full-width launches (CUDA-graph replay, weights beyond L2)
      against their bounds and plain versions: K1 and K4 at M=4 (their
-     ratio is the naive-versus-ordered comparison), K5, K2 against its
+     ratio is the naive-versus-ordered comparison; K4's up/gate and down
+     apart, each with the table bytes it reads), K5, K2 against its
      3xTF32 tensor-core bound and the float32 CUDA-core bound, beside
      torch's scaled_dot_product_attention (its backend named, and the
      memory-efficient and math backends timed alone), K3 at the tp=2 down
@@ -35,26 +39,29 @@ Phases, one line each:
      ``make_engine`` on the card from seed 0, four requests through the
      ``Scheduler``; every decode step must launch K1 108 times
   6. trace: device time of a few full-width decode steps by kernel
-     (torch.profiler) against their wall time: the device's busy share
+     (torch.profiler) against their wall time: the device's busy share,
+     and K1's and the split-add's time and launches per step
   7. backend cross-check: greedy decode with backend=cuda and
      backend=torch on the same params
   8. serve naive-actorder: the same four requests with the paper's naive
      act-order plan on backend=cuda; every decode step must launch K4
      108 times and K1 never
-  9. scheme cross-check: greedy decode, naive-actorder (K4) against
+  9. trace-naive: as 6 for the naive-actorder engine: K4's device time
+     per decode step, 108 K4 kernels per step and no split-add kernel
+ 10. scheme cross-check: greedy decode, naive-actorder (K4) against
      tp-aware (K1), both planned from seed 0
- 10. forward flash: the full-sequence forward (``Engine.prefill_logits``)
+ 11. forward flash: the full-sequence forward (``Engine.prefill_logits``)
      of 2048 tokens with attn_backend="flash" (36 K2 launches) against
      attn_backend="xla" on the same params; all 108 K1 launches take its
      tensor-core loop, and the profiler's K1 and split-add times
- 11. dequantize: every MLP weight of the full-width engine materialized
+ 12. dequantize: every MLP weight of the full-width engine materialized
      through ``ops.dequantize`` (108 K5 launches), bit-equal to the plain
      dequantize
- 12. serve-tp: full-width qwen3-4b at tp=2 with ``quant-int8:fused``, two
+ 13. serve-tp: full-width qwen3-4b at tp=2 with ``quant-int8:fused``, two
      rank processes (``launch/mesh.py``; on one card: gloo via host), the
      same four requests; every decode step must launch K3 36 times and
      K1 72 times on each rank
- 13. tp-crosscheck: greedy decode on the same two ranks, ``quant-int8:fused``
+ 14. tp-crosscheck: greedy decode on the same two ranks, ``quant-int8:fused``
      against ``quant-int8`` and ``quant-int4:fused`` against
      ``quant-int4`` (logits bit-identical on every rank, ids equal), and
      ``psum`` at tp=2 against the tp=1 engine of phase 5 (ids equal)
@@ -113,6 +120,11 @@ SWEEP = [(8, 128, 128, 32), (16, 256, 384, 64), (128, 512, 256, 128),
          (5, 256, 102, 64), (33, 608, 200, 76)]
 #: the reference's g_idx kernel sweep (tests/test_kernels.py)
 GIDX_SWEEP = [(8, 128, 128, 32), (16, 256, 384, 64), (32, 512, 256, 128)]
+#: K4's own edges: G 304 (K 9728, gs 32: the largest table a block
+#: stages), N not a multiple of its 16- or 32-column tiles (102, 200) or
+#: of 4 (130: 4-byte copies)
+GIDX_EDGES = [(4, 9728, 2560, 32), (17, 9728, 200, 32), (4, 608, 130, 76),
+              (1, 256, 130, 64), (33, 256, 102, 64)]
 #: dequantize shapes (K, N, gs): the reference's, gs=76, ragged N, full
 DEQUANT_SHAPES = [(128, 128, 32), (512, 384, 128), (608, 200, 76),
                   (256, 102, 64), UP[1:], DOWN[1:]]
@@ -224,8 +236,11 @@ def phase_build() -> dict:
             DOWN_TP[0]: ordered.dequant_matmul_smem_bytes(
                 4, DOWN_TP[2], DOWN_TP[3],
                 dk.pick_block_k(DOWN_TP[1], DOWN_TP[3]), 0)},
-        dk.GIDX.name: {name: gidx.dequant_matmul_gidx_smem_bytes(4, k // gs)
-                       for name, k, _, gs in (UP, DOWN)},
+        dk.GIDX.name: {
+            f"{name} ({gidx.dequant_matmul_gidx_block_n(4, n, k // gs, 0)} "
+            f"columns)": gidx.dequant_matmul_gidx_smem_bytes(4, n, k // gs,
+                                                             0, 0)
+            for name, k, n, gs in (UP, DOWN)},
         dk.DEQUANTIZE.name: 0,
         fa.FLASH.name: {
             str(dt): libs[fa.FLASH.name].flash_attention_smem_bytes(
@@ -434,6 +449,43 @@ def _large_m_cases(t: int) -> list:
             (2047, 152, 2501, 76)]
 
 
+def _check_gidx_invariance(gen) -> list:
+    """K4's sum order depends on K alone: at both full-width shapes, in
+    float32 and bfloat16, the rows of an M = 4 call (the decode loop's
+    BM = 4) and of an M = 17 call (BM = 16) are bit-equal to the same rows
+    run one at a time (M = 1), and the kernel's pick of columns per block
+    to each width forced (16 and 32)."""
+    rows = []
+    for name, k, n, gs in (UP, DOWN):
+        ql = _quantized(gen, k, n, gs).naive
+        x = torch.randn(17, k, generator=gen, device="cuda")
+        args = (ql.qweight, ql.scales, ql.zeros, ql.g_idx)
+        for dtype in TOL:
+            solo = torch.cat([dk.dequant_matmul_gidx(
+                x[i:i + 1], *args, compute_dtype=dtype) for i in range(17)])
+            batch4 = dk.dequant_matmul_gidx(x[:4], *args,
+                                            compute_dtype=dtype)
+            batch17 = dk.dequant_matmul_gidx(x, *args, compute_dtype=dtype)
+            widths = [dk.dequant_matmul_gidx(x[:4], *args,
+                                             compute_dtype=dtype, block_n=bn)
+                      for bn in (16, 32)]
+            torch.cuda.synchronize()
+            row = {"shape": name, "dtype": str(dtype),
+                   "m4_rows_equal_m1": bool(torch.equal(batch4, solo[:4])),
+                   "m17_rows_equal_m1": bool(torch.equal(batch17, solo)),
+                   "widths_equal": all(torch.equal(batch4, w)
+                                       for w in widths)}
+            rows.append(row)
+            if not all(v for v in row.values() if isinstance(v, bool)):
+                raise AssertionError(f"dequant_matmul_gidx depends on the "
+                                     f"batch or the tile width: {row}")
+    line("check", f"dequant_matmul_gidx: batch invariance at both full-width "
+                  f"shapes, f32 and bf16: rows of M=4 and M=17 calls "
+                  f"bit-equal to M=1 calls, and 16- and 32-column tiles "
+                  f"bit-equal ({len(rows)} cases)")
+    return rows
+
+
 def phase_check(gen) -> dict:
     full = [(m, k, n, gs) for _, k, n, gs in (UP, DOWN) for m in (1, 4, 32)]
     t = dk.tensor_core_min_m()
@@ -455,15 +507,19 @@ def phase_check(gen) -> dict:
     ordered["tensor_core_launches"] = tc
     line("check", f"dequant_matmul_ordered: tensor-core loop from M={t} "
                   f"(float32): {tc} of the cases above ran it")
+    gidx_full = [(m, k, n, gs) for _, k, n, gs in (UP, DOWN)
+                 for m in (1, 4, 5, 17, 32, 33)]
+    gidx = _check_gemm(
+        gen, "dequant_matmul_gidx", GIDX_SWEEP + SWEEP + GIDX_EDGES
+        + gidx_full, "naive",
+        lambda x, ql, dt: ops.dequant_matmul(x, ql, compute_dtype=dt),
+        lambda x, ql, dt: dk.dequant_matmul_gidx_torch(
+            x, ql.qweight, ql.scales, ql.zeros, ql.g_idx, compute_dtype=dt))
+    gidx["batch_invariance"] = _check_gidx_invariance(gen)
     return {
         "dequant_matmul_wire_ordered": wire,
         "dequant_matmul_ordered": ordered,
-        "dequant_matmul_gidx": _check_gemm(
-            gen, "dequant_matmul_gidx", GIDX_SWEEP + SWEEP + full, "naive",
-            lambda x, ql, dt: ops.dequant_matmul(x, ql, compute_dtype=dt),
-            lambda x, ql, dt: dk.dequant_matmul_gidx_torch(
-                x, ql.qweight, ql.scales, ql.zeros, ql.g_idx,
-                compute_dtype=dt)),
+        "dequant_matmul_gidx": gidx,
         "dequantize_ordered": _check_dequantize(gen),
         "flash_attention": _check_flash(gen),
     }
@@ -563,6 +619,11 @@ def _time_gemm(gen, layout: str, m: int = 4) -> dict:
                 lambda w: torch.matmul(x, w), [(w,) for w in w_deq], reps=20)
             del w_deq
         else:
+            # the table a launch reads once per column tile, and the tile
+            res[name]["table_bytes"] = ql.scales.shape[0] * n * 8
+            res[name]["block_n"] = kbuild.load(
+                dk.GIDX).dequant_matmul_gidx_block_n(m, n, ql.scales.shape[0],
+                                                     0)
             # the same kernel on the ordered layout (g_idx = k // gs): the
             # naive layout's cost inside one kernel design
             o = both.ordered
@@ -771,19 +832,24 @@ def phase_timing(gen) -> dict:
              u["matmul_dequantized_ms"], u["eager_ms"], d["ms"],
              d["bound_ms"], d["plain_ms"], d["matmul_dequantized_ms"],
              d["eager_ms"]))
-    gu, gd = gidx[UP[0]], gidx[DOWN[0]]
     ratio = _per_layer(gidx, "ms") / _per_layer(ordered, "ms")
     in_kernel = _per_layer(gidx, "ms") / _per_layer(gidx, "ordered_layout_ms")
-    line("timing", "K4 f32 M=4, CUDA-graph replay: up/gate {:.4f} ms (bound "
-         "{:.4f}, plain {:.4f}, eager call {:.4f}); down {:.4f} ms (bound "
-         "{:.4f}, plain {:.4f}, eager call {:.4f}); per layer K4 {:.4f} ms "
-         "/ K1 {:.4f} ms = {:.2f}x (naive g_idx vs ordered groups); K4 on "
-         "the ordered layout (g_idx = k // gs): up/gate {:.4f}, down {:.4f}, "
+    for name in (UP[0], DOWN[0]):
+        g = gidx[name]
+        line("timing", "K4 f32 M=4 {} (K {} N {} gs {}; {}-column tiles, "
+             "one launch), CUDA-graph replay: {:.4f} ms (bound {:.4f} by {}: "
+             "{:.2f} MB, of which the table read once per column tile "
+             "{:.2f} MB; plain {:.4f}, eager call {:.4f}); on the ordered "
+             "layout (g_idx = k // gs) {:.4f} ms".format(
+                 name, g["k"], g["n"], g["gs"], g["block_n"], g["ms"],
+                 g["bound_ms"], g["bound_by"], g["bytes"] / 1e6,
+                 g["table_bytes"] / 1e6, g["plain_ms"], g["eager_ms"],
+                 g["ordered_layout_ms"]))
+    line("timing", "K4 per layer {:.4f} ms (bound {:.4f}) / K1 {:.4f} ms = "
+         "{:.2f}x (naive g_idx vs ordered groups); K4 on the ordered layout "
          "per layer {:.4f} ms, so naive/ordered within K4 = {:.2f}x".format(
-             gu["ms"], gu["bound_ms"], gu["plain_ms"], gu["eager_ms"],
-             gd["ms"], gd["bound_ms"], gd["plain_ms"], gd["eager_ms"],
-             _per_layer(gidx, "ms"), _per_layer(ordered, "ms"), ratio,
-             gu["ordered_layout_ms"], gd["ordered_layout_ms"],
+             _per_layer(gidx, "ms"), _per_layer(gidx, "bound_ms"),
+             _per_layer(ordered, "ms"), ratio,
              _per_layer(gidx, "ordered_layout_ms"), in_kernel))
     du, dd = deq[UP[0]], deq[DOWN[0]]
     line("timing", "K5 f32 out, CUDA-graph replay: up/gate {:.4f} ms (bound "
@@ -940,29 +1006,33 @@ def _greedy_compare(eng_a, eng_b, cfg, text: str) -> tuple[str, dict]:
     return text, out
 
 
-def _device_kernels(run, per: int) -> tuple[float, float, dict, dict]:
+def _device_kernels(run, per: int) -> tuple[float, float, dict, dict, dict]:
     """Profile ``run()`` with ``torch.profiler``: (device ms of kernels and
-    copies, how many were launched, the five largest by ms, ms by name),
-    each per one of the ``per`` repetitions ``run`` makes."""
+    copies, how many were launched, the five largest by ms, ms by name,
+    launches by name), each per one of the ``per`` repetitions ``run``
+    makes."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
     by_name = {}      # kernels only: host ops also report device time
-    events = 0
+    counts = {}
     for e in prof.key_averages():
         if str(e.device_type).endswith("CUDA"):
             by_name[e.key] = (by_name.get(e.key, 0.0)
                               + e.self_device_time_total / 1e3 / per)
-            events += e.count
+            counts[e.key] = counts.get(e.key, 0) + e.count / per
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    return sum(by_name.values()), events / per, dict(top), by_name
+    return (sum(by_name.values()), sum(counts.values()), dict(top), by_name,
+            counts)
 
 
-def phase_trace(engine) -> dict:
+def phase_trace(engine, kernel: str, phase: str = "trace") -> dict:
     """Device time of full-width decode steps (4 slots, cache half full)
     by kernel, from ``torch.profiler``, against the same steps' wall
-    time measured without the profiler: the device's busy share."""
+    time measured without the profiler: the device's busy share, and the
+    time and launches of the GEMM kernel ``kernel`` (a device function
+    name) and of split-add passes per step."""
     cache = engine.init_cache(4)
     tokens = torch.arange(4, device="cuda")
     pos = torch.full((4,), 24, device="cuda")
@@ -977,17 +1047,28 @@ def phase_trace(engine) -> dict:
     t0 = time.perf_counter()
     run()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    device_ms, events, top, _ = _device_kernels(run, steps)
+    device_ms, events, top, by_name, counts = _device_kernels(run, steps)
+    gemm_ms = sum(v for key, v in by_name.items() if kernel in key)
+    gemm_n = sum(v for key, v in counts.items() if kernel in key)
+    split_ms = sum(v for key, v in by_name.items()
+                   if "add_splits_kernel" in key)
+    split_n = sum(v for key, v in counts.items()
+                  if "add_splits_kernel" in key)
     out = {"wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
            "busy_share": device_ms / wall_ms,
            "device_events_per_step": events,
-           "top_kernels_ms_per_step": top}
-    line("trace", f"decode step {wall_ms:.1f} ms wall (no profiler), "
-                  f"{device_ms:.2f} ms of kernels -> device busy "
-                  f"{100 * device_ms / wall_ms:.1f}%; "
-                  f"{events:.0f} device kernels/copies per step; "
-                  f"top kernels ms/step: "
-                  + ", ".join(f"{k[:40]} {v:.3f}" for k, v in top.items()))
+           "top_kernels_ms_per_step": top, "kernel": kernel,
+           "kernel_ms_per_step": gemm_ms, "kernel_launches_per_step": gemm_n,
+           "split_add_ms_per_step": split_ms,
+           "split_add_launches_per_step": split_n}
+    line(phase, f"decode step {wall_ms:.1f} ms wall (no profiler), "
+                f"{device_ms:.2f} ms of kernels -> device busy "
+                f"{100 * device_ms / wall_ms:.1f}%; "
+                f"{events:.0f} device kernels/copies per step; {kernel} "
+                f"{gemm_ms:.3f} ms in {gemm_n:.0f} launches per step, "
+                f"split-add {split_ms:.3f} ms in {split_n:.0f}; "
+                f"top kernels ms/step: "
+                + ", ".join(f"{k[:40]} {v:.3f}" for k, v in top.items()))
     return out
 
 
@@ -1038,7 +1119,7 @@ def phase_forward_flash(engine, cfg) -> dict:
             "flash_attention": LAYERS if name == "flash" else 0},
             f"forward {name}")
         res[name] = {"wall_ms": wall, "counts": counts, "logits": logits}
-        device_ms, events, top, by_name = _device_kernels(
+        device_ms, events, top, by_name, _ = _device_kernels(
             lambda eng=eng: (eng.prefill_logits(toks),
                              torch.cuda.synchronize()), 1)
         # K1's loops (dequant_matmul_tc_kernel, dequant_matmul_ordered_
@@ -1124,7 +1205,7 @@ def phase_dequantize(engine) -> dict:
 
 
 def _serve_tp_rank(ctx, cfg, greedy_tokens, greedy_plen) -> dict:
-    """One rank of phases 12 and 13: build this rank's slices of the
+    """One rank of phases 13 and 14: build this rank's slices of the
     full-width plan, serve the four requests under ``TP_SERVE`` with the
     launch counts set to 0 just before and read just after, then the
     greedy traces of the cross-check on the same params."""
@@ -1166,7 +1247,7 @@ def _serve_tp_rank(ctx, cfg, greedy_tokens, greedy_plen) -> dict:
 
 
 def phase_serve_tp(cfg, tp1_engine) -> tuple[dict, dict]:
-    """Phases 12 and 13 on ``TP`` rank processes; the tp=1 reference of
+    """Phases 13 and 14 on ``TP`` rank processes; the tp=1 reference of
     the psum cross-check is ``tp1_engine`` (the same seed, so the same
     plan before sharding)."""
     rng = np.random.default_rng(1)
@@ -1275,12 +1356,21 @@ def main() -> int:
     base = get_config("qwen3-4b")
     cfg = base.with_quant(mode="mlp", scheme="tp-aware", backend="auto")
     engine, serve = phase_serve(cfg, "dequant_matmul_ordered")
-    trace = phase_trace(engine)
+    trace = phase_trace(engine, "dequant_matmul_ordered_kernel")
     cross = phase_crosscheck(engine, cfg)
     naive_cfg = base.with_quant(mode="mlp", scheme="naive-actorder",
                                 backend="cuda")
     naive, serve_naive = phase_serve(naive_cfg, "dequant_matmul_gidx",
                                      "serve-naive")
+    trace_naive = phase_trace(naive, "dequant_matmul_gidx_kernel",
+                              "trace-naive")
+    if (trace_naive["kernel_launches_per_step"] != LAUNCHES_PER_STEP
+            or trace_naive["split_add_launches_per_step"]):
+        raise AssertionError(f"naive decode step: "
+                             f"{trace_naive['kernel_launches_per_step']} K4 "
+                             f"kernels and "
+                             f"{trace_naive['split_add_launches_per_step']} "
+                             f"split-adds per step, expected 108 and 0")
     scheme_cross = phase_scheme_crosscheck(engine, naive, cfg)
     del naive
     torch.cuda.empty_cache()
@@ -1330,6 +1420,7 @@ def main() -> int:
         json.dump({"nvidia_smi": smi, "build": build, "check": checks,
                    "timing": timing, "serve": serve, "trace": trace,
                    "crosscheck": cross, "serve_naive": serve_naive,
+                   "trace_naive": trace_naive,
                    "scheme_crosscheck": scheme_cross,
                    "forward_flash": forward, "dequantize": materialize,
                    "serve_tp": serve_tp, "tp_crosscheck": tp_cross,

@@ -6,7 +6,9 @@
   and for float32 at ``M >= tensor_core_min_m()`` a loop on the tensor
   cores (3xTF32 ``mma.sync``).
 * ``dequant_matmul_gidx`` (K4): the naive act-order dequant-GEMM, each row
-  gathering its group through ``g_idx``, ``csrc/dequant_matmul_gidx.cu``.
+  gathering its group through ``g_idx``, ``csrc/dequant_matmul_gidx.cu``:
+  one launch a call, the whole metadata table read once per column tile,
+  the K split inside the block.
 * ``dequantize_ordered`` (K5): the ordered-groups weight materializer,
   ``csrc/dequantize_ordered.cu``.
 * ``dequant_matmul_wire_ordered`` (K3): K1's GEMM with ring phase 1's
@@ -49,9 +51,10 @@ ORDERED = build.Kernel("dequant_matmul_ordered", (
     ("dequant_matmul_tensor_core_min_m", (), _I),
     ("dequant_matmul_error_string", (_I,), _STR)))
 GIDX = build.Kernel("dequant_matmul_gidx", (
-    ("dequant_matmul_gidx", (_P,) * 7 + (_LL,) + (_I,) * 5 + (_P,), _I),
-    ("dequant_matmul_gidx_partial_floats", (_I,) * 4, _LL),
-    ("dequant_matmul_gidx_smem_bytes", (_I,) * 2, _I),
+    ("dequant_matmul_gidx", (_P,) * 6 + (_I,) * 6 + (_P,), _I),
+    ("dequant_matmul_gidx_block_n", (_I,) * 4, _I),
+    ("dequant_matmul_gidx_smem_bytes", (_I,) * 5, _I),
+    ("dequant_matmul_gidx_smem_limit", (), _I),
     ("dequant_matmul_gidx_error_string", (_I,), _STR)))
 DEQUANTIZE = build.Kernel("dequantize_ordered", (
     ("dequantize_ordered", (_P,) * 4 + (_I,) * 4 + (_P,), _I),
@@ -64,6 +67,7 @@ WIRE = build.Kernel("dequant_matmul_wire_ordered", (
 KERNELS = (ORDERED, GIDX, DEQUANTIZE, WIRE)
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_CUDA_ERROR_INVALID_VALUE = 1       # cudaErrorInvalidValue
 
 
 def pick_block_k(k: int, group_size: int, target: int = TARGET_BLOCK_K) -> int:
@@ -280,15 +284,23 @@ def dequant_matmul_gidx(
     g_idx: torch.Tensor,        # (K,) int32 group of each row, in [0, G)
     *,
     compute_dtype=torch.float32,
+    block_n: int = 0,
 ) -> torch.Tensor:
     """``x @ ((unpack(qweight) - zeros[g_idx]) * scales[g_idx])`` in
     ``compute_dtype`` with float32 accumulation: the naive act-order
     layout, each row gathering its group's metadata.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (counted in ``dequant_matmul_gidx.launches``) or raise.  The kernel
-    trusts ``g_idx`` to lie in ``[0, G)``, as the quantizer writes it.
+    (counted in ``dequant_matmul_gidx.launches``; one launch a call) or
+    raise, also when a block's shared memory (the whole ``(G, block_n)``
+    table of its column tile and the ring) exceeds the card's.
+    ``block_n``: the kernel's columns per block, 16 or 32, or 0 for the
+    kernel's pick from N, G and the card; the result does not depend on
+    it.  The kernel trusts ``g_idx`` to lie in ``[0, G)``, as the
+    quantizer writes it.
     """
+    if block_n not in (0, 16, 32):
+        raise ValueError(f"block_n must be 0, 16 or 32, got {block_n}")
     if x.device.type == "cpu":
         return dequant_matmul_gidx_torch(x, qweight, scales, zeros, g_idx,
                                          compute_dtype=compute_dtype)
@@ -304,20 +316,25 @@ def dequant_matmul_gidx(
     if m == 0 or n == 0:
         return y
     lib = build.load(GIDX)
+    bf16 = _KERNEL_DTYPES[compute_dtype]
+    shape = f"M={m} N={n} K={k} G={g}"
     with torch.cuda.device(x.device):
-        floats = lib.dequant_matmul_gidx_partial_floats(m, n, k, g)
-        if floats < 0:
-            err = -floats
-        else:
-            partial = (torch.empty(floats, dtype=torch.float32,
-                                   device=x.device) if floats else None)
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = lib.dequant_matmul_gidx(
-                x.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
-                zeros.data_ptr(), g_idx.data_ptr(), y.data_ptr(),
-                None if partial is None else partial.data_ptr(), floats, m,
-                n, k, g, _KERNEL_DTYPES[compute_dtype], stream)
-    _raise_on(err, lib, "dequant_matmul_gidx", f"M={m} N={n} K={k} G={g}")
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.dequant_matmul_gidx(
+            x.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
+            zeros.data_ptr(), g_idx.data_ptr(), y.data_ptr(), m, n, k, g,
+            bf16, block_n, stream)
+        if err == _CUDA_ERROR_INVALID_VALUE:
+            # the shape checks passed, so the block may not fit
+            smem = lib.dequant_matmul_gidx_smem_bytes(m, n, g, block_n, bf16)
+            limit = lib.dequant_matmul_gidx_smem_limit()
+            if 0 <= limit < smem:
+                raise ValueError(
+                    f"dequant_matmul_gidx at {shape}: a block needs {smem} "
+                    f"bytes of shared memory (the table of {g} groups, "
+                    f"{g * 256} bytes, and the cp.async ring), above the "
+                    f"card's {limit}")
+    _raise_on(err, lib, "dequant_matmul_gidx", shape)
     dequant_matmul_gidx.launches += 1
     return y
 

@@ -7,8 +7,10 @@ CPU against the JAX Pallas kernels in interpret mode, at the shapes of
 ``tests/test_fused_wire.py``).  On the card, each CUDA kernel against its
 plain version (``gpu`` marker; skips without a card), K1's tensor-core
 loop at large M among them, and K3 bit for bit against K1 followed by the
-collective's quantizer.  On the CPU, the tensor-core loop's 3xTF32
-arithmetic, emulated with bit operations, against the float32 limit.
+collective's quantizer, and K4's rows bit-equal whatever the batch or
+the column tile.  On the CPU, the tensor-core loop's 3xTF32 arithmetic,
+emulated with bit operations, and K4's sum order (64 row slots, then a
+fixed-order sum), emulated in float32, against the float32 limit.
 
 JAX is imported inside the parity tests only, so the ``gpu`` tests also
 run on a machine that has the card but no JAX:
@@ -315,12 +317,18 @@ def _cuda_quantized(gen, k, n, gs):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 1e-2)])
 def test_cuda_gidx_kernel_matches_plain_version(dtype, tol):
-    """K4 against its plain version on the card, with K1's tolerance."""
+    """K4 against its plain version on the card, with K1's tolerance: the
+    reference's shapes, ragged M and N (102, 200: not a multiple of the
+    16- or 32-column tiles; 130: not of 4), G 304 (K 9728, gs 32: the
+    largest table a block stages), the full-width qwen3-4b MLP shapes at
+    M 1, 4, 5, 17 and 33 (both tile heights)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     gen = torch.Generator(device="cuda").manual_seed(1)
-    edges = [(5, 256, 102, 64), (33, 608, 200, 76)]   # ragged M and N
-    full = [(4, 2560, 9728, 128), (4, 9728, 2560, 76)]  # qwen3-4b MLP
+    edges = [(5, 256, 102, 64), (33, 608, 200, 76), (4, 608, 130, 76),
+             (4, 9728, 2560, 32), (17, 9728, 200, 32)]
+    full = [(m, k, n, gs) for k, n, gs in ((2560, 9728, 128), (9728, 2560, 76))
+            for m in (1, 4, 5, 17, 33)]
     for m, k, n, gs in GIDX_SHAPES + edges + full:
         ql = _cuda_quantized(gen, k, n, gs).naive
         x = torch.randn(m, k, generator=gen, device="cuda")
@@ -334,6 +342,115 @@ def test_cuda_gidx_kernel_matches_plain_version(dtype, tol):
         err = (y.float() - ref.float()).abs().max().item()
         assert err <= tol * ref.float().abs().max().item() + 1e-4, \
             (m, k, n, gs, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_gidx_rows_do_not_depend_on_the_batch(dtype):
+    """K4's sum order depends on K alone: at the full-width shapes the rows
+    of an M = 4 call (4-row tiles) and of an M = 17 call (16-row tiles)
+    are bit-equal to the same rows run at M = 1, and the 16- and 32-column
+    tiles give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for k, n, gs in ((2560, 9728, 128), (9728, 2560, 76)):
+        ql = _cuda_quantized(gen, k, n, gs).naive
+        args = (ql.qweight, ql.scales, ql.zeros, ql.g_idx)
+        x = torch.randn(17, k, generator=gen, device="cuda")
+        solo = torch.cat([tdk.dequant_matmul_gidx(
+            x[i:i + 1], *args, compute_dtype=dtype) for i in range(17)])
+        assert torch.equal(tdk.dequant_matmul_gidx(
+            x[:4], *args, compute_dtype=dtype), solo[:4]), (k, n)
+        assert torch.equal(tdk.dequant_matmul_gidx(
+            x, *args, compute_dtype=dtype), solo), (k, n)
+        for block_n in (16, 32):
+            assert torch.equal(tdk.dequant_matmul_gidx(
+                x[:4], *args, compute_dtype=dtype, block_n=block_n),
+                solo[:4]), (k, n, block_n)
+
+
+def _gidx_in_kernel_order(x, qweight, scales, zeros, g_idx, slots=64,
+                          group=8):
+    """K4's float32 sum order, emulated: the packed rows dealt to ``slots``
+    row slots (slot s owns rows r = s mod slots), each slot summing its
+    rows in increasing k, one fused multiply-add at a time (the product
+    is exact in float64, then the sum rounds to float32); then the slot
+    sums added in groups of ``group`` consecutive slots, each in slot
+    order, and the group sums in order."""
+    w = tdk._gather_dequant(qweight, scales, zeros, g_idx.long(),
+                            torch.float32).double()
+    x = x.double()
+    m, n = x.shape[0], w.shape[1]
+    rows = w.shape[0] // 8
+    acc = torch.zeros(slots, m, n, dtype=torch.float32)
+    for r0 in range(0, rows, slots):
+        nr = min(slots, rows - r0)
+        for i in range(8):
+            ks = torch.arange(r0, r0 + nr) * 8 + i
+            prod = x[:, ks].T[:, :, None] * w[ks][:, None, :]
+            acc[:nr] = (acc[:nr].double() + prod).float()
+    sums = []
+    for g in range(slots // group):
+        s = acc[g * group]
+        for j in range(1, group):
+            s = s + acc[g * group + j]
+        sums.append(s)
+    y = sums[0]
+    for s in sums[1:]:
+        y = y + s
+    return y
+
+
+FULL_DOWN = (4, 9728, 2560, 76)
+
+
+@pytest.mark.parametrize("m,k,n,gs", GIDX_SHAPES + [FULL_DOWN])
+def test_gidx_kernel_sum_order_holds_the_float32_tolerance(m, k, n, gs):
+    """The CUDA K4's sum order, emulated on the CPU, within the float32
+    limit the kernel is held to on the card (1e-5 of max|ref| + 1e-4, as
+    ``test_cuda_gidx_kernel_matches_plain_version``): of the JAX g_idx
+    kernel (interpret mode) at the reference's shapes, and of the plain
+    version at the full-width down projection (M 4, K 9728, N 2560,
+    gs 76), where each of the 64 slots sums 19 packed rows."""
+    if (m, k, n, gs) == FULL_DOWN:
+        from repro_torch.core import quantization as tqz
+
+        rng = np.random.default_rng(7)
+        ql = tqz.quantize(torch.from_numpy(rng.standard_normal(
+            (k, n)).astype(np.float32)), gs,
+            generator=torch.Generator().manual_seed(7)).naive
+        xt = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+        ref = tdk.dequant_matmul_gidx_torch(
+            xt, ql.qweight, ql.scales, ql.zeros, ql.g_idx).numpy()
+    else:
+        import jax.numpy as jnp
+
+        from repro.kernels import dequant_matmul as jdk
+
+        jql = _quantized(m * 5 + n, k, n, gs).naive
+        x = np.random.default_rng(m + n).standard_normal((m, k)).astype(
+            np.float32)
+        ref = np.asarray(jdk.dequant_matmul_gidx(
+            jnp.asarray(x), jql.qweight, jql.scales, jql.zeros, jql.g_idx,
+            compute_dtype=jnp.float32), np.float32)
+        ql = _port(jql)
+        xt = torch.from_numpy(x)
+    got = _gidx_in_kernel_order(xt, ql.qweight, ql.scales, ql.zeros,
+                                ql.g_idx)
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    err = np.abs(got.numpy() - ref).max()
+    assert err <= 1e-5 * np.abs(ref).max() + 1e-4, err
+
+
+def test_gidx_wrapper_refuses_a_column_tile_it_has_not():
+    """``block_n`` is 0 (the kernel's pick), 16 or 32, also on the CPU."""
+    ql = _port(_quantized(3, 128, 64, 32).naive)
+    x = torch.zeros(2, 128)
+    args = (ql.qweight, ql.scales, ql.zeros, ql.g_idx)
+    assert tdk.dequant_matmul_gidx(x, *args, block_n=32).shape == (2, 64)
+    with pytest.raises(ValueError, match="block_n must be 0, 16 or 32"):
+        tdk.dequant_matmul_gidx(x, *args, block_n=8)
 
 
 @pytest.mark.gpu
