@@ -21,8 +21,11 @@ Phases, one line each:
      its 128-query, 64-key tiling (ragged S, windows, S != T, every head
      dim at S 2048) and the full-width forward's; the fused dequant-GEMM
      + wire quantize (K3) bit-equal to K1 followed by the collective's
-     quantizer (also above K1's tensor-core threshold), and within one
-     quantization level of its plain version
+     quantizer (also above K1's tensor-core threshold, and at quant
+     blocks that make epilogue units of several tiles), and within one
+     quantization level of its plain version; K3's repeat check (the same
+     call twice and after a call of another shape bit-equal: its counters
+     reset) and one device kernel a call (torch.profiler), in both loops
   4. timing: full-width launches (CUDA-graph replay, weights beyond L2)
      against their bounds and plain versions: K1 and K4 at M=4 (their
      ratio is the naive-versus-ordered comparison; K4's up/gate and down
@@ -30,7 +33,8 @@ Phases, one line each:
      3xTF32 tensor-core bound and the float32 CUDA-core bound, beside
      torch's scaled_dot_product_attention (its backend named, and the
      memory-efficient and math backends timed alone), K3 at the tp=2 down
-     projection (int8 and int4) beside K1 followed by the plain quantizer,
+     projection (int8 and int4; its device kernels a call) beside K1
+     followed by the plain quantizer and K1 alone,
      and K1 at the forward's M=2048 (up/gate and down; its tensor-core
      loop) against its bounds, its plain version and, as context,
      ``torch.matmul`` on the weight pre-dequantized by K5 (the cuBLAS
@@ -60,7 +64,10 @@ Phases, one line each:
  13. serve-tp: full-width qwen3-4b at tp=2 with ``quant-int8:fused``, two
      rank processes (``launch/mesh.py``; on one card: gloo via host), the
      same four requests; every decode step must launch K3 36 times and
-     K1 72 times on each rank
+     K1 72 times on each rank; then a few decode steps traced on rank 0
+     (torch.profiler): kernels per step, K3's and K1's kernels and ms per
+     step (36 K3 kernels and none of the earlier wire epilogue, else it
+     fails)
  14. tp-crosscheck: greedy decode on the same two ranks, ``quant-int8:fused``
      against ``quant-int8`` and ``quant-int4:fused`` against
      ``quant-int4`` (logits bit-identical on every rank, ids equal), and
@@ -76,6 +83,7 @@ without a card.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import math
@@ -158,15 +166,22 @@ LAUNCHES_PER_STEP = LAYERS * 3
 #: at that degree: (name, K, N, gs) of one rank
 TP = 2
 DOWN_TP = ("down tp=2", 9728 // TP, 2560, 76)
-#: K3 checks: (k, n, gs, tp, bits, preferred block), the reference's
-#: tests/test_fused_wire.py shapes, gs 76 with padded wires (N 90 and 100,
-#: whose int4 wire ends in all-zero blocks), int4 blocks of 10 (a packed
-#: word spans two blocks), and the rank shape; each at M 1, 4 and 64
+#: K3's own edges, (k, n, gs, tp, bits, preferred block): blocks of 86
+#: over n_pad 258 (blocks straddle 128-column tiles, and the padded
+#: columns 256-257 lie in a tile with no GEMM blocks), and int4 blocks of
+#: 48 across three tiles: epilogue units of several tiles
+WIRE_EDGES = [(128, 256, 32, 3, 8, 128), (128, 384, 32, 2, 4, 48)]
+#: the tp=2 down shard, int8 and int4 wires
+WIRE_RANK = [DOWN_TP[1:] + (TP, 8, 128), DOWN_TP[1:] + (TP, 4, 32)]
+#: K3 checks: the reference's tests/test_fused_wire.py shapes, gs 76 with
+#: padded wires (N 90 and 100, whose int4 wire ends in all-zero blocks),
+#: int4 blocks of 10 (a packed word spans two blocks), the edges and the
+#: rank shape; each at M 1, 4 and 64, the edges and the rank shape also
+#: above K1's tensor-core threshold in float32
 WIRE_SWEEP = [(128, 96, 32, 4, 8, 32), (64, 128, 8, 8, 8, 128),
               (128, 96, 32, 2, 4, 32), (256, 256, 64, 2, 4, 16),
               (608, 90, 76, 4, 8, 128), (608, 100, 76, 4, 4, 12),
-              (608, 80, 76, 2, 4, 12),
-              DOWN_TP[1:] + (TP, 8, 128), DOWN_TP[1:] + (TP, 4, 32)]
+              (608, 80, 76, 2, 4, 12)] + WIRE_EDGES + WIRE_RANK
 #: the collectives of the TP phases
 TP_SERVE = "quant-int8:fused"
 TP_PAIRS = (("quant-int8:fused", "quant-int8"),
@@ -217,6 +232,19 @@ def phase_device() -> str:
     return smi
 
 
+def _wire_smem(lib, bits: int, blk: int) -> int:
+    """Dynamic shared memory of a K3 block at the tp=2 down shard, M=4,
+    float32."""
+    sizes = (ctypes.c_longlong * 3)()
+    k, n, gs = DOWN_TP[1:]
+    err = lib.dequant_matmul_wire_sizes(
+        4, n, k, gs, dk.pick_block_k(k, gs),
+        *wire_params(n, TP, bits, blk)[::2], bits, 0, sizes)
+    if err:
+        raise RuntimeError(f"dequant_matmul_wire_sizes: error {err}")
+    return sizes[2]
+
+
 def phase_build() -> dict:
     kernels = dk.KERNELS + (fa.FLASH,)
     t0 = time.perf_counter()
@@ -231,11 +259,11 @@ def phase_build() -> dict:
             f"{name} M={m}": ordered.dequant_matmul_smem_bytes(
                 m, n, gs, dk.pick_block_k(k, gs), 0)
             for name, k, n, gs in (UP, DOWN) for m in (4, 2048)},
-        # K3's GEMM is K1's main loop; its epilogue kernels use none
+        # K3's launch: K1's main loop, its epilogue in the same memory
         dk.WIRE.name: {
-            DOWN_TP[0]: ordered.dequant_matmul_smem_bytes(
-                4, DOWN_TP[2], DOWN_TP[3],
-                dk.pick_block_k(DOWN_TP[1], DOWN_TP[3]), 0)},
+            f"{DOWN_TP[0]} int{bits}": _wire_smem(libs[dk.WIRE.name], bits,
+                                                  blk)
+            for *_, bits, blk in WIRE_RANK},
         dk.GIDX.name: {
             f"{name} ({gidx.dequant_matmul_gidx_block_n(4, n, k // gs, 0)} "
             f"columns)": gidx.dequant_matmul_gidx_smem_bytes(4, n, k // gs,
@@ -383,13 +411,15 @@ def _check_wire(gen) -> dict:
     torch.matmul sums in another order (within one quantization level:
     the block's scale)."""
     rows, main = [], 0.0
-    # above K1's tensor-core threshold at the tp=2 down shard, in float32
-    # (the one compute type that takes that loop)
+    # above K1's tensor-core threshold at the tp=2 down shard and the
+    # edges, in float32 (the one compute type that takes that loop)
     m_tc = dk.tensor_core_min_m() + 3
-    for k, n, gs, tp, bits, blk in WIRE_SWEEP:
+    for shape in WIRE_SWEEP:
+        k, n, gs, tp, bits, blk = shape
         ql = _quantized(gen, k, n, gs).ordered
         n_pad, _, bs = wire_params(n, tp, bits, blk)
-        for m in (1, 4, 64) + ((m_tc,) if (k, n) == DOWN_TP[1:3] else ()):
+        above = shape in WIRE_EDGES + WIRE_RANK
+        for m in (1, 4, 64) + ((m_tc,) if above else ()):
             x = torch.randn(m, k, generator=gen, device="cuda")
             for dtype in TOL if m != m_tc else (torch.float32,):
                 got = ops.dequant_matmul_wire(x, ql, tp=tp, wire_bits=bits,
@@ -425,14 +455,88 @@ def _check_wire(gen) -> dict:
                     main = err
     worst = max(r["levels_from_plain"] for r in rows)
     line("check", f"dequant_matmul_wire_ordered: {len(rows)} cases (int8 "
-                  f"and int4, f32 and bf16, M 1/4/64, padded wires, the "
-                  f"tp=2 down shard, also at M={m_tc} in f32) bit-equal "
-                  f"to K1 + "
-                  f"the collective's "
-                  f"quantizer; against the plain version at most "
+                  f"and int4, f32 and bf16, M 1/4/64, padded wires, "
+                  f"epilogue units of several tiles (blocks of 86 over "
+                  f"n_pad 258, int4 blocks of 48), the tp=2 down shard, "
+                  f"the last two also at M={m_tc} in f32) bit-equal to K1 "
+                  f"+ the collective's quantizer; against the plain "
+                  f"version at most "
                   f"{worst:.3g} quantization levels (tol 1); max_abs_err "
                   f"at the main path's shape (M=4, int8, f32) {main:.3g}")
     return {"main_max_abs_err": main, "worst_levels": worst, "cases": rows}
+
+
+def _kernel_launches(fn) -> dict:
+    """Device kernels (and copies) one call of ``fn`` launches, by name.
+    A profiler session that records no device event at all is run again,
+    up to three times: a call of a kernel's wrapper launches something,
+    so then the profiler missed it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out = {e.key: e.count for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")}
+        if out:
+            break
+    return out
+
+
+def _bits(t):
+    """A wire tensor as raw bits (float16 scales as int16)."""
+    return t.view(torch.int16) if t.dtype == torch.float16 else t
+
+
+def _check_wire_repeat(gen) -> list:
+    """K3's counters reset and a call is one launch: at the rank shape and
+    the edges (M 4 and 64; also above K1's tensor-core threshold in
+    float32, its other loop), the same call twice and once more after a
+    call of another shape give the same bits, and one call launches
+    exactly one device kernel (torch.profiler)."""
+    m_tc = dk.tensor_core_min_m() + 3
+    other = _quantized(gen, 64, 128, 8).ordered
+    rows = []
+    for shape in WIRE_RANK + WIRE_EDGES:
+        k, n, gs, tp, bits, blk = shape
+        ql = _quantized(gen, k, n, gs).ordered
+        for m, dtype in [(m, dt) for m in (4, 64) for dt in TOL] + [
+                (m_tc, torch.float32)]:
+            x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+            ox = torch.randn(3, 64, generator=gen, device="cuda").to(dtype)
+
+            def call():
+                return ops.dequant_matmul_wire(x, ql, tp=tp, wire_bits=bits,
+                                               wire_block=blk,
+                                               compute_dtype=dtype)
+
+            first, second = call(), call()
+            ops.dequant_matmul_wire(ox, other, tp=3, wire_bits=4,
+                                    wire_block=16, compute_dtype=dtype)
+            third = call()
+            torch.cuda.synchronize()
+            same = all(a is None or (torch.equal(_bits(a), _bits(b))
+                                     and torch.equal(_bits(a), _bits(c)))
+                       for a, b, c in zip(first, second, third))
+            kernels = _kernel_launches(call)
+            row = {"m": m, "k": k, "n": n, "tp": tp, "bits": bits,
+                   "dtype": str(dtype), "repeats_bit_equal": same,
+                   "device_kernels_per_call": sum(kernels.values()),
+                   "kernels": sorted(kernels)}
+            rows.append(row)
+            if not same or row["device_kernels_per_call"] != 1:
+                raise AssertionError(f"dequant_matmul_wire_ordered: repeated "
+                                     f"calls differ or a call is not one "
+                                     f"kernel: {row}")
+    line("check", f"dequant_matmul_wire_ordered: {len(rows)} cases (the tp=2 "
+                  f"down shard and the edges, M 4/64 f32 and bf16, M={m_tc} "
+                  f"f32): the same call twice and after a call of another "
+                  f"shape bit-equal (the counters reset), and one call = "
+                  f"one device kernel (torch.profiler): "
+                  + ", ".join(sorted({k[:72] for r in rows
+                                      for k in r["kernels"]})))
+    return rows
 
 
 def _large_m_cases(t: int) -> list:
@@ -543,7 +647,16 @@ def _time(fn, args_list, reps: int, batches: int = 5,
 
     if graph:
         g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
+        capture = torch.cuda.graph(g)
+        # one call on the capturing stream first: what a wrapper makes once
+        # per stream (K3's counters) must exist before the capture
+        side = capture.capture_stream
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn(*args_list[0])
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        with capture:
             run()
         run = g.replay
     run()
@@ -668,13 +781,7 @@ def _flash_flops(b, h, s, t, d, causal, window) -> float:
 
 def _kernel_names(fn) -> list:
     """Names of the device kernels one call of ``fn`` launches."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sorted({e.key for e in prof.key_averages()
-                   if str(e.device_type).endswith("CUDA")})
+    return sorted(_kernel_launches(fn))
 
 
 def _time_sdpa(qkv) -> dict:
@@ -803,12 +910,15 @@ def _time_wire(gen, m: int = 4) -> dict:
             n_pad=n_pad, wire_block=bs, wire_bits=bits), quants, reps=reps)
         plain_ms = _time(lambda qw, s, z: dk.dequant_matmul_wire_ordered_torch(
             x, qw, s, z, **kw), quants[:2], reps=10)
+        kernels = _kernel_launches(
+            lambda: dk.dequant_matmul_wire_ordered(x, *quants[0], **kw))
         out_bytes = m * n_pad * bits // 8 + m * (n_pad // bs) * 2 * (
             1 if bits == 8 else 2)
         nbytes = 4 * m * k + wbytes + out_bytes
         bound, by = _bound(nbytes, 2 * m * k * n)
         res[f"int{bits}"] = {"m": m, "k": k, "n": n, "gs": gs, "tp": TP,
                              "block": bs, "n_pad": n_pad, "ms": ms,
+                             "device_kernels_per_call": sum(kernels.values()),
                              "plain_ms": plain_ms, "unfused_ms": unfused_ms,
                              "bytes": nbytes, "bound_ms": bound,
                              "bound_by": by, "weight_copies": len(quants)}
@@ -870,11 +980,13 @@ def phase_timing(gen) -> dict:
     for bits in (8, 4):
         w = wire[f"int{bits}"]
         line("timing", "K3 int{} f32 M=4 K={} N={} (tp=2 down shard), "
-             "CUDA-graph replay: {:.4f} ms (bound {:.4f} by {}, plain "
-             "{:.4f}; K1 + plain quantizer {:.4f} [context: the unfused "
-             "epilogue], K1 alone {:.4f})".format(
-                 bits, w["k"], w["n"], w["ms"], w["bound_ms"], w["bound_by"],
-                 w["plain_ms"], w["unfused_ms"], wire["k1_alone_ms"]))
+             "CUDA-graph replay: {:.4f} ms in {} device kernel(s) a call "
+             "(bound {:.4f} by {}, plain {:.4f}; K1 + plain quantizer "
+             "{:.4f} [context: the unfused epilogue], K1 alone "
+             "{:.4f})".format(
+                 bits, w["k"], w["n"], w["ms"], w["device_kernels_per_call"],
+                 w["bound_ms"], w["bound_by"], w["plain_ms"],
+                 w["unfused_ms"], wire["k1_alone_ms"]))
     for name in (UP[0], DOWN[0]):
         r = large[name]
         line("timing", "K1 f32 M=2048 {} (the forward's MLP; tensor-core "
@@ -1027,15 +1139,46 @@ def _device_kernels(run, per: int) -> tuple[float, float, dict, dict, dict]:
             counts)
 
 
-def phase_trace(engine, kernel: str, phase: str = "trace") -> dict:
+def _is_k3(name: str) -> bool:
+    """A K3 kernel: K1's main loop with the wire epilogue."""
+    return "WireEpilogue" in name
+
+
+def _is_k1(name: str) -> bool:
+    return ("dequant_matmul_ordered_kernel" in name
+            or "dequant_matmul_tc_kernel" in name) and not _is_k3(name)
+
+
+def _is_k4(name: str) -> bool:
+    return "dequant_matmul_gidx_kernel" in name
+
+
+def _is_split_add(name: str) -> bool:
+    return "add_splits_kernel" in name
+
+
+def _is_old_wire_epilogue(name: str) -> bool:
+    """A kernel of K3's earlier three-launch form."""
+    return "wire_params" in name or "wire_payload" in name
+
+
+def phase_trace(engine, kernels: dict, phase: str | None = "trace",
+                rank: int = 0, expect: dict | None = None) -> dict | None:
     """Device time of full-width decode steps (4 slots, cache half full)
     by kernel, from ``torch.profiler``, against the same steps' wall
     time measured without the profiler: the device's busy share, and the
-    time and launches of the GEMM kernel ``kernel`` (a device function
-    name) and of split-add passes per step."""
+    ms and launches per step of the kernels each entry of ``kernels`` (a
+    label and a test of a kernel's name) picks.  Every rank runs the
+    steps, so that at tp > 1 the collectives pair up; rank 0 alone traces
+    them and returns the breakdown (other ranks return None), and prints
+    its line unless ``phase`` is None.  Where ``expect`` gives launches
+    per step by label, the steps run three times (on every rank, so the
+    ranks stay in step) and rank 0 keeps the first trace that counts
+    them, else the last: profiler sessions have dropped events.  The
+    caller checks the counts."""
     cache = engine.init_cache(4)
-    tokens = torch.arange(4, device="cuda")
-    pos = torch.full((4,), 24, device="cuda")
+    tokens = torch.arange(4, device=engine.device)
+    pos = torch.full((4,), 24, device=engine.device)
     steps = 3
 
     def run():
@@ -1047,29 +1190,47 @@ def phase_trace(engine, kernel: str, phase: str = "trace") -> dict:
     t0 = time.perf_counter()
     run()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    device_ms, events, top, by_name, counts = _device_kernels(run, steps)
-    gemm_ms = sum(v for key, v in by_name.items() if kernel in key)
-    gemm_n = sum(v for key, v in counts.items() if kernel in key)
-    split_ms = sum(v for key, v in by_name.items()
-                   if "add_splits_kernel" in key)
-    split_n = sum(v for key, v in counts.items()
-                  if "add_splits_kernel" in key)
-    out = {"wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
-           "busy_share": device_ms / wall_ms,
-           "device_events_per_step": events,
-           "top_kernels_ms_per_step": top, "kernel": kernel,
-           "kernel_ms_per_step": gemm_ms, "kernel_launches_per_step": gemm_n,
-           "split_add_ms_per_step": split_ms,
-           "split_add_launches_per_step": split_n}
-    line(phase, f"decode step {wall_ms:.1f} ms wall (no profiler), "
-                f"{device_ms:.2f} ms of kernels -> device busy "
-                f"{100 * device_ms / wall_ms:.1f}%; "
-                f"{events:.0f} device kernels/copies per step; {kernel} "
-                f"{gemm_ms:.3f} ms in {gemm_n:.0f} launches per step, "
-                f"split-add {split_ms:.3f} ms in {split_n:.0f}; "
-                f"top kernels ms/step: "
-                + ", ".join(f"{k[:40]} {v:.3f}" for k, v in top.items()))
+
+    def counted(out):
+        return out is not None and all(
+            out["kernels"][label]["launches_per_step"] == n
+            for label, n in (expect or {}).items())
+
+    out = None
+    for _ in range(3 if expect else 1):
+        if rank != 0 or counted(out):
+            run()                               # beside rank 0's trace
+            continue
+        device_ms, events, top, by_name, counts = _device_kernels(run, steps)
+        out = {"wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
+               "busy_share": device_ms / wall_ms,
+               "device_events_per_step": events,
+               "top_kernels_ms_per_step": top,
+               "kernels": {label: {
+                   "ms_per_step": sum(v for k, v in by_name.items()
+                                      if test(k)),
+                   "launches_per_step": sum(v for k, v in counts.items()
+                                            if test(k))}
+                           for label, test in kernels.items()}}
+    if rank != 0:
+        return None
+    if phase is not None:
+        _trace_line(phase, out)
     return out
+
+
+def _trace_line(phase: str, out: dict) -> None:
+    line(phase, f"decode step {out['wall_ms_per_step']:.1f} ms wall (no "
+                f"profiler), {out['device_ms_per_step']:.2f} ms of kernels "
+                f"-> device busy {100 * out['busy_share']:.1f}%; "
+                f"{out['device_events_per_step']:.0f} device kernels/copies "
+                f"per step; "
+                + ", ".join(f"{label} {v['ms_per_step']:.3f} ms in "
+                            f"{v['launches_per_step']:.0f} launches"
+                            for label, v in out["kernels"].items())
+                + " per step; top kernels ms/step: "
+                + ", ".join(f"{k[:40]} {v:.3f}"
+                            for k, v in out["top_kernels_ms_per_step"].items()))
 
 
 def phase_crosscheck(engine, cfg) -> dict:
@@ -1122,13 +1283,10 @@ def phase_forward_flash(engine, cfg) -> dict:
         device_ms, events, top, by_name, _ = _device_kernels(
             lambda eng=eng: (eng.prefill_logits(toks),
                              torch.cuda.synchronize()), 1)
-        # K1's loops (dequant_matmul_tc_kernel, dequant_matmul_ordered_
-        # kernel) and the decode loop's split-add pass, by kernel name
-        k1_ms = sum(v for key, v in by_name.items()
-                    if "dequant_matmul_tc_kernel" in key
-                    or "dequant_matmul_ordered_kernel" in key)
+        # K1's loops and the decode loop's split-add pass, by kernel name
+        k1_ms = sum(v for key, v in by_name.items() if _is_k1(key))
         split_add_ms = sum(v for key, v in by_name.items()
-                           if "add_splits_kernel" in key)
+                           if _is_split_add(key))
         res[name].update(device_ms=device_ms, device_events=events,
                          top_kernels_ms=top, k1_ms=k1_ms,
                          split_add_ms=split_add_ms)
@@ -1207,8 +1365,9 @@ def phase_dequantize(engine) -> dict:
 def _serve_tp_rank(ctx, cfg, greedy_tokens, greedy_plen) -> dict:
     """One rank of phases 13 and 14: build this rank's slices of the
     full-width plan, serve the four requests under ``TP_SERVE`` with the
-    launch counts set to 0 just before and read just after, then the
-    greedy traces of the cross-check on the same params."""
+    launch counts set to 0 just before and read just after, trace a few
+    decode steps (rank 0), then the greedy traces of the cross-check on
+    the same params."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1234,6 +1393,10 @@ def _serve_tp_rank(ctx, cfg, greedy_tokens, greedy_plen) -> dict:
            "outputs": {k: r.output for k, r in sorted(done.items())},
            "counts": counts,
            "peak_bytes": torch.cuda.max_memory_allocated()}
+    out["trace"] = phase_trace(engine, {
+        "K3": _is_k3, "K1": _is_k1, "split-add": _is_split_add,
+        "earlier wire epilogue": _is_old_wire_epilogue}, None, ctx.rank,
+        expect={"K3": LAYERS, "earlier wire epilogue": 0})
     toks = torch.from_numpy(greedy_tokens).to(ctx.device)
     plen = torch.from_numpy(greedy_plen).to(ctx.device)
     traces = {}
@@ -1292,6 +1455,15 @@ def phase_serve_tp(cfg, tp1_engine) -> tuple[dict, dict]:
              r0["counts"]["dequant_matmul_ordered"], steps,
              "/".join(f"{b / 2**30:.2f}" for b in serve["peak_bytes"]),
              serve["first_ids"]))
+    tr = r0["trace"]
+    serve["trace_rank0"] = tr
+    _trace_line("serve-tp rank 0", tr)
+    k3 = tr["kernels"]["K3"]["launches_per_step"]
+    old = tr["kernels"]["earlier wire epilogue"]["launches_per_step"]
+    if k3 != LAYERS or old:
+        raise AssertionError(f"tp=2 decode step: {k3} K3 kernels and {old} "
+                             f"of the earlier epilogue per step, expected "
+                             f"36 and 0")
 
     cross = {}
     for fused, plain in TP_PAIRS:
@@ -1353,24 +1525,29 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     checks = phase_check(gen)
     timing = phase_timing(gen)
+    # after the timing phase, so that no torch.profiler session runs
+    # before the kernels are timed (PERF.md section 6)
+    checks["dequant_matmul_wire_ordered"]["repeats"] = _check_wire_repeat(gen)
     base = get_config("qwen3-4b")
     cfg = base.with_quant(mode="mlp", scheme="tp-aware", backend="auto")
     engine, serve = phase_serve(cfg, "dequant_matmul_ordered")
-    trace = phase_trace(engine, "dequant_matmul_ordered_kernel")
+    trace = phase_trace(engine, {"K1": _is_k1, "split-add": _is_split_add})
     cross = phase_crosscheck(engine, cfg)
     naive_cfg = base.with_quant(mode="mlp", scheme="naive-actorder",
                                 backend="cuda")
     naive, serve_naive = phase_serve(naive_cfg, "dequant_matmul_gidx",
                                      "serve-naive")
-    trace_naive = phase_trace(naive, "dequant_matmul_gidx_kernel",
-                              "trace-naive")
-    if (trace_naive["kernel_launches_per_step"] != LAUNCHES_PER_STEP
-            or trace_naive["split_add_launches_per_step"]):
-        raise AssertionError(f"naive decode step: "
-                             f"{trace_naive['kernel_launches_per_step']} K4 "
-                             f"kernels and "
-                             f"{trace_naive['split_add_launches_per_step']} "
-                             f"split-adds per step, expected 108 and 0")
+    trace_naive = phase_trace(naive, {"K4": _is_k4,
+                                      "split-add": _is_split_add},
+                              "trace-naive",
+                              expect={"K4": LAUNCHES_PER_STEP,
+                                      "split-add": 0})
+    k4, split = (trace_naive["kernels"][label]["launches_per_step"]
+                 for label in ("K4", "split-add"))
+    if k4 != LAUNCHES_PER_STEP or split:
+        raise AssertionError(f"naive decode step: {k4} K4 kernels and "
+                             f"{split} split-adds per step, expected 108 "
+                             f"and 0")
     scheme_cross = phase_scheme_crosscheck(engine, naive, cfg)
     del naive
     torch.cuda.empty_cache()

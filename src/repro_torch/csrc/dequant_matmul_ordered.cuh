@@ -132,15 +132,30 @@ __device__ __forceinline__ void stage_rows(uint32_t* dst, const uint32_t* src,
   }
 }
 
-template <typename T, int BM>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+// Both main loops end in an epilogue hook: `epilogue(smem)` runs in every
+// thread of every block once the block's tile is written, with the
+// block's dynamic shared memory free for it.  K1 passes no epilogue, so
+// its kernels are the code they were without the hook.  An epilogue type
+// names the decode loop's blocks per SM for __launch_bounds__
+// (Epi::kMinBlocks); register budgets do not change a sum: the code fixes
+// every operation's order.
+template <typename... Epilogue>
+struct MinBlocks {
+  static constexpr int value = kMinBlocks;
+};
+template <typename Epi>
+struct MinBlocks<Epi> {
+  static constexpr int value = Epi::kMinBlocks;
+};
+template <typename T, int BM, typename... Epilogue>
+__global__ void __launch_bounds__(kThreads, MinBlocks<Epilogue...>::value)
 dequant_matmul_ordered_kernel(const T* __restrict__ x,
                               const uint32_t* __restrict__ qweight,
                               const float* __restrict__ scales,
                               const float* __restrict__ zeros,
                               T* __restrict__ y, float* __restrict__ partial,
                               int M, int N, int K, int gs, int bk,
-                              int steps_per_split) {
+                              int steps_per_split, Epilogue... epilogue) {
   extern __shared__ __align__(16) unsigned char smem[];
   const StageLayout lay = stage_layout<T, BM>(bk, gs);
   const int tid = threadIdx.x;
@@ -295,6 +310,7 @@ dequant_matmul_ordered_kernel(const T* __restrict__ x,
       partial[blockIdx.z * static_cast<size_t>(M) * N + out] = sum;
     }
   }
+  (epilogue(smem), ...);
 }
 
 // y = sum over the K splits' partial tiles, in split order.
@@ -541,13 +557,14 @@ __device__ __forceinline__ void tc_store2(float* y, int M, int N, int row,
   }
 }
 
-template <int MT>
+template <int MT, typename... Epilogue>
 __global__ void __launch_bounds__(kTcThreads, 1)
 dequant_matmul_tc_kernel(const float* __restrict__ x,
                          const uint32_t* __restrict__ qweight,
                          const float* __restrict__ scales,
                          const float* __restrict__ zeros,
-                         float* __restrict__ y, int M, int N, int K, int gs) {
+                         float* __restrict__ y, int M, int N, int K, int gs,
+                         Epilogue... epilogue) {
   constexpr int kBM = kTcWarpsM * 16 * MT;  // rows of x per block
   extern __shared__ __align__(16) unsigned char smem[];
   const TcLayout lay = tc_layout(gs, kBM);
@@ -736,6 +753,7 @@ dequant_matmul_tc_kernel(const float* __restrict__ x,
       tc_store2(y, M, N, row + 8, col, acc[mi][ni][2], acc[mi][ni][3]);
     }
   }
+  (epilogue(smem), ...);
 }
 
 template <int MT>

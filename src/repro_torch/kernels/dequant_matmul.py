@@ -14,7 +14,8 @@
 * ``dequant_matmul_wire_ordered`` (K3): K1's GEMM with ring phase 1's
   blockwise wire quantize fused into its epilogue,
   ``csrc/dequant_matmul_wire_ordered.cu`` (K1's main loops come from
-  ``csrc/dequant_matmul_ordered.cuh``, so its sums are K1's bit for bit).
+  ``csrc/dequant_matmul_ordered.cuh``, so its sums are K1's bit for bit):
+  one launch a call, the last block of each epilogue unit quantizing.
 
 Each source note says what bounds the kernel and how it is built up.
 ``kernels/build.py`` compiles a source with ``nvcc`` for ``sm_90a`` the
@@ -60,9 +61,9 @@ DEQUANTIZE = build.Kernel("dequantize_ordered", (
     ("dequantize_ordered", (_P,) * 4 + (_I,) * 4 + (_P,), _I),
     ("dequantize_ordered_error_string", (_I,), _STR)))
 WIRE = build.Kernel("dequant_matmul_wire_ordered", (
-    ("dequant_matmul_wire_ordered", (_P,) * 8 + (_LL,) + (_I,) * 9 + (_P,),
-     _I),
-    ("dequant_matmul_wire_scratch_floats", (_I,) * 9, _LL),
+    ("dequant_matmul_wire_ordered",
+     (_P,) * 8 + (_LL, _P, _LL) + (_I,) * 9 + (_P,), _I),
+    ("dequant_matmul_wire_sizes", (_I,) * 9 + (_P,), _I),
     ("dequant_matmul_wire_error_string", (_I,), _STR)))
 KERNELS = (ORDERED, GIDX, DEQUANTIZE, WIRE)
 
@@ -412,8 +413,15 @@ def dequant_matmul_wire_ordered(
     block ``comm.wire.wire_params`` chose; it divides ``n_pad``).
     Bit-identical to ``quantize_wire`` of K1's output.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (counted in ``dequant_matmul_wire_ordered.launches``) or raise.
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    one launch a call (counted in ``dequant_matmul_wire_ordered.launches``),
+    or raise.  The kernel's counters live in a buffer kept per device and
+    stream (``_wire_counters``), zeroed once when it is made; calls that
+    may run at the same time must not share one.  A CUDA graph keeps the
+    buffer of the stream it was captured on, so graphs captured on one
+    stream (``torch.cuda.graph``'s shared capture stream, where none is
+    named) must not be replayed concurrently with each other or with
+    eager calls on that stream: capture each such graph on its own stream.
     """
     if wire_bits not in (4, 8):
         raise ValueError(f"wire_bits must be 4 or 8, got {wire_bits}")
@@ -450,21 +458,26 @@ def dequant_matmul_wire_ordered(
     if m == 0:
         return payload, wscales, wzeros
     lib = build.load(WIRE)
+    shape = (m, n, k, group_size, bk, n_pad, wire_block, wire_bits,
+             _KERNEL_DTYPES[compute_dtype])
+    # the splits' partial tiles, a counter per row tile and epilogue unit
+    # (0 before and after every call), and the launch's shared memory
+    sizes = (ctypes.c_longlong * 3)()
     with torch.cuda.device(dev):
-        floats = lib.dequant_matmul_wire_scratch_floats(
-            m, n, k, group_size, bk, n_pad, wire_block, wire_bits,
-            _KERNEL_DTYPES[compute_dtype])
-        if floats < 0:
-            err = -floats
-        else:
+        err = lib.dequant_matmul_wire_sizes(*shape, sizes)
+        if not err:
+            floats, count, _ = sizes
+            stream = torch.cuda.current_stream(dev)
+            counters = _wire_counters(stream, count)
             scratch = torch.empty(floats, dtype=torch.float32, device=dev)
-            stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.dequant_matmul_wire_ordered(
                 x.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
                 zeros.data_ptr(), payload.data_ptr(), wscales.data_ptr(),
                 None if wzeros is None else wzeros.data_ptr(),
-                scratch.data_ptr(), floats, m, n, k, group_size, bk, n_pad,
-                wire_block, wire_bits, _KERNEL_DTYPES[compute_dtype], stream)
+                scratch.data_ptr(), floats, counters.data_ptr(),
+                counters.numel(), *shape, stream.cuda_stream)
+            if err:
+                counters.zero_()
     _raise_on(err, lib, "dequant_matmul_wire", f"M={m} N={n} K={k} "
               f"gs={group_size} bk={bk} n_pad={n_pad} block={wire_block} "
               f"bits={wire_bits}")
@@ -473,3 +486,29 @@ def dequant_matmul_wire_ordered(
 
 
 dequant_matmul_wire_ordered.launches = 0
+
+#: K3's counters: (device index, stream handle) -> [stream, int32
+#: buffers]. Calls on one stream run one after another and each leaves its
+#: counters at 0, so one buffer (the last) serves every call on its stream,
+#: with no memset.  A buffer outgrown by a larger call is kept: a CUDA
+#: graph captured earlier may still use it.
+_wire_counter_buffers: dict = {}
+
+
+def _wire_counters(stream, count: int) -> torch.Tensor:
+    """A zeroed int32 buffer of at least ``count`` counters for K3's calls
+    on ``stream`` (the current stream), made (or grown) on first need.
+    Not during a CUDA graph capture: a zero-fill captured there runs only
+    when the graph is replayed, so the buffer must exist before (a call
+    on the capturing stream first, as a warm-up)."""
+    key = (stream.device_index, stream.cuda_stream)
+    held = _wire_counter_buffers.setdefault(key, [stream])
+    if len(held) == 1 or held[-1].numel() < count:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "dequant_matmul_wire_ordered: no counters for this stream "
+                "yet, and it is capturing a CUDA graph; call the kernel on "
+                "the capturing stream once before the capture")
+        held.append(torch.zeros(max(count, 1024), dtype=torch.int32,
+                                device=stream.device))
+    return held[-1]

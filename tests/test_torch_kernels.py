@@ -475,8 +475,11 @@ def test_cuda_dequantize_kernel_bit_equal_to_plain_version(dtype):
 
 #: (k, n, gs, tp, bits, preferred block): ``tests/test_fused_wire.py``'s
 #: four, gs 76 with padded wire widths (N 90 and 100; the int4 wire ends
-#: in all-zero blocks), and int4 blocks of 10 (a packed word holds values
-#: of two quant blocks)
+#: in all-zero blocks), int4 blocks of 10 (a packed word holds values of
+#: two quant blocks), and the edges of K3's epilogue units: blocks of 86
+#: over n_pad 258 (blocks straddle 128-column tiles, and the padded
+#: columns 256-257 lie in a tile with no GEMM blocks), and int4 blocks of
+#: 48 across three tiles
 WIRE_SHAPES = [
     (128, 96, 32, 4, 8, 32),
     (64, 128, 8, 8, 8, 128),
@@ -485,7 +488,11 @@ WIRE_SHAPES = [
     (608, 90, 76, 4, 8, 128),
     (608, 100, 76, 4, 4, 12),
     (608, 80, 76, 2, 4, 12),
+    (128, 256, 32, 3, 8, 128),
+    (128, 384, 32, 2, 4, 48),
 ]
+#: the tp=2 down shard of full-width qwen3-4b, int8 and int4 wires
+WIRE_RANK = [(4864, 2560, 76, 2, 8, 128), (4864, 2560, 76, 2, 4, 32)]
 
 
 def _dequantized_wire(p, s, z, bits, bs):
@@ -600,13 +607,11 @@ def test_cuda_wire_kernel_bit_equal_to_k1_and_quantizer(dtype):
     gen = torch.Generator(device="cuda").manual_seed(3)
     cases = [(m, k, n, gs, tp, bits, blk)
              for (k, n, gs, tp, bits, blk) in WIRE_SHAPES for m in (1, 4, 64)]
-    cases += [(4, 4864, 2560, 76, 2, bits, blk)      # the tp=2 down shard
-              for bits, blk in ((8, 128), (4, 32))]
+    cases += [(4,) + shape for shape in WIRE_RANK]
     if dtype == torch.float32:
         # above the tensor-core loop's threshold, where K1 takes it
         m_tc = tdk.tensor_core_min_m() + 3
-        cases += [(m_tc, 4864, 2560, 76, 2, bits, blk)
-                  for bits, blk in ((8, 128), (4, 32))]
+        cases += [(m_tc,) + shape for shape in WIRE_RANK]
         cases += [(m_tc, k, n, gs, tp, bits, blk)
                   for (k, n, gs, tp, bits, blk) in WIRE_SHAPES[4:]]
     for m, k, n, gs, tp, bits, blk in cases:
@@ -634,3 +639,146 @@ def test_cuda_wire_kernel_bit_equal_to_k1_and_quantizer(dtype):
         diff = np.abs(_dequantized_wire(*cpu, bits, bs)
                       - _dequantized_wire(*ref, bits, bs))
         assert (diff <= 1.001 * step).all(), (m, k, n, gs, tp, bits, blk)
+
+
+def _wire_units(n: int, n_pad: int, bs: int, tile: int = 128) -> list:
+    """K3's epilogue units as ``units_of`` in
+    ``csrc/dequant_matmul_wire_ordered.cu`` forms them: runs of
+    ``lcm(tile, bs) / tile`` GEMM tiles, the last run extended to
+    ``n_pad``; each unit as (first tile, tiles, first column, end)."""
+    from math import gcd
+
+    per = bs // gcd(bs, tile)
+    tiles_n = -(-n // tile)
+    count = -(-tiles_n // per)
+    return [(u * per, min(per, tiles_n - u * per), u * per * tile,
+             n_pad if u == count - 1 else (u + 1) * per * tile)
+            for u in range(count)]
+
+
+@pytest.mark.parametrize("k,n,gs,tp,bits,blk",
+                         WIRE_SHAPES + WIRE_RANK + [(64, 128, 32, 3, 4, 16)])
+def test_wire_epilogue_units_quantize_like_the_collective(k, n, gs, tp, bits,
+                                                          blk):
+    """K3's epilogue as the kernel orders it, on the CPU: the units tile
+    ``[0, n_pad)``, each holds at least one GEMM tile (so its last block
+    exists), and every quant block and int4 word lies in exactly one unit;
+    each unit quantized alone, with each block's max and min combined over
+    the unit's 128-column chunks and the quantizer's operations one at a
+    time, gives ``quantize_wire``'s payload, scales and zeros bit for bit.
+    The last shape (N 128 at tp 3, int4: n_pad 144, blocks of 16) has
+    padded blocks in a tile of their own, which the last unit takes."""
+    from repro_torch.comm import dispatch as comm
+    from repro_torch.comm.wire import wire_params
+
+    n_pad, _, bs = wire_params(n, tp, bits, blk)
+    units = _wire_units(n, n_pad, bs)
+    rng = np.random.default_rng(k + n + bits)
+    y = torch.from_numpy(rng.standard_normal((5, n)).astype(np.float32))
+    y[1, : min(n, 3 * bs)] = 0.0                # all-zero blocks
+    y[2] = -y[2].abs()                          # blocks with max v < 0
+    p_want, s_want, z_want = tdk.quantize_wire(y, n_pad=n_pad, wire_block=bs,
+                                               wire_bits=bits)
+    vals = torch.nn.functional.pad(y, (0, n_pad - n))
+    owner = torch.zeros(n_pad, dtype=torch.int32)
+    q = torch.zeros(5, n_pad)
+    scales, zeros = torch.zeros(5, n_pad // bs), torch.zeros(5, n_pad // bs)
+    fifteen, top = torch.tensor(15.0), torch.tensor(127.0)
+    assert units[0][2] == 0 and units[-1][3] == n_pad
+    for (t0, tiles, c0, c1), nxt in zip(units, units[1:] + [None]):
+        assert tiles >= 1 and c0 < n and c0 % bs == 0 and c1 % bs == 0
+        assert nxt is None or nxt[2] == c1 == t0 * 128 + tiles * 128
+        if bits == 4:
+            assert c0 % 8 == 0 and c1 % 8 == 0
+        owner[c0:c1] += 1
+        b0, nb = c0 // bs, (c1 - c0) // bs
+        hi, lo = torch.zeros(5, nb), torch.zeros(5, nb)
+        for cs in range(c0, c1, 128):
+            ce = min(cs + 128, c1)
+            for b in range(cs // bs, (ce - 1) // bs + 1):
+                part = vals[:, max(cs, b * bs):min(ce, (b + 1) * bs)]
+                i = b - b0
+                if bits == 8:
+                    hi[:, i] = torch.maximum(hi[:, i], part.abs().amax(-1))
+                else:
+                    hi[:, i] = torch.maximum(hi[:, i], part.amax(-1))
+                    lo[:, i] = torch.minimum(lo[:, i], part.amin(-1))
+        if bits == 8:
+            s = torch.clamp(hi / top, min=torch.finfo(torch.float32).tiny)
+            z = torch.zeros_like(s)
+        else:
+            s = (hi - lo) / fifteen
+            s = torch.where(s <= 0, torch.ones_like(s), s)
+            z = torch.clamp(torch.round(-lo / s), 0, 15)
+        cols = torch.arange(c0, c1) // bs - b0
+        qv = torch.round(vals[:, c0:c1] / s[:, cols] + z[:, cols])
+        q[:, c0:c1] = torch.clamp(qv, -127, 127) if bits == 8 else \
+            torch.clamp(qv, 0, 15)
+        scales[:, b0:b0 + nb], zeros[:, b0:b0 + nb] = s, z
+    assert (owner == 1).all()
+    assert torch.equal(scales.to(torch.float16), s_want)
+    if bits == 8:
+        assert z_want is None and torch.equal(q.to(torch.int8), p_want)
+    else:
+        assert torch.equal(zeros.to(torch.float16), z_want)
+        assert torch.equal(comm._pack4_last(q.to(torch.int32)), p_want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_wire_kernel_one_launch_and_repeats_bit_equal(dtype):
+    """A K3 call on the card is one device kernel (``torch.profiler``), in
+    the decode loop and, for float32 above the threshold, the tensor-core
+    loop; and its counters reset: the same call twice, and once more after
+    a call of another shape, gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import importlib.util
+    import pathlib
+
+    from repro_torch.comm.wire import wire_params
+
+    # chip_smoke.py's count of the device kernels a call launches
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cases = [(4,) + shape for shape in WIRE_RANK + WIRE_SHAPES[-2:]]
+    cases += [(64,) + shape for shape in WIRE_SHAPES[-2:]]
+    if dtype == torch.float32:
+        m_tc = tdk.tensor_core_min_m() + 3
+        cases += [(m_tc,) + shape for shape in WIRE_RANK + WIRE_SHAPES[-2:]]
+    other_ql = _cuda_quantized(gen, 64, 128, 8).ordered
+    other_x = torch.randn(3, 64, generator=gen, device="cuda").to(dtype)
+    for m, k, n, gs, tp, bits, blk in cases:
+        ql = _cuda_quantized(gen, k, n, gs).ordered
+        x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+
+        def call():
+            return ops.dequant_matmul_wire(x, ql, tp=tp, wire_bits=bits,
+                                           wire_block=blk,
+                                           compute_dtype=dtype)
+
+        first, second = call(), call()
+        ops.dequant_matmul_wire(other_x, other_ql, tp=3, wire_bits=4,
+                                wire_block=16, compute_dtype=dtype)
+        third = call()
+        torch.cuda.synchronize()
+        for a, b, c in zip(first, second, third):
+            if a is None:
+                assert b is None and c is None
+                continue
+            bits_of = (lambda t: t.view(torch.int16)
+                       if t.dtype == torch.float16 else t)
+            assert torch.equal(bits_of(a), bits_of(b)), (m, k, n, bits)
+            assert torch.equal(bits_of(a), bits_of(c)), (m, k, n, bits)
+        n_pad, _, bs = wire_params(n, tp, bits, blk)
+        want = tdk.quantize_wire(ops.dequant_matmul(x, ql, compute_dtype=dtype),
+                                 n_pad=n_pad, wire_block=bs, wire_bits=bits)
+        assert all((a is None and b is None) or torch.equal(a, b)
+                   for a, b in zip(first, want)), (m, k, n, bits)
+        kernels = chip_smoke._kernel_launches(call)
+        assert sum(kernels.values()) == 1, (m, k, n, bits, kernels)
+        assert "WireEpilogue" in next(iter(kernels)), kernels
