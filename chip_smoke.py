@@ -41,34 +41,45 @@ Phases, one line each:
      kernel named)
   5. serve: full-width qwen3-4b (36 layers) built by the port's
      ``make_engine`` on the card from seed 0, four requests through the
-     ``Scheduler``; every decode step must launch K1 108 times
-  6. trace: device time of a few full-width decode steps by kernel
-     (torch.profiler) against their wall time: the device's busy share,
-     and K1's and the split-add's time and launches per step
-  7. backend cross-check: greedy decode with backend=cuda and
+     ``Scheduler``, each decode step a replay of the engine's CUDA graph
+     (one capture; its seconds and pool bytes); every decode step must
+     launch K1 108 times (a replay adds what its capture counted)
+  6. trace: device time of a few full-width captured decode steps by
+     kernel (torch.profiler) against their wall time: the device's busy
+     share, and K1's and the split-add's time and launches per step (108
+     K1 kernels a step from the device); the eager step's wall time and
+     busy share beside them
+  7. capture: the captured step against ``Engine.decode_eager`` at full
+     width: logits and the whole KV cache bit for bit over 16 decode
+     steps, lockstep and on unequal per-slot positions; a second cache of
+     the same batch size recaptures; the four requests of phase 5 give
+     the same ids through an engine whose scheduler runs the eager step
+     (its ms per step beside)
+  8. backend cross-check: greedy decode with backend=cuda and
      backend=torch on the same params
-  8. serve naive-actorder: the same four requests with the paper's naive
+  9. serve naive-actorder: the same four requests with the paper's naive
      act-order plan on backend=cuda; every decode step must launch K4
      108 times and K1 never
-  9. trace-naive: as 6 for the naive-actorder engine: K4's device time
+ 10. trace-naive: as 6 for the naive-actorder engine: K4's device time
      per decode step, 108 K4 kernels per step and no split-add kernel
- 10. scheme cross-check: greedy decode, naive-actorder (K4) against
+ 11. scheme cross-check: greedy decode, naive-actorder (K4) against
      tp-aware (K1), both planned from seed 0
- 11. forward flash: the full-sequence forward (``Engine.prefill_logits``)
+ 12. forward flash: the full-sequence forward (``Engine.prefill_logits``)
      of 2048 tokens with attn_backend="flash" (36 K2 launches) against
      attn_backend="xla" on the same params; all 108 K1 launches take its
      tensor-core loop, and the profiler's K1 and split-add times
- 12. dequantize: every MLP weight of the full-width engine materialized
+ 13. dequantize: every MLP weight of the full-width engine materialized
      through ``ops.dequantize`` (108 K5 launches), bit-equal to the plain
      dequantize
- 13. serve-tp: full-width qwen3-4b at tp=2 with ``quant-int8:fused``, two
+ 14. serve-tp: full-width qwen3-4b at tp=2 with ``quant-int8:fused``, two
      rank processes (``launch/mesh.py``; on one card: gloo via host), the
-     same four requests; every decode step must launch K3 36 times and
+     same four requests, the decode step eager (no CUDA graph holds the
+     gloo collectives); every decode step must launch K3 36 times and
      K1 72 times on each rank; then a few decode steps traced on rank 0
      (torch.profiler): kernels per step, K3's and K1's kernels and ms per
      step (36 K3 kernels and none of the earlier wire epilogue, else it
      fails)
- 14. tp-crosscheck: greedy decode on the same two ranks, ``quant-int8:fused``
+ 15. tp-crosscheck: greedy decode on the same two ranks, ``quant-int8:fused``
      against ``quant-int8`` and ``quant-int4:fused`` against
      ``quant-int4`` (logits bit-identical on every rank, ids equal), and
      ``psum`` at tp=2 against the tp=1 engine of phase 5 (ids equal)
@@ -189,12 +200,9 @@ TP_PAIRS = (("quant-int8:fused", "quant-int8"),
 #: the launches of K1 that took its tensor-core loop (float32, large M),
 #: counted beside the wrappers' own counts
 TC = "dequant_matmul_ordered (tensor cores)"
-#: the kernels' wrappers, each with its launch count
-COUNTED = {"dequant_matmul_ordered": dk.dequant_matmul_ordered,
-           "dequant_matmul_gidx": dk.dequant_matmul_gidx,
-           "dequantize_ordered": dk.dequantize_ordered,
-           "flash_attention": fa.flash_attention,
-           "dequant_matmul_wire_ordered": dk.dequant_matmul_wire_ordered}
+#: the name of each of ``ops.COUNTERS``: its wrapper's, or ``TC``
+COUNTED = tuple(fn.__name__ if attr == "launches" else TC
+                for fn, attr in ops.COUNTERS)
 
 
 def line(phase: str, text: str):
@@ -202,21 +210,17 @@ def line(phase: str, text: str):
 
 
 def reset_counts():
-    for fn in COUNTED.values():
-        fn.launches = 0
-    dk.dequant_matmul_ordered.tensor_core_launches = 0
+    ops.add_launch_counts(-n for n in ops.launch_counts())
 
 
 def read_counts() -> dict:
-    counts = {name: fn.launches for name, fn in COUNTED.items()}
-    counts[TC] = dk.dequant_matmul_ordered.tensor_core_launches
-    return counts
+    return dict(zip(COUNTED, ops.launch_counts(), strict=True))
 
 
 def expect_counts(counts: dict, want: dict, what: str):
     """Each counted kernel launched exactly ``want[name]`` times (0 for
     those ``want`` does not name)."""
-    full = {name: want.get(name, 0) for name in (*COUNTED, TC)}
+    full = {name: want.get(name, 0) for name in COUNTED}
     if counts != full:
         raise AssertionError(f"{what}: kernel launches {counts}, expected "
                              f"{full}")
@@ -1023,6 +1027,21 @@ def _submit_requests(sched, cfg):
             max_new_tokens=16))
 
 
+def _run_steps(sched) -> tuple[dict, float, list]:
+    """Drain the scheduler as ``Scheduler.run`` does, one step at a time:
+    (finished requests, seconds, each step's ms).  A step ends in its
+    sampled tokens' read back to the host, so its host time is its
+    time."""
+    step_ms = []
+    t0 = time.perf_counter()
+    while sched.has_work:
+        t1 = time.perf_counter()
+        sched.step()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    torch.cuda.synchronize()
+    return sched.finished, time.perf_counter() - t0, step_ms
+
+
 def phase_serve(cfg, kernel: str, phase: str = "serve"):
     """Full-width serve of four requests on backend=cuda; every decode
     step must launch ``kernel`` 108 times and no other counted kernel."""
@@ -1038,10 +1057,7 @@ def phase_serve(cfg, kernel: str, phase: str = "serve"):
                       scfg=SamplingConfig(temperature=0.8, top_k=40), seed=0)
     _submit_requests(sched, cfg)
     reset_counts()
-    t0 = time.perf_counter()
-    done = sched.run()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    done, dt, step_ms = _run_steps(sched)
     counts = read_counts()
     steps = sched.steps
     tokens = sum(len(r.output) for r in done.values())
@@ -1053,17 +1069,33 @@ def phase_serve(cfg, kernel: str, phase: str = "serve"):
                              f"{ {k: r.output for k, r in done.items()} }")
     expect_counts(counts, {kernel: LAUNCHES_PER_STEP * steps},
                   f"{phase} ({steps} decode steps)")
+    # the scheduler keeps one cache of max_batch slots: one capture
+    graph = engine.graphs.get(sched.max_batch)
+    if engine.captures != 1 or graph is None:
+        raise AssertionError(f"{phase}: {engine.captures} captures of the "
+                             f"decode step, expected 1 (batch 4)")
     peak = torch.cuda.max_memory_allocated()
     out = {"scheme": cfg.quant.scheme, "init_s": init_s, "run_s": dt,
            "tokens": tokens, "tokens_per_s": tokens / dt,
            "decode_steps": steps, "launches": counts[kernel],
            "counts": counts, "ms_per_step": dt / steps * 1e3,
+           "decode_mode": engine.decode_mode,
+           "capture_s": graph.seconds, "graph_pool_bytes": graph.pool_bytes,
+           "first_step_ms": step_ms[0],
+           "steady_ms_per_step": statistics.median(step_ms[1:]),
+           "step_ms": step_ms,
            "peak_bytes": peak, "allocated_before_bytes": before,
+           "outputs": {k: r.output for k, r in sorted(done.items())},
            "first_ids": {k: r.output[:4] for k, r in sorted(done.items())}}
     line(phase, f"qwen3-4b 36L d2560 ff9728 vocab151936 on cuda, "
                 f"{cfg.quant.scheme}: 4 requests, {tokens} tokens in "
                 f"{dt:.2f}s ({tokens / dt:.1f} tok/s, "
-                f"{out['ms_per_step']:.1f} ms/step), {steps} decode steps, "
+                f"{out['ms_per_step']:.1f} ms/step; the first step "
+                f"{step_ms[0]:.1f} ms with the capture, then a median "
+                f"{out['steady_ms_per_step']:.2f} ms), {steps} decode steps "
+                f"(decode step: {engine.decode_mode}; the capture "
+                f"{graph.seconds:.3f}s after its eager step, graph pool "
+                f"{graph.pool_bytes / 2**20:.1f} MiB), "
                 f"{kernel} launches {counts[kernel]} = 108 x {steps} (other "
                 f"kernels 0), init {init_s:.1f}s, max_memory_allocated "
                 f"{peak / 2**30:.2f} GiB ({before / 2**30:.2f} GiB of it "
@@ -1165,31 +1197,48 @@ def _is_old_wire_epilogue(name: str) -> bool:
 def phase_trace(engine, kernels: dict, phase: str | None = "trace",
                 rank: int = 0, expect: dict | None = None) -> dict | None:
     """Device time of full-width decode steps (4 slots, cache half full)
-    by kernel, from ``torch.profiler``, against the same steps' wall
-    time measured without the profiler: the device's busy share, and the
-    ms and launches per step of the kernels each entry of ``kernels`` (a
-    label and a test of a kernel's name) picks.  Every rank runs the
-    steps, so that at tp > 1 the collectives pair up; rank 0 alone traces
-    them and returns the breakdown (other ranks return None), and prints
-    its line unless ``phase`` is None.  Where ``expect`` gives launches
-    per step by label, the steps run three times (on every rank, so the
-    ranks stay in step) and rank 0 keeps the first trace that counts
-    them, else the last: profiler sessions have dropped events.  The
-    caller checks the counts."""
+    through ``engine.decode`` (on one rank, the captured step) by kernel,
+    from ``torch.profiler``, against the same steps' wall time measured
+    without the profiler: the device's busy share, and the ms and
+    launches per step of the kernels each entry of ``kernels`` (a label
+    and a test of a kernel's name) picks; beside them the steps' device
+    time between CUDA events.  On one rank the eager step
+    (``decode_eager``) is timed and traced too, for comparison.  Every
+    rank runs the steps, so that at tp > 1 the collectives pair up; rank
+    0 alone traces them and returns the breakdown (other ranks return
+    None), and prints its line unless ``phase`` is None.  Where
+    ``expect`` gives launches per step by label, the steps run three
+    times (on every rank, so the ranks stay in step) and rank 0 keeps the
+    first trace that counts them, else the last: profiler sessions have
+    dropped events.  The caller checks the counts."""
     cache = engine.init_cache(4)
     tokens = torch.arange(4, device=engine.device)
     pos = torch.full((4,), 24, device=engine.device)
     steps = 3
 
-    def run():
-        for i in range(steps):
-            engine.decode(cache, tokens, pos + i)
-        torch.cuda.synchronize()
+    def runner(step):
+        def run():
+            for i in range(steps):
+                step(cache, tokens, pos + i)
+            torch.cuda.synchronize()
+        return run
 
-    run()
-    t0 = time.perf_counter()
-    run()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    def wall_ms(run) -> float:
+        run()
+        t0 = time.perf_counter()
+        run()
+        return (time.perf_counter() - t0) * 1e3 / steps
+
+    run = runner(engine.decode)
+    wall = wall_ms(run)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(steps):
+        engine.decode(cache, tokens, pos + i)
+    stop.record()
+    torch.cuda.synchronize()
+    event_ms = start.elapsed_time(stop) / steps
 
     def counted(out):
         return out is not None and all(
@@ -1202,8 +1251,10 @@ def phase_trace(engine, kernels: dict, phase: str | None = "trace",
             run()                               # beside rank 0's trace
             continue
         device_ms, events, top, by_name, counts = _device_kernels(run, steps)
-        out = {"wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
-               "busy_share": device_ms / wall_ms,
+        out = {"decode_mode": engine.decode_mode, "wall_ms_per_step": wall,
+               "event_ms_per_step": event_ms,
+               "device_ms_per_step": device_ms,
+               "busy_share": device_ms / wall,
                "device_events_per_step": events,
                "top_kernels_ms_per_step": top,
                "kernels": {label: {
@@ -1214,23 +1265,118 @@ def phase_trace(engine, kernels: dict, phase: str | None = "trace",
                            for label, test in kernels.items()}}
     if rank != 0:
         return None
+    if engine.group is None:
+        eager = runner(engine.decode_eager)
+        eager_wall = wall_ms(eager)
+        device_ms, events, *_ = _device_kernels(eager, steps)
+        out["eager"] = {"wall_ms_per_step": eager_wall,
+                        "device_ms_per_step": device_ms,
+                        "busy_share": device_ms / eager_wall,
+                        "device_events_per_step": events}
     if phase is not None:
         _trace_line(phase, out)
     return out
 
 
 def _trace_line(phase: str, out: dict) -> None:
-    line(phase, f"decode step {out['wall_ms_per_step']:.1f} ms wall (no "
-                f"profiler), {out['device_ms_per_step']:.2f} ms of kernels "
-                f"-> device busy {100 * out['busy_share']:.1f}%; "
-                f"{out['device_events_per_step']:.0f} device kernels/copies "
-                f"per step; "
+    eager = out.get("eager")
+    line(phase, f"decode step ({out['decode_mode']}) "
+                f"{out['wall_ms_per_step']:.2f} ms wall (no profiler), "
+                f"{out['device_ms_per_step']:.2f} ms of kernels "
+                f"-> device busy {100 * out['busy_share']:.1f}% "
+                f"({out['event_ms_per_step']:.2f} ms between CUDA events); "
+                + ("" if eager is None else
+                   f"eager step {eager['wall_ms_per_step']:.2f} ms wall, "
+                   f"{eager['device_ms_per_step']:.2f} ms of kernels -> "
+                   f"busy {100 * eager['busy_share']:.1f}%; ")
+                + f"{out['device_events_per_step']:.0f} device "
+                f"kernels/copies per step; "
                 + ", ".join(f"{label} {v['ms_per_step']:.3f} ms in "
                             f"{v['launches_per_step']:.0f} launches"
                             for label, v in out["kernels"].items())
                 + " per step; top kernels ms/step: "
                 + ", ".join(f"{k[:40]} {v:.3f}"
                             for k, v in out["top_kernels_ms_per_step"].items()))
+
+
+def phase_capture(engine, cfg, serve: dict) -> dict:
+    """The captured step against ``decode_eager`` at full width, 4 slots:
+    logits and the whole KV cache bit for bit after each of 16 steps on
+    lockstep positions (the eager step's int path; the graph's per-slot
+    buffer) and 16 on unequal per-slot positions; the second pair of
+    caches moves the graph to other addresses (a recapture), and so does
+    going back to the first.  Then phase 5's four requests through an
+    engine on the same params whose ``decode`` is the eager step: the
+    same ids, and its time beside the captured one's."""
+    b, steps = 4, 16
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (steps + 1, b))).cuda()
+    offsets = torch.tensor([0, 5, 11, 17], device="cuda")
+    lock = (engine.init_cache(b), engine.init_cache(b))
+    slot = (engine.init_cache(b), engine.init_cache(b))
+
+    def check(caches, t, pos, what):
+        graph_cache, eager_cache = caches
+        got, _ = engine.decode(graph_cache, toks[t], pos)
+        want, _ = engine.decode_eager(eager_cache, toks[t], pos)
+        if not (torch.equal(got, want) and all(
+                torch.equal(graph_cache[n], eager_cache[n])
+                for n in ("k", "v"))):
+            raise AssertionError(
+                f"capture, {what}, step {t}: the captured step's logits or "
+                f"cache differ from decode_eager's (max logit gap "
+                f"{(got - want).abs().max().item():.3g})")
+
+    captures = [engine.captures]
+    for t in range(steps):
+        check(lock, t, t, "lockstep")
+    captures.append(engine.captures)
+    for t in range(steps):
+        check(slot, t, offsets + t, "per-slot")
+    captures.append(engine.captures)
+    recapture_s = engine.graphs[b].seconds
+    check(lock, steps, steps, "lockstep, back on the first cache")
+    captures.append(engine.captures)
+    if captures[2] != captures[1] + 1 or captures[3] != captures[2] + 1:
+        raise AssertionError(f"capture: captures {captures}; a cache at "
+                             f"other addresses must recapture")
+
+    eager = dataclasses.replace(engine)
+    eager.decode = eager.decode_eager
+    sched = Scheduler(eager, max_batch=4, prompt_budget=32,
+                      scfg=SamplingConfig(temperature=0.8, top_k=40), seed=0)
+    _submit_requests(sched, cfg)
+    done, dt, step_ms = _run_steps(sched)
+    outputs = {k: r.output for k, r in sorted(done.items())}
+    if outputs != serve["outputs"] or eager.captures:
+        raise AssertionError(f"capture: the eager engine's ids {outputs} "
+                             f"differ from the captured step's "
+                             f"{serve['outputs']}")
+    tokens = sum(len(o) for o in outputs.values())
+    out = {"steps_each": steps, "offsets": offsets.tolist(),
+           "captures": captures, "recapture_s": recapture_s,
+           "bit_equal": True, "serve_ids_equal": True,
+           "eager_serve": {"run_s": dt, "decode_steps": sched.steps,
+                           "ms_per_step": dt / sched.steps * 1e3,
+                           "steady_ms_per_step": statistics.median(
+                               step_ms[1:]),
+                           "tokens_per_s": tokens / dt}}
+    line("capture", f"B=4: {steps} lockstep steps and {steps} on per-slot "
+                    f"positions (offsets {out['offsets']}) through the "
+                    f"captured step bit-equal to decode_eager (logits and "
+                    f"the whole KV cache after each step); a second cache "
+                    f"of batch 4 recaptured and so did the first again "
+                    f"(captures {captures}; recapture {recapture_s:.3f}s); "
+                    f"the 4 requests' ids through the eager step equal the "
+                    f"captured step's; eager serve "
+                    f"{out['eager_serve']['ms_per_step']:.1f} ms/step "
+                    f"(median {out['eager_serve']['steady_ms_per_step']:.2f} "
+                    f"after the first; "
+                    f"{out['eager_serve']['tokens_per_s']:.1f} tok/s) "
+                    f"against captured {serve['ms_per_step']:.1f} ms/step "
+                    f"(median {serve['steady_ms_per_step']:.2f}; "
+                    f"{serve['tokens_per_s']:.1f} tok/s)")
+    return out
 
 
 def phase_crosscheck(engine, cfg) -> dict:
@@ -1386,6 +1532,7 @@ def _serve_tp_rank(ctx, cfg, greedy_tokens, greedy_plen) -> dict:
     run_s = time.perf_counter() - t0
     counts = read_counts()
     out = {"rank": ctx.rank, "transport": ctx.transport,
+           "decode_mode": engine.decode_mode,
            "backend": engine.policy.backend,
            "collective": engine.policy.collective.shorthand(),
            "init_s": init_s, "run_s": run_s, "decode_steps": sched.steps,
@@ -1435,6 +1582,7 @@ def phase_serve_tp(cfg, tp1_engine) -> tuple[dict, dict]:
         raise AssertionError(f"requests incomplete: {ranks[0]['outputs']}")
     r0 = ranks[0]
     serve = {"transport": r0["transport"], "collective": r0["collective"],
+             "decode_mode": r0["decode_mode"],
              "tokens": r0["tokens"], "decode_steps": steps,
              "tokens_per_s": [r["tokens"] / r["run_s"] for r in ranks],
              "ms_per_step": [r["run_s"] / steps * 1e3 for r in ranks],
@@ -1445,13 +1593,15 @@ def phase_serve_tp(cfg, tp1_engine) -> tuple[dict, dict]:
              "first_ids": {k: o[:4] for k, o in r0["outputs"].items()}}
     line("serve-tp", "qwen3-4b 36L d2560 ff9728 vocab151936 at tp={} over "
          "{} with {}: 4 requests, {} tokens, {:.1f} tok/s, {:.1f} ms/step "
-         "(rank 0; rank 1 {:.1f} ms/step), {} decode steps; per rank "
+         "(rank 0; rank 1 {:.1f} ms/step), {} decode steps (decode step: "
+         "{}; no CUDA graph holds the gloo collectives); per rank "
          "dequant_matmul_wire_ordered {} = 36 x {} and dequant_matmul_ordered "
          "{} = 72 x {} (other kernels 0); max_memory_allocated per rank "
          "{} GiB; first ids {}".format(
              TP, r0["transport"], r0["collective"], r0["tokens"],
              serve["tokens_per_s"][0], serve["ms_per_step"][0],
-             serve["ms_per_step"][1], steps, serve["launches"], steps,
+             serve["ms_per_step"][1], steps, serve["decode_mode"],
+             serve["launches"], steps,
              r0["counts"]["dequant_matmul_ordered"], steps,
              "/".join(f"{b / 2**30:.2f}" for b in serve["peak_bytes"]),
              serve["first_ids"]))
@@ -1531,7 +1681,13 @@ def main() -> int:
     base = get_config("qwen3-4b")
     cfg = base.with_quant(mode="mlp", scheme="tp-aware", backend="auto")
     engine, serve = phase_serve(cfg, "dequant_matmul_ordered")
-    trace = phase_trace(engine, {"K1": _is_k1, "split-add": _is_split_add})
+    trace = phase_trace(engine, {"K1": _is_k1, "split-add": _is_split_add},
+                        expect={"K1": LAUNCHES_PER_STEP})
+    k1 = trace["kernels"]["K1"]["launches_per_step"]
+    if k1 != LAUNCHES_PER_STEP:
+        raise AssertionError(f"captured decode step: {k1} K1 kernels per "
+                             f"step on the device, expected 108")
+    capture = phase_capture(engine, cfg, serve)
     cross = phase_crosscheck(engine, cfg)
     naive_cfg = base.with_quant(mode="mlp", scheme="naive-actorder",
                                 backend="cuda")
@@ -1596,6 +1752,7 @@ def main() -> int:
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"nvidia_smi": smi, "build": build, "check": checks,
                    "timing": timing, "serve": serve, "trace": trace,
+                   "capture": capture,
                    "crosscheck": cross, "serve_naive": serve_naive,
                    "trace_naive": trace_naive,
                    "scheme_crosscheck": scheme_cross,

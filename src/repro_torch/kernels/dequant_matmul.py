@@ -422,6 +422,9 @@ def dequant_matmul_wire_ordered(
     stream (``torch.cuda.graph``'s shared capture stream, where none is
     named) must not be replayed concurrently with each other or with
     eager calls on that stream: capture each such graph on its own stream.
+    The engine's captured decode step (``runtime/serve.py``) holds no K3
+    call: it is captured at tp=1 only, and K3 runs at tp > 1, whose step
+    stays eager.
     """
     if wire_bits not in (4, 8):
         raise ValueError(f"wire_bits must be 4 or 8, got {wire_bits}")

@@ -18,6 +18,29 @@ from repro_torch.kernels import dequant_matmul as dk
 from repro_torch.kernels import flash_attention as fa
 
 
+#: every kernel wrapper's launch counter, as (wrapper, attribute)
+COUNTERS = ((dk.dequant_matmul_ordered, "launches"),
+            (dk.dequant_matmul_ordered, "tensor_core_launches"),
+            (dk.dequant_matmul_gidx, "launches"),
+            (dk.dequantize_ordered, "launches"),
+            (dk.dequant_matmul_wire_ordered, "launches"),
+            (fa.flash_attention, "launches"))
+
+
+def launch_counts() -> tuple[int, ...]:
+    """The launch counters' values, in ``COUNTERS`` order."""
+    return tuple(getattr(fn, attr) for fn, attr in COUNTERS)
+
+
+def add_launch_counts(counts) -> None:
+    """Add ``counts`` (in ``COUNTERS`` order) to the launch counters.  A
+    wrapper counts when the host runs it, so a CUDA graph counts once, at
+    its capture; its owner adds the capture's counts at each replay, which
+    launches those kernels again."""
+    for (fn, attr), n in zip(COUNTERS, counts, strict=True):
+        setattr(fn, attr, getattr(fn, attr) + n)
+
+
 # The two public GEMM entries share this body rather than call each other:
 # the reference's AST lint (rule AS002 of repro.analysis) reads a call of
 # a function named ``dequant_matmul`` outside repro/kernels/ as a registry

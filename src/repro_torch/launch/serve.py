@@ -83,6 +83,7 @@ def _serve(args, device, group=None, transport="1 device"):
         f"{policy.collective.shorthand()} mesh={policy.mesh.shorthand()} "
         f"({transport}) "
         f"device={device} in-memory plan]")
+    lines.append(f"decode step: {engine.decode_mode}")
     return {rid: r.output for rid, r in done.items()}, lines
 
 

@@ -183,8 +183,9 @@ def _sdpa(q, k, v, mask):
     scores = torch.einsum("bshd,bthd->bhst", q, k) / (d ** 0.5)
     scores = scores.to(torch.float32)
     if mask is not None:
-        scores = torch.where(mask[:, None], scores,
-                             torch.tensor(-1e30, device=scores.device))
+        # a Python scalar, not a host-built tensor: no copy from host
+        # memory, so the decode step can be captured in a CUDA graph
+        scores = torch.where(mask[:, None], scores, -1e30)
     w = torch.softmax(scores, dim=-1).to(q_dtype)
     w, v = promoted(w, v)
     return torch.einsum("bhst,bthd->bshd", w, v).reshape(b, s, h * d)
@@ -271,8 +272,14 @@ def attention_decode(cfg: ModelConfig, p, x, cache, pos, *, window=None,
     x: (B, 1, d); cache: {"k", "v": (B, C, KV, D)}; pos: an int (all rows
     in lockstep) or a (B,) tensor of per-slot positions.  The new token's
     K/V are written **in place** into ``cache`` (the reference returns a
-    new cache; updating in place keeps one copy on the card).  Returns
+    new cache; updating in place keeps one copy on the card, and is the
+    counterpart of the reference's ``donate_argnums``).  Returns
     (out, cache).
+
+    The per-slot path builds nothing on the host and never reads a
+    position back, so a CUDA graph can hold it (``Engine.decode``); the
+    lockstep path bakes ``int(pos)`` into the step and is run eagerly.
+    Both give the same bits for the same positions.
     """
     b = x.shape[0]
     hd = cfg.head_dim
@@ -286,8 +293,10 @@ def attention_decode(cfg: ModelConfig, p, x, cache, pos, *, window=None,
         q = rms_head_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_head_norm(k, p["k_norm"], cfg.norm_eps)
     if cfg.use_rope:
+        # (B, 1) on both paths: rope broadcasts them alike, so a lockstep
+        # step gives the bits of the same step on per-slot positions
         posv = (pos[:, None] if per_slot
-                else torch.full((1,), int(pos), device=x.device))
+                else torch.full((b, 1), int(pos), device=x.device))
         q = rope(q, posv, cfg.rope_theta)
         k = rope(k, posv, cfg.rope_theta)
 
@@ -303,8 +312,8 @@ def attention_decode(cfg: ModelConfig, p, x, cache, pos, *, window=None,
         cv[:, int(slot)] = v[:, 0].to(cv.dtype)
 
     j = torch.arange(cap, device=x.device)[None, :]
-    pb = pos[:, None] if per_slot else torch.tensor(
-        [[int(pos)]], device=x.device)
+    pb = (pos[:, None] if per_slot
+          else torch.full((1, 1), int(pos), device=x.device))
     valid = j <= pb
     if window is not None:
         # ring buffer: once pos >= cap every slot holds a live position

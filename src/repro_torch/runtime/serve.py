@@ -8,16 +8,26 @@ reference does, so prompt and generation share one numeric path.
 ``prefill_logits``), whose attention ``attn_backend`` picks.  Batching
 across requests is the scheduler's job (``runtime/scheduler.py``).
 
+The reference jits its decode step once (``jax.jit(decode,
+donate_argnums=1)``) and replays that program for every token.  The
+port's counterpart is a CUDA graph: on the card, ``Engine.decode``
+captures the step once per batch size and replays it, writing into the
+cache in place as the donated buffers let XLA do.  ``decode_eager`` is the
+step run op by op; it is what the CPU runs, and what tp > 1 runs.
+
 Under tensor parallelism every rank runs its own ``Engine`` over its
 slices of the params with the ranks' process group (``group``); the
 logits are gathered whole on every rank, so every rank samples the same
 tokens from identically seeded generators.  The policy's ``mesh`` names
-the TP degree the plan was made for, and it must be the group's.
+the TP degree the plan was made for, and it must be the group's.  With a
+group the step stays eager: the collectives go through gloo and host
+memory (``launch/mesh.py``), which a CUDA graph cannot hold.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Optional
 
 import torch
@@ -26,8 +36,40 @@ from repro_torch.comm import dispatch as comm
 from repro_torch.core.policy import ExecutionPolicy
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.dist.topology import MeshPlan
+from repro_torch.kernels import ops
 from repro_torch.models.registry import Model, build_model
 from repro_torch.runtime import sampling
+
+
+@dataclasses.dataclass
+class StepGraph:
+    """One captured decode step: the CUDA graph, the static buffers every
+    replay reads and writes, the cache it writes into, and what its
+    capture counted and cost."""
+
+    graph: Any                  # torch.cuda.CUDAGraph
+    cache: tuple                # _cache_key of the cache it writes into
+    tokens: torch.Tensor        # (B,) int64, read by each replay
+    pos: torch.Tensor           # (B,) int64, read by each replay
+    logits: torch.Tensor        # (B, V) float32, written by each replay
+    launches: tuple             # ops.launch_counts() of one replay
+    seconds: float              # wall time of the capture
+    pool_bytes: int             # device memory the capture reserved
+
+
+def _cache_key(cache) -> tuple:
+    """Where a cache's tensors live: a graph writes into these addresses."""
+    return tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
+                 for t in (cache["k"], cache["v"]))
+
+
+def _fill_positions(buf: torch.Tensor, pos) -> None:
+    """Write ``pos`` (an int for every slot, or a (B,) tensor) into the
+    (B,) buffer ``buf`` on the card, with no copy from the host."""
+    if torch.is_tensor(pos):
+        buf.copy_(pos.expand(buf.shape))
+    else:
+        buf.fill_(int(pos))
 
 
 @dataclasses.dataclass
@@ -47,6 +89,13 @@ class Engine:
     # The process group of the TP ranks (``launch/mesh.py``); None runs on
     # one device.  ``params`` are then this rank's slices.
     group: Any = None
+    #: the captured decode steps by batch size (``decode`` on the card)
+    graphs: dict = dataclasses.field(default_factory=dict, init=False,
+                                     repr=False)
+    #: decode-step captures so far: one per batch size, and one more each
+    #: time a batch size's cache moves
+    captures: int = dataclasses.field(default=0, init=False)
+    _stream: Any = dataclasses.field(default=None, init=False, repr=False)
 
     def __post_init__(self):
         self.device = torch.device(self.device)
@@ -73,12 +122,90 @@ class Engine:
                                   attn_backend=self.attn_backend,
                                   group=self.group)
 
+    @property
+    def decode_mode(self) -> str:
+        """How ``decode`` runs the step, as the serve banner names it."""
+        if self.group is not None:
+            backend = torch.distributed.get_backend(self.group)
+            return f"eager (tp={self.tp} over {backend})"
+        if self.device.type != "cuda":
+            return f"eager ({self.device.type})"
+        return f"CUDA graph, {self.captures} captures"
+
     @torch.inference_mode()
     def decode(self, cache, tokens: torch.Tensor, pos):
-        """One decode step: tokens (B,), pos int or (B,) -> (logits, cache)."""
+        """One decode step: tokens (B,), pos int or (B,) -> (logits, cache).
+        The cache is updated in place; the logits are the caller's own.
+
+        On the card with one rank this replays the step's CUDA graph, the
+        counterpart of the reference's jitted step, bit-equal to
+        ``decode_eager``.  The graph is captured at the first call of a
+        batch size, and again when that batch size's cache is at other
+        addresses; a capturing call runs its step eagerly first on the
+        capture stream (the kernels build at first use, cuBLAS makes its
+        handle and workspace) and returns that step's logits.  A capture
+        or a replay that fails raises.  On the CPU, and with a TP group
+        (gloo through host memory, which no graph can hold), this is
+        ``decode_eager``.
+        """
+        if self.device.type != "cuda" or self.group is not None:
+            return self.decode_eager(cache, tokens, pos)
+        step = self.graphs.get(tokens.shape[0])
+        if step is None or step.cache != _cache_key(cache):
+            return self._capture(cache, tokens, pos)
+        step.tokens.copy_(tokens)
+        _fill_positions(step.pos, pos)
+        step.graph.replay()
+        ops.add_launch_counts(step.launches)
+        return step.logits.clone(), cache
+
+    @torch.inference_mode()
+    def decode_eager(self, cache, tokens: torch.Tensor, pos):
+        """The decode step run op by op (the reference's un-jitted
+        ``decode``): tokens (B,), pos int or (B,) -> (logits, cache)."""
         return self.model.decode_step(self.params, cache, tokens, pos,
                                       self.policy, window=self.window,
                                       group=self.group)
+
+    def _capture(self, cache, tokens: torch.Tensor, pos):
+        """Run this call's step eagerly on the capture stream, capture the
+        step on per-slot positions (the path that reads its positions from
+        the card) for this batch size and cache, and return the eager
+        step's result.  The capture's launch counts are taken back, since
+        it launched nothing, and each replay adds them."""
+        dev = self.device
+        b = tokens.shape[0]
+        self.graphs.pop(b, None)            # its graph and pool go first
+        static_tokens = torch.empty(b, dtype=torch.int64, device=dev)
+        static_pos = torch.empty(b, dtype=torch.int64, device=dev)
+        static_tokens.copy_(tokens)
+        _fill_positions(static_pos, pos)
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(dev)
+        current = torch.cuda.current_stream(dev)
+        self._stream.wait_stream(current)
+        with torch.cuda.stream(self._stream):
+            logits, _ = self.decode_eager(cache, static_tokens, static_pos)
+        logits.record_stream(current)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        graph = torch.cuda.CUDAGraph()
+        counts = ops.launch_counts()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph, stream=self._stream):
+            static_logits, _ = self.decode_eager(cache, static_tokens,
+                                                 static_pos)
+        seconds = time.perf_counter() - t0
+        launches = tuple(a - c for a, c in zip(ops.launch_counts(), counts))
+        ops.add_launch_counts(-n for n in launches)
+        self.graphs[b] = StepGraph(
+            graph=graph, cache=_cache_key(cache), tokens=static_tokens,
+            pos=static_pos, logits=static_logits, launches=launches,
+            seconds=seconds,
+            pool_bytes=torch.cuda.memory_reserved(dev) - reserved)
+        self.captures += 1
+        return logits, cache
 
     @torch.inference_mode()
     def prefill(self, tokens: torch.Tensor, cache, prompt_len: torch.Tensor):

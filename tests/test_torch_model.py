@@ -133,6 +133,27 @@ def test_decode_steps_match_jax(carried):
         assert err <= REL_TOL * np.abs(ref).max(), (t, err)
 
 
+def test_per_slot_decode_matches_jax_jitted_step(carried):
+    """The port's step on unequal per-slot positions (the path the CUDA
+    graph captures) against the reference's jitted ``Engine._decode``."""
+    jeng, teng = carried
+    offsets = np.array([0, 3, 7], np.int32)
+    steps = 10
+    toks = np.random.default_rng(7).integers(
+        0, teng.model.cfg.vocab_size, (len(offsets), steps)).astype(np.int32)
+    jcache = jeng.init_cache(len(offsets))
+    tcache = teng.init_cache(len(offsets))
+    for t in range(steps):
+        pos = offsets + t
+        ref, jcache = jeng._decode(jeng.params, jcache,
+                                   jnp.asarray(toks[:, t]), jnp.asarray(pos))
+        got, tcache = teng.decode(tcache, torch.from_numpy(toks[:, t]).long(),
+                                  torch.from_numpy(pos).long())
+        ref = np.asarray(ref)
+        err = np.abs(got.numpy() - ref).max()
+        assert err <= REL_TOL * np.abs(ref).max(), (t, err)
+
+
 def test_forward_matches_jax(carried):
     jeng, teng = carried
     toks = np.random.default_rng(2).integers(

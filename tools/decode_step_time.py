@@ -5,12 +5,11 @@
 
 Builds the full-width qwen3-4b ``tp-aware`` engine from seed 0 on the
 card, as ``chip_smoke.py``'s serve phase does, and runs 4-slot decode
-steps at cache position 24 onwards (``Engine.decode``, eager, as the
-scheduler calls it).  Each round times ``--steps`` steps with the host
-clock, ending in a synchronize.  Prints each round's ms per step, their
-median, the card's name and power limit.  The step is bound by the host
-issuing its kernels (``PERF.md`` §5), so compare two trees only within
-one call, in turns.
+steps at cache position 24 onwards (``Engine.decode``, as the scheduler
+calls it: on the card, replays of the captured step).  Each round times
+``--steps`` steps with the host clock, ending in a synchronize.  Prints
+each round's ms per step, their median, the card's name and power
+limit.  Compare two trees only within one call, in turns.
 """
 
 from __future__ import annotations
@@ -56,7 +55,7 @@ def main() -> int:
             engine.decode(cache, tokens, pos + i)
         torch.cuda.synchronize()
 
-    steps(3)                                  # builds the kernels, warms up
+    steps(3)                      # builds the kernels, captures, warms up
     rounds = []
     for _ in range(args.rounds):
         t0 = time.perf_counter()
@@ -66,7 +65,8 @@ def main() -> int:
           + ", ".join(f"{r:.2f}" for r in rounds))
     print(f"median {statistics.median(rounds):.2f} ms per step "
           f"({args.rounds} rounds of {args.steps} steps, 4 slots, full "
-          f"width, tp-aware, {engine.policy.backend})")
+          f"width, tp-aware, {engine.policy.backend}; decode step: "
+          f"{engine.decode_mode})")
     print(f"nvidia-smi: {smi}")
     return 0
 
