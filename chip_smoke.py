@@ -83,6 +83,19 @@ Phases, one line each:
      against ``quant-int8`` and ``quant-int4:fused`` against
      ``quant-int4`` (logits bit-identical on every rank, ids equal), and
      ``psum`` at tp=2 against the tp=1 engine of phase 5 (ids equal)
+ 16. artifact: the tp=1 tp-aware plan prepared from seed 0 on the card
+     (``compiler.prepare``), saved to a temporary directory (its bytes
+     reckoned first against the free disk), and served by a fresh
+     ``make_engine(artifact=DIR)``: phase 5's four requests give the same
+     ids, every decode step a replay of the captured step launching K1
+     108 times, and greedy logits over 8 steps bit-equal to phase 5's
+     in-memory engine; bytes on disk and the seconds to prepare, save
+     and load
+ 17. artifact-tp: the tp=2 ``quant-int8:fused`` plan prepared and saved
+     as two rank files; two rank processes each read only their own
+     (``RankLoadStats``: resident fraction below 1), serve the four
+     requests (36 K3 and 72 K1 launches a decode step per rank; the ids
+     of phase 14) and give phase 14's greedy ids and logits bit for bit
 
 then the per-kernel JSON line, the card's nvidia-smi line and, as the
 last line, ``{"ok": true, "device": {...}}``.  Every path runs with the
@@ -99,9 +112,11 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -119,9 +134,11 @@ from repro_torch.kernels import dequant_matmul as dk  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import mesh  # noqa: E402
+from repro_torch.plan import compiler  # noqa: E402
 from repro_torch.runtime.sampling import SamplingConfig  # noqa: E402
 from repro_torch.runtime.scheduler import Request, Scheduler  # noqa: E402
 from repro_torch.runtime.serve import Engine, make_engine  # noqa: E402
+from repro_torch.train import checkpoint  # noqa: E402
 
 #: H100 SXM data-sheet peaks (dense): HBM bytes/s, float32 FLOP/s outside
 #: the tensor cores (the GEMM kernels' float32 policy uses plain FMA), and
@@ -1509,7 +1526,7 @@ def phase_dequantize(engine) -> dict:
 
 
 def _serve_tp_rank(ctx, cfg, greedy_tokens, greedy_plen) -> dict:
-    """One rank of phases 13 and 14: build this rank's slices of the
+    """One rank of phases 14 and 15: build this rank's slices of the
     full-width plan, serve the four requests under ``TP_SERVE`` with the
     launch counts set to 0 just before and read just after, trace a few
     decode steps (rank 0), then the greedy traces of the cross-check on
@@ -1556,10 +1573,11 @@ def _serve_tp_rank(ctx, cfg, greedy_tokens, greedy_plen) -> dict:
     return out
 
 
-def phase_serve_tp(cfg, tp1_engine) -> tuple[dict, dict]:
-    """Phases 13 and 14 on ``TP`` rank processes; the tp=1 reference of
+def phase_serve_tp(cfg, tp1_engine) -> tuple[dict, dict, list]:
+    """Phases 14 and 15 on ``TP`` rank processes; the tp=1 reference of
     the psum cross-check is ``tp1_engine`` (the same seed, so the same
-    plan before sharding)."""
+    plan before sharding).  Also returns each rank's greedy trace under
+    ``TP_SERVE``, the reference of phase 17."""
     rng = np.random.default_rng(1)
     greedy_tokens = rng.integers(0, cfg.vocab_size, (2, 12))
     greedy_plen = np.array([12, 9])
@@ -1581,7 +1599,8 @@ def phase_serve_tp(cfg, tp1_engine) -> tuple[dict, dict]:
             for o in ranks[0]["outputs"].values()):
         raise AssertionError(f"requests incomplete: {ranks[0]['outputs']}")
     r0 = ranks[0]
-    serve = {"transport": r0["transport"], "collective": r0["collective"],
+    serve = {"outputs": r0["outputs"],
+             "transport": r0["transport"], "collective": r0["collective"],
              "decode_mode": r0["decode_mode"],
              "tokens": r0["tokens"], "decode_steps": steps,
              "tokens_per_s": [r["tokens"] / r["run_s"] for r in ranks],
@@ -1640,7 +1659,218 @@ def phase_serve_tp(cfg, tp1_engine) -> tuple[dict, dict]:
     line("tp-crosscheck", "greedy 2 prompts x 8 tokens on both ranks: "
          "quant-int8:fused vs quant-int8 and quant-int4:fused vs quant-int4 "
          "logits bit-identical and ids equal on every rank; " + text)
-    return serve, cross
+    return serve, cross, [r["traces"][TP_SERVE] for r in ranks]
+
+
+def _artifact_dir(trees) -> tuple[str, int]:
+    """A fresh temporary directory for the artifact of ``trees`` and the
+    bytes its leaves hold, reckoned before any is written; raises when
+    the disk has not that much room (and 1 GiB more) free."""
+    nbytes = sum(t.nbytes for tree in trees
+                 for t in checkpoint.flatten_keys(tree).values())
+    path = tempfile.mkdtemp(prefix="artifact-")
+    free = shutil.disk_usage(path).free
+    if free < nbytes + 2**30:
+        shutil.rmtree(path)
+        raise AssertionError(f"artifact: {free / 2**30:.1f} GiB free under "
+                             f"{path}, the artifact needs "
+                             f"{nbytes / 2**30:.1f} GiB")
+    return path, nbytes
+
+
+def _prepare_and_save(cfg, tp: int, phase: str):
+    """Prepare ``cfg``'s plan for ``tp`` ranks from seed 0 on the card and
+    save it: (directory, reckoned bytes, {file: bytes}, seconds to
+    prepare, seconds to save, the card's peak allocated bytes during the
+    prepare, earlier phases' engines included).  The caller removes the
+    directory."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    art = compiler.prepare(cfg, tp=tp, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if art.manifest["policy"]["backend"] != "pallas":
+        raise AssertionError(f"{phase}: prepared for backend "
+                             f"{art.manifest['policy']['backend']!r}")
+    path, nbytes = _artifact_dir(art.rank_params)
+    try:
+        t0 = time.perf_counter()
+        art.save(path)
+        save_s = time.perf_counter() - t0
+    except BaseException:
+        shutil.rmtree(path, ignore_errors=True)
+        raise
+    del art
+    torch.cuda.empty_cache()
+    files = {f: os.path.getsize(os.path.join(path, f))
+             for f in sorted(os.listdir(path))}
+    return path, nbytes, files, prepare_s, save_s, peak
+
+
+def phase_artifact(cfg, engine, serve: dict) -> dict:
+    """Phase 16: prepare once, save, serve from the files at tp=1."""
+    path, nbytes, files, prepare_s, save_s, peak = _prepare_and_save(
+        cfg, 1, "artifact")
+    try:
+        t0 = time.perf_counter()
+        served = make_engine(cfg, device="cuda", max_seq=engine.max_seq,
+                             artifact=path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(path)
+    if served.policy != engine.policy:
+        raise AssertionError(f"artifact: the engine serves {served.policy}, "
+                             f"the in-memory one {engine.policy}")
+    sched = Scheduler(served, max_batch=4, prompt_budget=32,
+                      scfg=SamplingConfig(temperature=0.8, top_k=40), seed=0)
+    _submit_requests(sched, cfg)
+    reset_counts()
+    done, dt, step_ms = _run_steps(sched)
+    counts = read_counts()
+    steps = sched.steps
+    expect_counts(counts, {"dequant_matmul_ordered": LAUNCHES_PER_STEP
+                           * steps}, f"artifact ({steps} decode steps)")
+    outputs = {k: r.output for k, r in sorted(done.items())}
+    if outputs != serve["outputs"]:
+        raise AssertionError(f"artifact: ids {outputs} differ from phase "
+                             f"5's {serve['outputs']}")
+    if served.captures != 1:
+        raise AssertionError(f"artifact: {served.captures} captures of the "
+                             f"decode step, expected 1 (batch 4)")
+    decode_mode = served.decode_mode
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 12))).cuda()
+    plen = torch.tensor([12, 9], device="cuda")
+    ids_a, lg_a = _greedy_trace(served, toks, plen, 8)
+    ids_m, lg_m = _greedy_trace(engine, toks, plen, 8)
+    if not (torch.equal(ids_a, ids_m) and torch.equal(lg_a, lg_m)):
+        raise AssertionError(f"artifact: greedy logits not bit-equal to the "
+                             f"in-memory engine's (max gap "
+                             f"{(lg_a - lg_m).abs().max().item():.3g})")
+    out = {"reckoned_bytes": nbytes, "file_bytes": files,
+           "disk_bytes": sum(files.values()), "prepare_s": prepare_s,
+           "prepare_peak_bytes": peak,
+           "save_s": save_s, "load_s": load_s, "run_s": dt,
+           "decode_steps": steps, "counts": counts,
+           "decode_mode": decode_mode, "first_step_ms": step_ms[0],
+           "steady_ms_per_step": statistics.median(step_ms[1:]),
+           "ids_equal": True, "greedy_logits_bit_equal": True}
+    line("artifact", f"qwen3-4b 36L tp-aware tp=1 prepared on the card in "
+                     f"{prepare_s:.2f}s (max_memory_allocated "
+                     f"{peak / 2**30:.2f} GiB), saved in {save_s:.2f}s "
+                     f"({out['disk_bytes'] / 1e9:.3f} GB on disk, "
+                     f"{nbytes / 1e9:.3f} GB of leaves), loaded by "
+                     f"make_engine(artifact=DIR) in {load_s:.2f}s; 4 "
+                     f"requests: ids equal to phase 5's, "
+                     f"dequant_matmul_ordered {counts['dequant_matmul_ordered']}"
+                     f" = 108 x {steps} (decode step: {decode_mode}; "
+                     f"first step {step_ms[0]:.1f} ms, then a median "
+                     f"{out['steady_ms_per_step']:.2f} ms); "
+                     f"greedy 2 prompts x 8 tokens: ids and logits "
+                     f"bit-equal to the in-memory engine")
+    del served, sched
+    torch.cuda.empty_cache()
+    return out
+
+
+def _artifact_tp_rank(ctx, cfg, path, greedy_tokens, greedy_plen) -> dict:
+    """One rank of phase 17: read this rank's file, serve the four
+    requests with the counts set to 0 just before and read just after,
+    then the greedy trace of phase 14's cross-check."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    engine = make_engine(cfg, device=ctx.device, max_seq=32 + 16 + 1,
+                         group=ctx.group, artifact=path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    sched = Scheduler(engine, max_batch=4, prompt_budget=32,
+                      scfg=SamplingConfig(temperature=0.8, top_k=40), seed=0)
+    _submit_requests(sched, cfg)
+    reset_counts()
+    t0 = time.perf_counter()
+    done = sched.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = read_counts()
+    ids, logits = _greedy_trace(engine, torch.from_numpy(greedy_tokens).to(
+        ctx.device), torch.from_numpy(greedy_plen).to(ctx.device), 8)
+    return {"rank": ctx.rank, "load_s": load_s, "run_s": run_s,
+            "stats": dataclasses.asdict(engine.load_stats),
+            "resident_fraction": engine.load_stats.resident_fraction,
+            "decode_steps": sched.steps, "counts": counts,
+            "collective": engine.policy.collective.shorthand(),
+            "outputs": {k: r.output for k, r in sorted(done.items())},
+            "trace": (ids.cpu(), logits.cpu())}
+
+
+def phase_artifact_tp(cfg, serve_tp: dict, tp_traces: list) -> dict:
+    """Phase 17: prepare at tp=2, save the rank files, and serve them on
+    two rank processes that each read only their own."""
+    tcfg = cfg.with_quant(collective=TP_SERVE)
+    path, nbytes, files, prepare_s, save_s, peak = _prepare_and_save(
+        tcfg, TP, "artifact-tp")
+    rng = np.random.default_rng(1)
+    greedy_tokens = rng.integers(0, cfg.vocab_size, (2, 12))
+    greedy_plen = np.array([12, 9])
+    try:
+        ranks = mesh.run(_artifact_tp_rank, TP, tcfg, path, greedy_tokens,
+                         greedy_plen, device_type="cuda", timeout=600)
+    finally:
+        shutil.rmtree(path)
+    for r in ranks:
+        steps = r["decode_steps"]
+        expect_counts(r["counts"], {
+            "dequant_matmul_wire_ordered": LAYERS * steps,
+            "dequant_matmul_ordered": 2 * LAYERS * steps},
+            f"artifact-tp rank {r['rank']} ({steps} decode steps)")
+        st = r["stats"]
+        if (tuple(st["ranks"]) != (r["rank"],) or st["file_bytes_loaded"]
+                != files[f"rank_{r['rank']:02d}.npz"]
+                or not r["resident_fraction"] < 1):
+            raise AssertionError(f"artifact-tp rank {r['rank']}: read "
+                                 f"{st}, expected its own file only")
+        if r["outputs"] != serve_tp["outputs"]:
+            raise AssertionError(f"artifact-tp rank {r['rank']}: ids "
+                                 f"{r['outputs']} differ from phase 14's")
+        (ia, la), (ib, lb) = r["trace"], tp_traces[r["rank"]]
+        if not (torch.equal(ia, ib) and torch.equal(la, lb)):
+            raise AssertionError(
+                f"artifact-tp rank {r['rank']}: greedy logits not bit-equal "
+                f"to phase 14's in-memory {TP_SERVE} (max gap "
+                f"{(la - lb).abs().max().item():.3g})")
+    r0 = ranks[0]
+    out = {"reckoned_bytes": nbytes, "file_bytes": files,
+           "disk_bytes": sum(files.values()), "prepare_s": prepare_s,
+           "prepare_peak_bytes": peak,
+           "save_s": save_s, "collective": r0["collective"],
+           "load_s": [r["load_s"] for r in ranks],
+           "run_s": [r["run_s"] for r in ranks],
+           "load_stats": [r["stats"] for r in ranks],
+           "resident_fraction": [r["resident_fraction"] for r in ranks],
+           "decode_steps": r0["decode_steps"],
+           "counts": [r["counts"] for r in ranks],
+           "ids_equal": True, "greedy_logits_bit_equal": True}
+    line("artifact-tp", "qwen3-4b 36L tp=2 {} prepared on the card in "
+         "{:.2f}s (max_memory_allocated {:.2f} GiB), saved in {:.2f}s as "
+         "two rank files ({} GB; {:.3f} GB of "
+         "leaves); each rank read only its own file, loaded in {} s: {}; "
+         "per rank dequant_matmul_wire_ordered {} = 36 x {} and "
+         "dequant_matmul_ordered {} = 72 x {}; the 4 requests' ids equal "
+         "phase 14's; greedy ids and logits bit-equal to phase 14's on "
+         "both ranks".format(
+             r0["collective"], prepare_s, peak / 2**30, save_s,
+             " + ".join(f"{b / 1e9:.3f}" for b in files.values()
+                        if b > 2**20), nbytes / 1e9,
+             "/".join(f"{s:.2f}" for s in out["load_s"]),
+             "; ".join(f"rank {r['rank']} resident_artifact_bytes="
+                       f"{r['stats']['file_bytes_loaded']}/"
+                       f"{r['stats']['file_bytes_total']} (fraction "
+                       f"{r['resident_fraction']:.4f})" for r in ranks),
+             r0["counts"]["dequant_matmul_wire_ordered"], r0["decode_steps"],
+             r0["counts"]["dequant_matmul_ordered"], r0["decode_steps"]))
+    return out
 
 
 def _entry(name, source, replaces, launches, max_abs_err, t: dict,
@@ -1709,7 +1939,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     forward = phase_forward_flash(engine, cfg)
     materialize = phase_dequantize(engine)
-    serve_tp, tp_cross = phase_serve_tp(cfg, engine)
+    serve_tp, tp_cross, tp_traces = phase_serve_tp(cfg, engine)
+    artifact = phase_artifact(cfg, engine, serve)
+    artifact_tp = phase_artifact_tp(cfg, serve_tp, tp_traces)
 
     src = "src/repro_torch/csrc/"
     tpu = "src/repro/kernels/"
@@ -1758,6 +1990,7 @@ def main() -> int:
                    "scheme_crosscheck": scheme_cross,
                    "forward_flash": forward, "dequantize": materialize,
                    "serve_tp": serve_tp, "tp_crosscheck": tp_cross,
+                   "artifact": artifact, "artifact_tp": artifact_tp,
                    "kernels": kernels,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(json.dumps({"kernels": kernels}))

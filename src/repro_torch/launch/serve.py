@@ -1,5 +1,7 @@
-"""Serving entry point of the port; port of ``repro/launch/serve.py``
-(the one-shot, in-memory lifecycle).
+"""Serving entry point of the port; port of ``repro/launch/serve.py`` (the
+one-shot lifecycle, and prepare-once / serve-many).
+
+* one-shot (the plan made in memory at startup):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
         [--smoke] [--scheme tp-aware] [--backend auto|cuda|torch|ref] \
@@ -7,11 +9,32 @@
         [--requests 8 --max-new 16 --prompt-budget 32 --max-batch 4 \
          --temperature 0.8 --seed 0] [--device cpu]
 
+* prepare once, serve many (the paper's a-priori plan, on disk):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve prepare \
+        --arch qwen3-4b --smoke --scheme tp-aware --tp 2 --out DIR \
+        [--collective quant-int8:fused --seed 0] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --artifact DIR \
+        [--tp 2] [--backend auto] [--requests 8 ...] [--device cpu]
+
+  ``prepare`` runs the plan compiler from the seed (quantize, lay out,
+  pre-shard for ``--tp`` ranks) and writes a ``DeploymentArtifact`` in
+  the reference's format.  Serving from it quantizes nothing: the
+  manifest is the plan (``--arch``, ``--smoke``, ``--scheme`` and
+  ``--collective`` are ignored), ``--tp`` defaults to the artifact's, and
+  the manifest is validated against the config, the policy and the TP
+  degree, so a mismatched plan refuses to serve.  ``--backend`` (default
+  auto: the CUDA kernels on the card for ordered layouts) is the port's
+  choice at load, whatever backend the manifest names
+  (``plan/artifact.py``).
+
 Runs on the CUDA card unless ``--device cpu`` is given; without a card it
 exits with an error naming the missing card.  ``--tp N`` spawns N rank
 processes (``launch/mesh.py``): each builds its slices of the plan from
-the same seed and runs the same scheduler, so all emit the same tokens;
-rank 0 prints the banner, which names the transport, and the results.
+the same seed, or reads only its own rank file of the artifact, and runs
+the same scheduler, so all emit the same tokens; rank 0 prints the
+banner, which names the transport, and the results, and under an
+artifact every rank's ``resident_artifact_bytes`` follow.
 """
 
 from __future__ import annotations
@@ -24,19 +47,22 @@ import torch
 
 from repro_torch.comm.spec import parse_collective
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.core.policy import ExecutionPolicy
 from repro_torch.core.reorder import SCHEMES
 from repro_torch.device import resolve_device
+from repro_torch.dist.topology import MeshPlan
 from repro_torch.launch import mesh
+from repro_torch.plan.artifact import DeploymentArtifact
 from repro_torch.runtime.sampling import SamplingConfig
 from repro_torch.runtime.scheduler import Request, Scheduler
 from repro_torch.runtime.serve import make_engine
 
 
-def _build_cfg(args):
+def _build_cfg(args, backend: str = "auto"):
     cfg = (get_smoke_config(args.arch) if args.smoke
            else get_config(args.arch))
-    return cfg.with_quant(mode="mlp", scheme=args.scheme,
-                          backend=args.backend, collective=args.collective)
+    return cfg.with_quant(mode="mlp", scheme=args.scheme, backend=backend,
+                          collective=args.collective)
 
 
 def _collective(value: str) -> str:
@@ -47,13 +73,82 @@ def _collective(value: str) -> str:
     return value
 
 
+def _plan_args(ap: argparse.ArgumentParser):
+    ap.add_argument("--arch", default="qwen3-4b", choices=ARCH_IDS)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--scheme", default="tp-aware", choices=SCHEMES)
+    ap.add_argument("--collective", default="psum", type=_collective,
+                    help="row-TP epilogue: psum, psum_scatter, cast[:dtype], "
+                         "quant-int8[:block][:fused], "
+                         "quant-int4[:block][:fused], none, or a "
+                         "'per-layer:<glob>=<spec>,...' plan")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+
+
+def _device(args) -> torch.device:
+    try:
+        return resolve_device(args.device)
+    except RuntimeError as e:
+        raise SystemExit(f"error: {e}") from None
+
+
+def prepare(argv=None) -> str:
+    """Offline compile: write a ``DeploymentArtifact`` directory."""
+    from repro_torch.plan import compiler
+
+    ap = argparse.ArgumentParser(prog="repro_torch.launch.serve prepare")
+    _plan_args(ap)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="TP degree the rank files are split for (serving "
+                         "must use the same)")
+    ap.add_argument("--out", required=True, help="artifact directory")
+    args = ap.parse_args(argv)
+    device = _device(args)
+    cfg = _build_cfg(args)
+    policy = ExecutionPolicy.from_config(cfg, device=device).with_(
+        mesh=MeshPlan(tp=args.tp))
+    t0 = time.perf_counter()
+    art = compiler.prepare(cfg, tp=args.tp, seed=args.seed, policy=policy,
+                           extra_manifest={"smoke": bool(args.smoke)},
+                           device=device)
+    path = art.save(args.out)
+    print(f"prepared {args.arch} (scheme={args.scheme} "
+          f"collective={art.manifest['policy']['collective']} "
+          f"mesh={policy.mesh.shorthand()} tp={args.tp}) -> {path}: "
+          f"{len(art.manifest['pairs'])} planned pair(s), "
+          f"{len(art.manifest['leaf_shards'])} leaves, "
+          f"{time.perf_counter() - t0:.1f}s on {device}")
+    return path
+
+
+def _artifact_plan(args, device):
+    """(cfg, policy) of the artifact at ``args.artifact``: the manifest's
+    arch and quant config, its plan at ``args.tp`` ranks, served by the
+    backend ``--backend`` picks for ``device``."""
+    art = DeploymentArtifact(
+        manifest=DeploymentArtifact.load_manifest(args.artifact))
+    man = art.manifest
+    cfg = (get_smoke_config(man["arch_id"]) if man.get("smoke")
+           else get_config(man["arch_id"]))
+    cfg = cfg.with_quant(**man["quant"])
+    policy = art.policy(backend=args.backend, device=device).with_(
+        mesh=MeshPlan(tp=args.tp))
+    return cfg, policy
+
+
 def _serve(args, device, group=None, transport="1 device"):
     """Build the engine (this rank's slices under TP), serve the seeded
-    requests, and return what rank 0 prints."""
-    cfg = _build_cfg(args)
+    requests, and return (ids by request, the lines rank 0 prints, this
+    rank's artifact ledger or None)."""
+    if args.artifact:
+        cfg, policy = _artifact_plan(args, device)
+    else:
+        cfg, policy = _build_cfg(args, args.backend), None
     max_seq = args.prompt_budget + args.max_new + 1
     engine = make_engine(cfg, args.seed, device=device, max_seq=max_seq,
-                         group=group)
+                         policy=policy, group=group, artifact=args.artifact)
     policy = engine.policy
     sched = Scheduler(engine, max_batch=args.max_batch,
                       prompt_budget=args.prompt_budget,
@@ -76,15 +171,21 @@ def _serve(args, device, group=None, transport="1 device"):
     total_new = sum(len(r.output) for r in done.values())
     lines = [f"req {rid}: prompt {len(r.prompt):3d} -> {r.output[:8]}..."
              for rid, r in sorted(done.items())]
+    source = f"artifact={args.artifact}" if args.artifact else \
+        "in-memory plan"
     lines.append(
         f"\n{len(done)} requests, {total_new} tokens in {dt:.1f}s "
         f"({total_new / dt:.1f} tok/s) [scheme={policy.scheme} "
         f"backend={policy.backend} collective="
         f"{policy.collective.shorthand()} mesh={policy.mesh.shorthand()} "
         f"({transport}) "
-        f"device={device} in-memory plan]")
+        f"device={device} {source}]")
     lines.append(f"decode step: {engine.decode_mode}")
-    return {rid: r.output for rid, r in done.items()}, lines
+    st = engine.load_stats
+    resident = None if st is None else (
+        f"resident_artifact_bytes={st.file_bytes_loaded}/"
+        f"{st.file_bytes_total} ranks={list(st.ranks)}")
+    return {rid: r.output for rid, r in done.items()}, lines, resident
 
 
 def _serve_rank(ctx, args):
@@ -93,43 +194,47 @@ def _serve_rank(ctx, args):
 
 
 def main(argv=None):
+    import sys
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] == "prepare":
+        return prepare(argv[1:])
     ap = argparse.ArgumentParser(prog="repro_torch.launch.serve")
-    ap.add_argument("--arch", default="qwen3-4b", choices=ARCH_IDS)
-    ap.add_argument("--smoke", action="store_true")
-    ap.add_argument("--scheme", default="tp-aware", choices=SCHEMES)
+    _plan_args(ap)
     ap.add_argument("--backend", default="auto",
                     choices=["auto", "cuda", "torch", "ref"],
                     help="dequant-GEMM kernel (cuda: the hand-written "
                          "kernels, for ordered layouts and for "
                          "naive-actorder's g_idx layout; auto: cuda for "
                          "ordered layouts on the card, else torch)")
+    ap.add_argument("--artifact", default=None,
+                    help="serve a prepared DeploymentArtifact directory "
+                         "(its manifest is the plan: --arch, --smoke, "
+                         "--scheme and --collective are ignored)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--prompt-budget", type=int, default=32)
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--temperature", type=float, default=0.8)
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--device", default=None,
-                    help="torch device (default: the CUDA card)")
-    ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel ranks, one process each")
-    ap.add_argument("--collective", default="psum", type=_collective,
-                    help="row-TP epilogue: psum, psum_scatter, cast[:dtype], "
-                         "quant-int8[:block][:fused], "
-                         "quant-int4[:block][:fused], none, or a "
-                         "'per-layer:<glob>=<spec>,...' plan")
+    ap.add_argument("--tp", type=int, default=None,
+                    help="tensor-parallel ranks, one process each "
+                         "(default: the artifact's, else 1)")
     args = ap.parse_args(argv)
 
-    try:
-        device = resolve_device(args.device)
-    except RuntimeError as e:
-        raise SystemExit(f"error: {e}") from None
+    device = _device(args)
+    if args.tp is None:
+        args.tp = (DeploymentArtifact.load_manifest(args.artifact)["tp"]
+                   if args.artifact else 1)
     if args.tp > 1:
-        outputs, lines = mesh.run(_serve_rank, args.tp, args,
-                                  device_type=device.type)[0]
+        results = mesh.run(_serve_rank, args.tp, args,
+                           device_type=device.type)
     else:
-        outputs, lines = _serve(args, device)
+        results = [_serve(args, device)]
+    outputs, lines, _ = results[0]
     print("\n".join(lines))
+    for r, (_, _, resident) in enumerate(results):
+        if resident is not None:
+            print(f"rank {r}: {resident}")
     return outputs
 
 

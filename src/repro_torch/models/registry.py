@@ -12,8 +12,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.policy import ExecutionPolicy
-from repro_torch.device import DeviceLike, derive_seed, new_generator, \
-    resolve_device
+from repro_torch.device import DeviceLike, new_generator, resolve_device
 from repro_torch.models import transformer
 
 _FAMILY_MODULES = {"dense": transformer}
@@ -37,8 +36,7 @@ class Model:
 
         dev = resolve_device(device)
         gen = new_generator(seed, dev)
-        plan_gen = new_generator(
-            derive_seed(seed, compiler.PLAN_RNG_STREAM), dev)
+        plan_gen = compiler.plan_generator(seed, dev)
         quantized = self.cfg.quant.mode == "mlp"
 
         def stage(key, node):

@@ -1,7 +1,8 @@
-"""Offline plan compiler, in-memory stages; port of
-``repro/plan/compiler.py`` (``stage_quantize``, ``stage_layout``,
-``compile_params``, ``_pair_group_sizes``, ``shard_params``,
-``stage_shard``).
+"""Offline plan compiler; port of ``repro/plan/compiler.py``
+(``stage_quantize``, ``stage_layout``, ``compile_params``,
+``_pair_group_sizes``, ``shard_params``, ``stage_shard``,
+``compile_plan``, ``prepare``; not yet the collective tuner or the
+attention fold).
 
 The stages walk a raw param tree and replace every MLP weight dict
 (``{"w_up", "w_down"[, "w_gate"]}``) first by a scheme-agnostic
@@ -9,7 +10,10 @@ The stages walk a raw param tree and replace every MLP weight dict
 ``stage_shard`` then keeps one TP rank's slices, as the model's
 ``param_specs`` name them.  ``Model.init`` runs the stages one layer at a
 time, so neither the raw f32 MLP weights nor the unsharded plan of all
-layers ever sit in memory together.
+layers ever sit in memory together.  ``compile_plan`` runs them over a
+whole raw tree, shards it for every rank and freezes the result as a
+``DeploymentArtifact``; ``prepare`` does so from a seed, and its rank
+``r`` is ``Model.init(seed, tp=tp, rank=r)`` bit for bit.
 """
 
 from __future__ import annotations
@@ -21,13 +25,23 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import reorder
+from repro_torch.core.policy import ExecutionPolicy
 from repro_torch.core.quantization import choose_group_size
 from repro_torch.core.quantization import QuantizedLinear
 from repro_torch.core.reorder import PairBundle, PlannedPair
-from repro_torch.device import new_generator
+from repro_torch.device import (DeviceLike, derive_seed, new_generator,
+                                resolve_device)
+from repro_torch.dist.topology import MeshPlan
 
 #: seed part separating the quantization stream from the init stream
 PLAN_RNG_STREAM = 0x504C414E  # "PLAN"
+
+
+def plan_generator(seed: int, device=None) -> torch.Generator:
+    """The generator of the act-order processing orders for ``seed``:
+    with the init generator ``new_generator(seed)``, the definition of
+    "the same seed" that makes ``prepare`` equal ``Model.init``."""
+    return new_generator(derive_seed(seed, PLAN_RNG_STREAM), device)
 
 
 def _is_mlp_dict(node: Any) -> bool:
@@ -95,14 +109,14 @@ def compile_params(cfg: ModelConfig, raw_params: Any, *,
 def _slice_leaf(t: torch.Tensor, dim: Optional[int], tp: int, rank: int,
                 key: str) -> torch.Tensor:
     """Rank ``rank``'s 1/tp slice of ``t`` along ``dim``; the whole leaf
-    when ``dim`` is None (replicated).
+    when ``dim`` is None (replicated) or ``tp`` is 1.
 
     The reference keeps a leaf whose dim does not divide ``tp`` whole in
-    an artifact, for its loader to put back together.  The port has no
-    artifact reader: these slices are the live per-rank params, and the
-    TP forward sums every sharded leaf's partials over the ranks, so such
-    a leaf raises."""
-    if dim is None:
+    an artifact (recorded null), for its loader to put back together.  A
+    port rank runs on its own slices, and the TP forward sums every
+    sharded leaf's partials over the ranks, so such a leaf raises here,
+    and ``DeploymentArtifact.validate`` refuses one in an artifact."""
+    if dim is None or tp == 1:
         return t
     if t.shape[dim] % tp:
         raise ValueError(f"leaf {key!r}: dim {dim} of size {t.shape[dim]} "
@@ -157,3 +171,77 @@ def shard_params(cfg: ModelConfig, params: Any,
                          leaf_shards=leaf_shards if r == 0 else None)
              for r in range(tp)]
     return trees, leaf_shards
+
+
+# ---------------------------------------------------------------------------
+# the whole offline compile
+# ---------------------------------------------------------------------------
+
+def pair_meta(cfg: ModelConfig, raw_params: Any, scheme: str) -> list:
+    """The manifest's record of every MLP pair, as the reference writes
+    it: one entry per pair path, the layer list counted as its stack."""
+    meta = []
+
+    def walk(node, path, stacked):
+        if _is_mlp_dict(node):
+            w_up, w_down = node["w_up"], node["w_down"]
+            gs_up, gs_down = _pair_group_sizes(cfg, w_up, w_down)
+            meta.append({
+                "path": ".".join(path), "stacked": stacked,
+                "k1": int(w_up.shape[-2]), "n1": int(w_up.shape[-1]),
+                "n2": int(w_down.shape[-1]), "gate": "w_gate" in node,
+                "group_size_up": gs_up, "group_size_down": gs_down,
+                "scheme": scheme})
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + (k,), stacked)
+        elif isinstance(node, list) and node:
+            walk(node[0], path, stacked + [len(node)])
+
+    walk(raw_params, (), [])
+    return meta
+
+
+def compile_plan(cfg: ModelConfig, raw_params: Any, *, tp: int,
+                 policy: ExecutionPolicy,
+                 generator: Optional[torch.Generator] = None,
+                 seed: Optional[int] = None,
+                 extra_manifest: Optional[dict] = None):
+    """Raw fp params -> ``DeploymentArtifact``: quantize and lay out (when
+    ``cfg.quant.mode`` is ``"mlp"``, as ``Model.init``), then pre-shard for
+    ``tp`` ranks, and freeze with the manifest.  ``policy`` is recorded,
+    its scheme laid out; ``generator`` draws the processing orders
+    (``compile_params``); ``seed`` is provenance only."""
+    from repro_torch.plan.artifact import DeploymentArtifact
+
+    meta = pair_meta(cfg, raw_params, policy.scheme)
+    planned = raw_params
+    if cfg.quant.mode == "mlp":
+        planned = compile_params(cfg, raw_params, generator=generator,
+                                 scheme=policy.scheme)
+    trees, leaf_shards = shard_params(cfg, planned, tp)
+    return DeploymentArtifact.from_state(
+        cfg=cfg, policy=policy, tp=tp, rank_params=trees,
+        leaf_shards=leaf_shards, pair_meta=meta, seed=seed,
+        extra=extra_manifest)
+
+
+def prepare(cfg: ModelConfig, *, tp: int, seed: int = 0,
+            policy: Optional[ExecutionPolicy] = None,
+            extra_manifest: Optional[dict] = None,
+            device: DeviceLike = None):
+    """Seed -> artifact, on ``device`` (default: the CUDA card).  The raw
+    init and the plan generator come from ``seed`` exactly as
+    ``Model.init`` draws them, so rank ``r`` of the result equals
+    ``Model.init(seed, tp=tp, rank=r)`` on the same device bit for bit.
+    ``policy`` defaults to the config's for ``device`` and ``tp`` ranks."""
+    from repro_torch.models.registry import build_model
+
+    dev = resolve_device(device)
+    if policy is None:
+        policy = ExecutionPolicy.from_config(cfg, device=dev).with_(
+            mesh=MeshPlan(tp=tp))
+    raw = build_model(cfg).init_raw(seed, device=dev)
+    return compile_plan(cfg, raw, tp=tp, generator=plan_generator(seed, dev),
+                        policy=policy, seed=seed,
+                        extra_manifest=extra_manifest)

@@ -63,7 +63,10 @@ def _param_vectors(b: int, cfg: SamplingConfig, device):
 
 
 def _gumbel_argmax(row: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
-    u = torch.rand(row.shape, generator=gen, device=row.device)
+    # u in [tiny, 1), as the reference's jax.random.gumbel draws it: at
+    # u = 0 the noise would be -inf, and that token could never be drawn
+    u = torch.rand(row.shape, generator=gen, device=row.device).clamp_min(
+        torch.finfo(torch.float32).tiny)
     return torch.argmax(row - torch.log(-torch.log(u)))
 
 

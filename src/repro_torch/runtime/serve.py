@@ -1,6 +1,6 @@
 """Serving engine: prefill and decode steps over a registry model; port of
-``repro/runtime/serve.py`` (``Engine``, ``make_engine`` without an
-artifact).
+``repro/runtime/serve.py`` (``Engine``, ``make_engine``: params made in
+memory from a seed, or served from a prepared ``DeploymentArtifact``).
 
 Prefill replays the prompt through the decode step, exactly as the
 reference does, so prompt and generation share one numeric path.
@@ -38,7 +38,9 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.dist.topology import MeshPlan
 from repro_torch.kernels import ops
 from repro_torch.models.registry import Model, build_model
+from repro_torch.plan.artifact import DeploymentArtifact
 from repro_torch.runtime import sampling
+from repro_torch.train.checkpoint import map_tensors
 
 
 @dataclasses.dataclass
@@ -89,6 +91,9 @@ class Engine:
     # The process group of the TP ranks (``launch/mesh.py``); None runs on
     # one device.  ``params`` are then this rank's slices.
     group: Any = None
+    #: what this rank read of an artifact (``dist.loader.RankLoadStats``);
+    #: None for params made in memory or loaded whole
+    load_stats: Any = None
     #: the captured decode steps by batch size (``decode`` on the card)
     graphs: dict = dataclasses.field(default_factory=dict, init=False,
                                      repr=False)
@@ -100,9 +105,8 @@ class Engine:
     def __post_init__(self):
         self.device = torch.device(self.device)
         if self.policy is None:
-            self.policy = ExecutionPolicy.from_config(
-                self.model.cfg, device=self.device).with_(
-                    mesh=MeshPlan(tp=self.tp))
+            self.policy = default_policy(self.model.cfg, self.device,
+                                         self.tp)
         check_mesh(self.policy, self.tp)
 
     @property
@@ -240,6 +244,12 @@ class Engine:
         return torch.stack(out, dim=1)
 
 
+def default_policy(cfg, device: torch.device, tp: int) -> ExecutionPolicy:
+    """The config's plan for ``device`` and ``tp`` ranks."""
+    return ExecutionPolicy.from_config(cfg, device=device).with_(
+        mesh=MeshPlan(tp=tp))
+
+
 def check_mesh(policy: ExecutionPolicy, tp: int) -> None:
     """Raise unless ``policy.mesh`` plans the ``tp`` ranks that run it."""
     if policy.mesh.tp != tp:
@@ -251,17 +261,47 @@ def check_mesh(policy: ExecutionPolicy, tp: int) -> None:
 def make_engine(cfg, seed: int = 0, *, device: DeviceLike = None,
                 max_seq: int = 2048, window=None,
                 policy: Optional[ExecutionPolicy] = None,
-                group=None) -> Engine:
-    """Build an engine whose params ``Model.init`` makes from ``seed``;
-    with the TP ranks' ``group``, this rank's slices of them.  Runs on the
-    CUDA card unless ``device`` says otherwise.  A ``policy`` whose mesh
-    does not match the group raises before any weight is made."""
+                group=None, artifact=None) -> Engine:
+    """Build an engine on ``device`` (default: the CUDA card); with the TP
+    ranks' ``group``, over this rank's slices of the params.  A
+    ``policy`` whose mesh does not match the group raises before any
+    weight is made.
+
+    Without ``artifact``, ``Model.init`` makes the params from ``seed``.
+    With one (a ``DeploymentArtifact`` or its directory), the engine
+    serves its plan: no quantize and no layout at load.  From a
+    directory, a rank of a group reads only its own ``rank_NN.npz``
+    (``dist.loader.load_per_rank``; ``Engine.load_stats`` keeps the
+    ledger), one device all of them (``DeploymentArtifact.load``); either
+    way onto the host first.  The artifact is validated against ``cfg``,
+    the effective policy and the group's TP degree before any weight
+    reaches ``device``: a mismatched plan raises ``PlanMismatchError``.
+    The params are in place before the first decode step, so the captured
+    step holds their addresses."""
     dev = resolve_device(device)
     tp = comm.axis_size(group)
+    rank = comm.axis_index(group)
     if policy is not None:
         check_mesh(policy, tp)
     model = build_model(cfg)
-    params = model.init(seed, device=dev, tp=tp,
-                        rank=comm.axis_index(group))
+    load_stats = None
+    if artifact is None:
+        params = model.init(seed, device=dev, tp=tp, rank=rank)
+    else:
+        plan = dict(cfg=cfg, tp=tp, policy=(
+            policy if policy is not None else default_policy(cfg, dev, tp)))
+        if not isinstance(artifact, DeploymentArtifact):
+            # the manifest alone first, before any rank file is read
+            DeploymentArtifact(manifest=DeploymentArtifact.load_manifest(
+                artifact)).validate(**plan)
+            artifact = (
+                DeploymentArtifact.load_rank(artifact, rank, device="cpu")
+                if group is not None
+                else DeploymentArtifact.load(artifact, device="cpu"))
+        artifact.validate(**plan)
+        params = map_tensors(artifact.rank_tree(rank),
+                             lambda _, t: t.to(dev))
+        load_stats = artifact.load_stats
     return Engine(model=model, params=params, device=dev, max_seq=max_seq,
-                  window=window, policy=policy, group=group)
+                  window=window, policy=policy, group=group,
+                  load_stats=load_stats)

@@ -135,6 +135,24 @@ def test_sample_slots_row_equals_sample():
         assert int(tok) in top
 
 
+def test_gumbel_noise_at_a_zero_draw_is_the_references(monkeypatch):
+    """A draw of exactly 0 gets the reference's noise at ``tiny``
+    (``jax.random.gumbel`` draws from [tiny, 1)), -4.47, not -inf: the
+    token then wins against noise 0.3665 (draws of 0.5) iff its logit
+    beats the reference's threshold."""
+    tiny = jnp.finfo(jnp.float32).tiny
+    ref = float(-jnp.log(-jnp.log(jnp.asarray(tiny))))
+    half = float(-jnp.log(-jnp.log(jnp.float32(0.5))))
+    assert -4.48 < ref < -4.46
+    draws = torch.full((8,), 0.5)
+    draws[0] = 0.0
+    monkeypatch.setattr(torch, "rand", lambda *a, **k: draws.clone())
+    for margin, want in ((1e-3, 0), (-1e-3, 1)):
+        row = torch.zeros(8)
+        row[0] = half - ref + margin
+        assert int(sampling._gumbel_argmax(row, None)) == want, margin
+
+
 def _run(args, env_extra=None):
     env = dict(os.environ, PYTHONPATH=SRC, **(env_extra or {}))
     return subprocess.run([sys.executable, *args], capture_output=True,
