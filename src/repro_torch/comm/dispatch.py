@@ -243,7 +243,8 @@ def _reduce_scatter_last(t: torch.Tensor, group) -> torch.Tensor:
 
 def raw_psum(y: torch.Tensor, group) -> torch.Tensor:
     """Full-precision all-reduce outside the strategy registry (the
-    attention output projection, the vocab-sharded embedding)."""
+    attention output projection, the vocab-sharded embedding, the
+    ``d_model``-split head's logits)."""
     return y if axis_size(group) == 1 else _all_reduce(y, group)
 
 

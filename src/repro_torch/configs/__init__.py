@@ -1,7 +1,7 @@
 """Config registry; port of ``repro/configs/__init__.py``.
 
-Only the architectures the port serves so far are registered; the others
-follow the order in ``ROADMAP.md``.
+The dense decoders are registered, in the reference's order; the other
+families follow the order in ``ROADMAP.md``.
 """
 
 from __future__ import annotations
@@ -11,9 +11,19 @@ import importlib
 from repro_torch.configs.base import (  # noqa: F401
     ModelConfig, QuantConfig, smoke_reduce)
 
-ARCH_IDS = ("qwen3-4b",)
+ARCH_IDS = (
+    "qwen3-4b",
+    "mistral-large-123b",
+    "starcoder2-3b",
+    "granite-3-8b",
+)
 
-_MODULES = {"qwen3-4b": "qwen3_4b"}
+_MODULES = {
+    "qwen3-4b": "qwen3_4b",
+    "mistral-large-123b": "mistral_large_123b",
+    "starcoder2-3b": "starcoder2_3b",
+    "granite-3-8b": "granite_3_8b",
+}
 
 
 def _module(arch_id: str):

@@ -11,8 +11,11 @@ name the dim of each leaf that is split over the ranks) with GSPMD's
 implicit collectives written out: attention runs this rank's heads and
 closes its row-sharded output projection with a float32 all-reduce; the
 vocab-sharded embedding closes with an all-reduce and the column-sharded
-``lm_head`` with an all-gather of the logits; the MLP pair runs the
-paper's schemes (``core/schemes.pair_forward_tp``).
+``lm_head`` with an all-gather of the logits (when the padded vocab does
+not divide the ranks, the embedding is split by ``d_model`` columns and
+closes with an all-gather, the head by rows and closes with an
+all-reduce of the logits); the MLP pair runs the paper's schemes
+(``core/schemes.pair_forward_tp``).
 
 Dtypes follow what JAX reaches: activations enter a layer in bf16
 (``cfg.dtype``), every product with an f32 weight promotes to f32, and
@@ -96,8 +99,11 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     """Rotary embedding; x: (B, S, H, D), positions: (S,) or (B, S)."""
     d = x.shape[-1]
     half = d // 2
-    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                    device=x.device) / half)
+    # the power in float64, rounded once: the reference's correctly
+    # rounded float32 frequencies (float32 ``pow`` misses some by an ulp,
+    # which moves the angles of far positions)
+    expo = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    freqs = (theta ** expo.to(torch.float64)).to(torch.float32)
     pos = positions.to(torch.float32)
     if positions.dim() == 1:
         ang = (pos[:, None] * freqs[None, :])[None, :, None, :]
@@ -211,6 +217,11 @@ def _flash_sdpa(q, k, v, *, causal: bool, window):
 
 ATTN_BACKENDS = ("xla", "flash")
 
+#: Q-chunk size of long causal self-attention on the einsum path: the
+#: (Q_CHUNK, T) score tile is the only temp that grows with S x T
+Q_CHUNK = 2048
+Q_CHUNK_MIN_SEQ = 8192
+
 
 def _local_heads(cfg: ModelConfig, p) -> tuple[int, int]:
     """(query heads, KV heads) this rank holds: the whole padded grid on
@@ -232,8 +243,11 @@ def attention_forward(cfg: ModelConfig, p, x, *, positions=None,
 
     ``attn_backend`` as in the reference's ``ParallelContext``: ``"xla"``
     is the einsum path (under the reference's name), ``"flash"`` the flash
-    kernel.  The Q-chunking of very long sequences on the einsum path,
-    which gives the same result, follows in a later slice."""
+    kernel.  On the einsum path long causal self-attention (S >=
+    ``Q_CHUNK_MIN_SEQ``, S a multiple of ``Q_CHUNK``) runs one Q chunk at
+    a time: each chunk's softmax rows see the whole key range, so the
+    result is the unchunked one, while the score tensor shrinks from
+    (S, T) to (Q_CHUNK, T) (the reference's ``chunk_scan=False`` form)."""
     if attn_backend not in ATTN_BACKENDS:
         raise ValueError(f"unknown attn_backend {attn_backend!r}, expected "
                          f"one of {ATTN_BACKENDS}")
@@ -254,15 +268,25 @@ def attention_forward(cfg: ModelConfig, p, x, *, positions=None,
     if attn_backend == "flash":
         return _out_proj(p, _flash_sdpa(q, k, v, causal=causal,
                                         window=window), group)
-    mask = None
-    if causal:
-        i = torch.arange(s, device=x.device)[:, None]
+
+    def mask_rows(i0: int, rows: int):
+        """The causal (and window) mask of query rows i0 .. i0 + rows."""
+        if not causal:
+            return None
+        i = torch.arange(i0, i0 + rows, device=x.device)[:, None]
         j = torch.arange(s, device=x.device)[None, :]
         m = j <= i
         if window is not None:
             m = m & (j > i - window)
-        mask = m.expand(b, s, s)
-    return _out_proj(p, _sdpa(q, k, v, mask), group)
+        return m.expand(b, rows, s)
+
+    if causal and s >= Q_CHUNK_MIN_SEQ and s % Q_CHUNK == 0:
+        out = torch.cat([_sdpa(q[:, i0:i0 + Q_CHUNK], k, v,
+                               mask_rows(i0, Q_CHUNK))
+                         for i0 in range(0, s, Q_CHUNK)], dim=1)
+    else:
+        out = _sdpa(q, k, v, mask_rows(0, s))
+    return _out_proj(p, out, group)
 
 
 def attention_decode(cfg: ModelConfig, p, x, cache, pos, *, window=None,
@@ -390,9 +414,13 @@ def embed_tokens(cfg: ModelConfig, p, tokens: torch.Tensor, *,
                  group=None) -> torch.Tensor:
     """Look the tokens up.  Under TP the table is split by vocab rows: each
     rank looks up the tokens it holds, zeros elsewhere, and an all-reduce
-    adds the exact rows."""
+    adds the exact rows; or, where the vocab does not divide the ranks,
+    by ``d_model`` columns: each rank looks up its columns and an
+    all-gather joins them."""
     emb = p["embedding"]
-    if emb.shape[0] != cfg.padded_vocab():          # vocab rows split
+    if emb.shape[1] != cfg.d_model:                 # d_model columns split
+        x = comm.all_gather_cols(emb[tokens], group)
+    elif emb.shape[0] != cfg.padded_vocab():        # vocab rows split
         rows = emb.shape[0]
         local = tokens - comm.axis_index(group) * rows
         mine = (local >= 0) & (local < rows)
@@ -407,9 +435,17 @@ def embed_tokens(cfg: ModelConfig, p, tokens: torch.Tensor, *,
 def lm_head(cfg: ModelConfig, p, x: torch.Tensor, *,
             group=None) -> torch.Tensor:
     """Logits over the padded vocab.  Under TP the head is split by vocab
-    columns and the logit shards are all-gathered."""
-    logits = comm.all_gather_cols(
-        x.to(torch.float32) @ p["lm_head"].to(torch.float32), group)
+    columns and the logit shards are all-gathered; or, where the vocab
+    does not divide the ranks, by ``d_model`` rows: each rank multiplies
+    its slice of ``x`` and an all-reduce sums the whole logits."""
+    head = p["lm_head"].to(torch.float32)
+    x = x.to(torch.float32)
+    if head.shape[0] != cfg.d_model:                # d_model rows split
+        rows = head.shape[0]
+        r = comm.axis_index(group)
+        logits = comm.raw_psum(x[..., r * rows:(r + 1) * rows] @ head, group)
+    else:
+        logits = comm.all_gather_cols(x @ head, group)
     v, vp = cfg.vocab_size, cfg.padded_vocab()
     if vp != v:
         # padded vocab columns: exp(-1e30) == 0, softmax stays exact
@@ -437,13 +473,13 @@ def attention_specs(cfg: ModelConfig, p: dict, tp: int) -> dict:
 
 
 def embed_specs(cfg: ModelConfig, tp: int) -> dict:
-    """Vocab-dim split (the reference's ``embed_specs`` when the padded
-    vocab divides the ranks; its ``d_model`` fallback is not ported)."""
-    if cfg.padded_vocab() % tp:
-        raise ValueError(f"{cfg.arch_id}: padded vocab "
-                         f"{cfg.padded_vocab()} does not split over tp={tp} "
-                         f"ranks; set attn_tp_pad to pad it")
-    return {"embedding": 0, "lm_head": 1}
+    """The reference's ``embed_specs``: split by vocab when the padded
+    vocab divides the ranks, else by ``d_model`` (embedding columns,
+    ``lm_head`` rows), which closes the head with an all-reduce of the
+    whole logits."""
+    if cfg.padded_vocab() % tp == 0:
+        return {"embedding": 0, "lm_head": 1}
+    return {"embedding": 1, "lm_head": 0}
 
 
 def _pair_specs(pp: PlannedPair) -> PlannedPair:

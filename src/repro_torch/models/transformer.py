@@ -66,13 +66,24 @@ def param_specs(cfg: ModelConfig, params, tp: int):
 
 
 def _mlp_residual(cfg, lp, x, h, policy, group):
-    """``x + h`` then the MLP block's residual, cast back to x's dtype
-    (the reference's scan carry keeps its dtype; bf16 + f32 promotes to
-    f32 in both frameworks)."""
+    """``x + h`` then the MLP block's residual (bf16 + f32 promotes to f32
+    in both frameworks; the caller casts back to the carry's dtype, as
+    the reference's scan does)."""
     y = x + h
-    y = y + cm.mlp_forward(cfg, lp["mlp"], cm.apply_norm(cfg, lp["ln2"], y),
-                           policy, group=group, path=MLP_PATH)
-    return y.to(x.dtype)
+    return y + cm.mlp_forward(cfg, lp["mlp"],
+                              cm.apply_norm(cfg, lp["ln2"], y), policy,
+                              group=group, path=MLP_PATH)
+
+
+def layer_forward(cfg: ModelConfig, lp, x, policy: ExecutionPolicy, *,
+                  window=None, attn_backend="xla", group=None):
+    """One layer of the forward (the reference's scan body): attention,
+    then the MLP block, each on the pre-normed residual; the result
+    before its cast to the carry's dtype."""
+    h = cm.attention_forward(cfg, lp["attn"], cm.apply_norm(cfg, lp["ln1"], x),
+                             window=window, causal=cfg.causal,
+                             attn_backend=attn_backend, group=group)
+    return _mlp_residual(cfg, lp, x, h, policy, group)
 
 
 def forward(cfg: ModelConfig, params, batch: dict, policy: ExecutionPolicy,
@@ -81,11 +92,8 @@ def forward(cfg: ModelConfig, params, batch: dict, policy: ExecutionPolicy,
     ``attn_backend``: ``"xla"`` (einsum) or ``"flash"`` (the kernel)."""
     x = cm.embed_tokens(cfg, params["embed"], batch["tokens"], group=group)
     for lp in params["layers"]:
-        h = cm.attention_forward(cfg, lp["attn"],
-                                 cm.apply_norm(cfg, lp["ln1"], x),
-                                 window=window, causal=cfg.causal,
-                                 attn_backend=attn_backend, group=group)
-        x = _mlp_residual(cfg, lp, x, h, policy, group)
+        x = layer_forward(cfg, lp, x, policy, window=window,
+                          attn_backend=attn_backend, group=group).to(x.dtype)
     x = cm.apply_norm(cfg, params["final_norm"], x)
     return cm.lm_head(cfg, params["embed"], x, group=group)
 
@@ -107,6 +115,6 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos,
                                    cm.apply_norm(cfg, lp["ln1"], x),
                                    layer_cache, pos, window=window,
                                    group=group)
-        x = _mlp_residual(cfg, lp, x, h, policy, group)
+        x = _mlp_residual(cfg, lp, x, h, policy, group).to(x.dtype)
     x = cm.apply_norm(cfg, params["final_norm"], x)
     return cm.lm_head(cfg, params["embed"], x, group=group)[:, 0], cache
