@@ -122,11 +122,15 @@ Phases, one line each:
      rank, the fused ring bit-identical to the plain one, psum at tp=2
      against phase 18's tp=1 engine layer by layer (its greedy ids
      reported)
- 20. artifact-granite: as phases 16 and 17 for granite: the tp=1 and the
-     tp=2 plans prepared, saved (bytes reckoned against the free disk
-     first; each directory deleted after use) and served from their
-     files, logits bit-equal to the in-memory engines; the tp=2
-     manifest splits the embedding by columns and the head by rows
+ 20. artifact-granite: as phases 16 and 17 for granite at full width,
+     depth cut to 10 of its 40 layers (the cut printed; the files' save
+     and load dominate the phase): the tp=1 and the tp=2 plans prepared,
+     saved (bytes reckoned against the free disk first; each directory
+     deleted after use) and served from their files, ids and logits
+     bit-equal to in-memory engines of the same depth from seed 0 (at
+     tp=1 served first in this process, at tp=2 in each rank process
+     before it reads its file); the tp=2 manifest splits the embedding
+     by columns and the head by rows
  21. long-forward: starcoder2 at full width, 2 layers, one 8192-token
      sequence under its 4096-token window: the Q-chunked einsum forward
      (4 chunks of 2048 query rows a layer, counted) against the flash
@@ -134,9 +138,32 @@ Phases, one line each:
      bound): the last position's id equal, the argmax agreement share,
      and each forward's peak allocated memory beside the size of the
      unchunked score tensor
+ 22. serve-paged: qwen3-4b tp-aware on phase 5's params, 4 slots, eight
+     seeded requests of 16 tokens, four of them sharing a 32-token prompt
+     prefix (two full pages), served greedy and seeded from the dense
+     cache and from a ``paged:16`` pool (``Scheduler`` paged mode), each
+     run through the captured step with 108 K1 launches a step: greedy
+     logits and ids bit-equal request by request, seeded ids equal,
+     prefix hits, no live page after the drain; the greedy pair for the
+     naive plan (K4) between phases 11 and 12; ``paged:16:int8`` and
+     ``:int4`` against fp pages (ids agreeing, logit gap, bytes per
+     page); the dense and paged pair at ``max_seq`` 1024 (bit-equal;
+     steady step and max_memory_allocated); ``release_cache`` and a
+     second serve (a new pool, a second capture, the same ids; allocated
+     bytes); and at tp=2 ``quant-int8:fused`` (phase 14's ranks) the
+     four requests from a ``paged:16`` pool: the dense ids on both
+     ranks, 36 K3 and 72 K1 launches a step
+ 23. http: ``ServingServer`` on 127.0.0.1:0 over a ``paged:16`` engine
+     whose step the server's loop thread captures: 8 concurrent SSE
+     clients (start / 16 tokens / done), their seeded ids those of the
+     same requests through a ``Scheduler``, 108 K1 launches a step,
+     ``/v1/health`` naming the layout, ``/v1/stats`` TTFT and
+     inter-token p50 / p90
 
-then the per-kernel JSON line (the other archs' K1, K4 and K3 rows
-after the first six), the total seconds, the card's nvidia-smi line
+then the per-kernel JSON line (after the first six: K2 on the long
+forward, the paged and HTTP serves' K1, K4 and K3 rows, then the other
+archs' K1, K4 and K3 rows), the total seconds and each phase's, the
+card's nvidia-smi line
 and, as the last line, ``{"ok": true, "device": {...}}``.  Every path
 runs with the launch counts set to 0 just before it and read just
 after.  Per-shape
@@ -201,6 +228,9 @@ QWEN = get_config("qwen3-4b")
 ARCHS = ("granite-3-8b", "starcoder2-3b", "mistral-large-123b")
 TP_ARCHS = ARCHS[:2]
 MISTRAL_LAYERS = 4
+#: granite's depth in phase 20 (its artifact's save and load take about
+#: half a second a layer each)
+ARTIFACT_GRANITE_LAYERS = 10
 #: the long forward (phase 21): starcoder2 at full width, two layers,
 #: one sequence of 8192 tokens (the reference's Q_CHUNK_MIN_SEQ) under
 #: its 4096-token window
@@ -320,8 +350,26 @@ COUNTED = tuple(fn.__name__ if attr == "launches" else TC
                 for fn, attr in ops.COUNTERS)
 
 
+#: (phase, seconds since the start) of each line this process printed
+LINES: list[tuple[str, float]] = []
+T0 = time.perf_counter()
+
+
 def line(phase: str, text: str):
+    LINES.append((phase, time.perf_counter() - T0))
     print(f"[{phase}] {text}", flush=True)
+
+
+def phase_seconds() -> dict:
+    """Each phase's seconds: from the last line before it to its own
+    last line (a phase whose lines recur is summed)."""
+    out, prev = {}, 0.0
+    for i, (phase, t) in enumerate(LINES):
+        if i + 1 < len(LINES) and LINES[i + 1][0] == phase:
+            continue
+        out[phase] = out.get(phase, 0.0) + t - prev
+        prev = t
+    return out
 
 
 def reset_counts():
@@ -1006,6 +1054,79 @@ def _time_flash(gen) -> dict:
             "bound_by": by, "f32_cuda_core_bound_ms": f32_bound}
 
 
+def _time_flash_long(gen) -> dict:
+    """K2 at starcoder2's long forward (B1 H24 S8192 D128, causal, its
+    4096-token window) beside ``scaled_dot_product_attention`` on the
+    same tensors with the boolean window mask (the library yardstick; the
+    backend it picks named, as ``_time_sdpa`` names it) and K2's plain
+    version.  K2 is held against the plain version on the same inputs
+    (``FLASH_TOL`` float32; raises outside it), and its largest
+    difference from the library's output is reported."""
+    import warnings
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    cfg = arch_config("starcoder2-3b")
+    h, d, s, window = cfg.n_heads, cfg.head_dim, LONG_S, cfg.attention_window
+    qkv = [tuple(torch.randn(1, h, s, d, generator=gen, device="cuda")
+                 for _ in range(3)) for _ in range(2)]
+    mask = fa.attention_mask(s, s, causal=True, window=window, device="cuda")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def library(q, k, v):
+        return sdpa(q, k, v, attn_mask=mask)
+
+    def kernel(q, k, v):
+        return fa.flash_attention(q, k, v, causal=True, window=window)
+
+    def plain(q, k, v):
+        return fa.flash_attention_torch(q, k, v, causal=True, window=window)
+
+    rtol, atol = FLASH_TOL[torch.float32]
+    y, ref = kernel(*qkv[0]), plain(*qkv[0])
+    err = (y - ref).abs().max().item()
+    rel = _within([], err, ref, rtol, atol, "flash_attention",
+                  shape=[1, h, s, s, d], causal=True, window=window,
+                  dtype="torch.float32")
+    gap = (y - library(*qkv[0])).abs().max().item()
+    del y, ref
+    ms = _time(kernel, qkv, reps=4, batches=3)
+    library_ms = _time(library, qkv, reps=2, batches=3)
+    plain_ms = _time(plain, qkv, reps=1, batches=2)
+    default = _kernel_names(lambda: library(*qkv[0]))
+    backend = None
+    for b in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+              SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with warnings.catch_warnings(), sdpa_kernel(b):
+                warnings.simplefilter("ignore", UserWarning)
+                if _kernel_names(lambda: library(*qkv[0])) == default:
+                    backend = b.name
+                    break
+        except RuntimeError:
+            continue
+    flops = _flash_flops(1, h, s, s, d, True, window)
+    bound, by = _bound(4 * 4 * h * s * d, 3 * flops, PEAK_TF32)
+    out = {"shape": [1, h, s, d], "window": window, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "library": "torch.nn.functional.scaled_dot_product_attention "
+                      "(attn_mask: the boolean causal window mask)",
+           "library_backend": backend, "library_kernels": default,
+           "max_abs_err": err, "rel_err": rel,
+           "max_abs_diff_vs_library": gap, "bound_ms": bound,
+           "bound_by": by, "flops": flops}
+    line("timing", f"K2 f32 B1 H{h} S=T={s} D{d} causal window {window} "
+         f"(starcoder2's long forward): {ms:.4f} ms (bound {bound:.4f} by "
+         f"{by}; plain {plain_ms:.3f}); scaled_dot_product_attention with "
+         f"the boolean window mask {library_ms:.4f} [library; backend "
+         f"{backend}, kernels "
+         + ", ".join(k[:48] for k in default)
+         + f"]; K2 vs plain max abs err {err:.3g} ({rel:.3g} of max|ref|, "
+         f"tol 1e-5*max|ref|+1e-5); K2 vs library max abs difference "
+         f"{gap:.3g}")
+    return out
+
+
 def _time_k1_large(gen, m: int = 2048) -> dict:
     """K1 at the full-sequence forward's M (2048 tokens), up/gate and
     down, CUDA-graph replay: its tensor-core loop against its route's
@@ -1092,6 +1213,7 @@ def phase_timing(gen) -> dict:
     gidx = _time_gemm(gen, "naive")
     deq = _time_dequantize(gen)
     flash = _time_flash(gen)
+    flash_long = _time_flash_long(gen)
     wire = _time_wire(gen)
     large = _time_k1_large(gen)
     u, d = ordered[UP[0]], ordered[DOWN[0]]
@@ -1174,6 +1296,7 @@ def phase_timing(gen) -> dict:
             "gidx_over_ordered_per_layer": ratio,
             "gidx_naive_over_ordered_layout_per_layer": in_kernel,
             "dequantize_ordered": deq, "flash_attention": flash,
+            "flash_attention_long": flash_long,
             "dequant_matmul_wire_ordered": wire, "archs": archs}
 
 
@@ -1780,13 +1903,15 @@ def phase_dequantize(engine) -> dict:
 
 
 def _serve_tp_rank(ctx, cfg, greedy_tokens, greedy_plen, specs,
-                   carries=None) -> dict:
+                   carries=None, paged: bool = False) -> dict:
     """One rank of phases 14 and 15 (and 19): build this rank's slices of
     the full-width plan, serve the four requests under ``TP_SERVE`` with
-    the launch counts set to 0 just before and read just after, trace a
-    few decode steps (rank 0), then the greedy traces under each of
-    ``specs`` on the same params, and, given the tp=1 engine's
-    ``carries``, each layer's output under psum on them."""
+    the launch counts set to 0 just before and read just after (with
+    ``paged``, again from a ``PAGED`` pool of this rank's KV heads: phase
+    22 at tp=2), trace a few decode steps (rank 0), then the greedy
+    traces under each of ``specs`` on the same params, and, given the
+    tp=1 engine's ``carries``, each layer's output under psum on
+    them."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1813,6 +1938,24 @@ def _serve_tp_rank(ctx, cfg, greedy_tokens, greedy_plen, specs,
            "outputs": {k: r.output for k, r in sorted(done.items())},
            "counts": counts,
            "peak_bytes": torch.cuda.max_memory_allocated()}
+    if paged:
+        eng = dataclasses.replace(engine,
+                                  policy=engine.policy.with_(kv=PAGED))
+        sched = Scheduler(eng, max_batch=4, prompt_budget=32,
+                          scfg=SamplingConfig(temperature=0.8, top_k=40),
+                          seed=0)
+        _submit_requests(sched, cfg)
+        reset_counts()
+        t0 = time.perf_counter()
+        done = sched.run()
+        torch.cuda.synchronize()
+        out["paged"] = {"run_s": time.perf_counter() - t0,
+                        "decode_steps": sched.steps,
+                        "counts": read_counts(),
+                        "decode_mode": eng.decode_mode,
+                        "outputs": {k: r.output
+                                    for k, r in sorted(done.items())},
+                        "cache": sched.cache_stats()}
     out["trace"] = phase_trace(engine, {
         "K3": _is_k3, "K1": _is_k1, "split-add": _is_split_add,
         "earlier wire epilogue": _is_old_wire_epilogue}, None, ctx.rank,
@@ -1849,20 +1992,22 @@ def greedy_reference(engine, cfg) -> tuple:
 
 
 def phase_serve_tp(cfg, tp1_trace, pairs=TP_PAIRS, phase: str = "serve-tp",
-                   cross_phase: str = "tp-crosscheck", tp1_layers=None
-                   ) -> tuple[dict, dict, list]:
+                   cross_phase: str = "tp-crosscheck", tp1_layers=None,
+                   paged: bool = False) -> tuple[dict, dict, list]:
     """Phases 14 and 15 (and 19) on ``TP`` rank processes; the tp=1
     reference of the psum cross-check is ``tp1_trace``, the greedy trace
     of a tp=1 engine of the same seed (so the same plan before sharding).
     Given ``tp1_layers`` (that engine's ``layer_trace``), psum is held
     to it layer by layer and the greedy trace is reported.  Also returns
     each rank's greedy trace under ``TP_SERVE``, the reference of phase
-    17 (and 20)."""
+    17 (and 20).  With ``paged``, each rank serves the four requests from
+    a ``PAGED`` pool too: the dense serve's ids, the same launches a step
+    (phase 22 at tp=2)."""
     greedy_tokens, greedy_plen = _greedy_inputs(cfg)
     specs = [c for pair in pairs for c in pair] + ["psum"]
     torch.cuda.empty_cache()
     ranks = mesh.run(_serve_tp_rank, TP, cfg, greedy_tokens, greedy_plen,
-                     specs, tp1_layers and tp1_layers[0],
+                     specs, tp1_layers and tp1_layers[0], paged,
                      device_type="cuda", timeout=600)
     steps = ranks[0]["decode_steps"]
     k3_per, k1_per = cfg.num_layers, mlp_launches(cfg) - cfg.num_layers
@@ -1905,6 +2050,32 @@ def phase_serve_tp(cfg, tp1_trace, pairs=TP_PAIRS, phase: str = "serve-tp",
              r0["counts"]["dequant_matmul_ordered"], k1_per, steps,
              "/".join(f"{b / 2**30:.2f}" for b in serve["peak_bytes"]),
              serve["first_ids"]))
+    if paged:
+        for r in ranks:
+            p = r["paged"]
+            psteps = p["decode_steps"]
+            expect_counts(p["counts"], {
+                "dequant_matmul_wire_ordered": k3_per * psteps,
+                "dequant_matmul_ordered": k1_per * psteps},
+                f"{phase} {PAGED} rank {r['rank']} ({psteps} decode steps)")
+            if p["outputs"] != r["outputs"] or p["cache"]["pages"]["live"]:
+                raise AssertionError(
+                    f"{phase} rank {r['rank']}: {PAGED} ids {p['outputs']} "
+                    f"differ from the dense ids {r['outputs']}, or pages "
+                    f"live {p['cache']['pages']}")
+        serve["paged"] = [r["paged"] for r in ranks]
+        p0 = ranks[0]["paged"]
+        line("serve-paged", f"{describe(cfg)} at tp={TP} over "
+             f"{r0['transport']} with {r0['collective']} from a {PAGED} "
+             f"pool of each rank's KV heads: the 4 requests' ids equal the "
+             f"dense serve's on both ranks; per rank "
+             f"dequant_matmul_wire_ordered "
+             f"{p0['counts']['dequant_matmul_wire_ordered']} and "
+             f"dequant_matmul_ordered "
+             f"{p0['counts']['dequant_matmul_ordered']} in "
+             f"{p0['decode_steps']} steps; "
+             f"{p0['run_s'] / p0['decode_steps'] * 1e3:.1f} ms/step (rank "
+             f"0; decode step: {p0['decode_mode']})")
     tr = r0["trace"]
     serve["trace_rank0"] = tr
     _trace_line(f"{phase} rank 0", tr)
@@ -2072,11 +2243,30 @@ def phase_artifact(cfg, ref: dict, phase: str = "artifact") -> dict:
     return out
 
 
-def _artifact_tp_rank(ctx, cfg, path, greedy_tokens, greedy_plen) -> dict:
+def _artifact_tp_rank(ctx, cfg, path, greedy_tokens, greedy_plen,
+                      reference: bool = False) -> dict:
     """One rank of phase 17 (and 20): read this rank's file, serve the
     four requests with the counts set to 0 just before and read just
-    after, then the greedy trace of phase 14's (19's) cross-check."""
+    after, then the greedy trace of phase 14's cross-check.  With
+    ``reference``, first the same from this rank's in-memory plan built
+    from seed 0 (what phase 20's depth is held to)."""
     torch.backends.cuda.matmul.allow_tf32 = False
+    toks = torch.from_numpy(greedy_tokens).to(ctx.device)
+    plen = torch.from_numpy(greedy_plen).to(ctx.device)
+    ref = None
+    if reference:
+        mem = make_engine(cfg, 0, device=ctx.device, max_seq=32 + 16 + 1,
+                          group=ctx.group)
+        sched = Scheduler(mem, max_batch=4, prompt_budget=32,
+                          scfg=SamplingConfig(temperature=0.8, top_k=40),
+                          seed=0)
+        _submit_requests(sched, cfg)
+        done = sched.run()
+        ids, logits = _greedy_trace(mem, toks, plen, 8)
+        ref = {"outputs": {k: r.output for k, r in sorted(done.items())},
+               "trace": (ids.cpu(), logits.cpu())}
+        del mem, sched
+        torch.cuda.empty_cache()
     t0 = time.perf_counter()
     engine = make_engine(cfg, device=ctx.device, max_seq=32 + 16 + 1,
                          group=ctx.group, artifact=path)
@@ -2091,9 +2281,9 @@ def _artifact_tp_rank(ctx, cfg, path, greedy_tokens, greedy_plen) -> dict:
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     counts = read_counts()
-    ids, logits = _greedy_trace(engine, torch.from_numpy(greedy_tokens).to(
-        ctx.device), torch.from_numpy(greedy_plen).to(ctx.device), 8)
+    ids, logits = _greedy_trace(engine, toks, plen, 8)
     return {"rank": ctx.rank, "load_s": load_s, "run_s": run_s,
+            "reference": ref,
             "stats": dataclasses.asdict(engine.load_stats),
             "resident_fraction": engine.load_stats.resident_fraction,
             "decode_steps": sched.steps, "counts": counts,
@@ -2102,13 +2292,14 @@ def _artifact_tp_rank(ctx, cfg, path, greedy_tokens, greedy_plen) -> dict:
             "trace": (ids.cpu(), logits.cpu())}
 
 
-def phase_artifact_tp(cfg, serve_tp: dict, tp_traces: list,
+def phase_artifact_tp(cfg, serve_tp: dict | None, tp_traces: list | None,
                       phase: str = "artifact-tp") -> dict:
     """Phase 17 (and 20): prepare at tp=2, save the rank files, and serve
-    them on two rank processes that each read only their own.  The
-    manifest's split of the embedding and the head must be the model's
-    (by vocab, or by ``d_model`` where the vocab does not divide the
-    ranks)."""
+    them on two rank processes that each read only their own, held to
+    ``serve_tp``'s ids and ``tp_traces`` (or, given None, to each rank's
+    in-memory plan of ``cfg`` from seed 0).  The manifest's split of the
+    embedding and the head must be the model's (by vocab, or by
+    ``d_model`` where the vocab does not divide the ranks)."""
     tcfg = cfg.with_quant(collective=TP_SERVE)
     path, nbytes, files, prepare_s, save_s, peak = _prepare_and_save(
         tcfg, TP, phase)
@@ -2122,7 +2313,8 @@ def phase_artifact_tp(cfg, serve_tp: dict, tp_traces: list,
                                  f"{cm.embed_specs(cfg, TP)}")
         torch.cuda.empty_cache()
         ranks = mesh.run(_artifact_tp_rank, TP, tcfg, path, greedy_tokens,
-                         greedy_plen, device_type="cuda", timeout=600)
+                         greedy_plen, serve_tp is None, device_type="cuda",
+                         timeout=600)
     finally:
         shutil.rmtree(path)
     k3_per, k1_per = cfg.num_layers, mlp_launches(cfg) - cfg.num_layers
@@ -2138,11 +2330,15 @@ def phase_artifact_tp(cfg, serve_tp: dict, tp_traces: list,
                 or not r["resident_fraction"] < 1):
             raise AssertionError(f"{phase} rank {r['rank']}: read "
                                  f"{st}, expected its own file only")
-        if r["outputs"] != serve_tp["outputs"]:
+        want = (serve_tp["outputs"] if serve_tp is not None
+                else r["reference"]["outputs"])
+        if r["outputs"] != want:
             raise AssertionError(f"{phase} rank {r['rank']}: ids "
                                  f"{r['outputs']} differ from the in-memory "
-                                 f"tp=2 serve's")
-        (ia, la), (ib, lb) = r["trace"], tp_traces[r["rank"]]
+                                 f"tp=2 serve's {want}")
+        (ia, la) = r["trace"]
+        (ib, lb) = (tp_traces[r["rank"]] if tp_traces is not None
+                    else r["reference"]["trace"])
         if not (torch.equal(ia, ib) and torch.equal(la, lb)):
             raise AssertionError(
                 f"{phase} rank {r['rank']}: greedy logits not bit-equal "
@@ -2197,9 +2393,9 @@ def phase_serve_archs() -> tuple[dict, dict]:
     with the greedy traces through the whole model and the sum-order
     control reported; for granite the captured step against
     ``decode_eager`` bit for bit.  Each arch's engines are freed before
-    the next.  Returns the results and, for
-    the archs of the TP phases, what phases 19 and 20 hold their runs
-    to (the tp=1 engine's greedy trace, ids and policy)."""
+    the next.  Returns the results and, for the archs of the TP phases,
+    what phase 19 holds its runs to (the tp=1 engine's greedy trace, and
+    its layers' input carries and outputs)."""
     out, refs = {}, {}
     for arch in ARCHS:
         base = arch_config(arch)
@@ -2227,9 +2423,9 @@ def phase_serve_archs() -> tuple[dict, dict]:
         carries, outputs = layer_trace(
             engine, torch.from_numpy(_greedy_inputs(cfg)[0]).cuda())
         if arch in TP_ARCHS:
-            refs[arch] = memory_reference(engine, cfg, serve)
-            refs[arch]["layers"] = ([c.cpu() for c in carries],
-                                    [o.cpu() for o in outputs])
+            refs[arch] = {"trace": greedy_reference(engine, cfg),
+                          "layers": ([c.cpu() for c in carries],
+                                     [o.cpu() for o in outputs])}
         naive_cfg = base.with_quant(mode="mlp", scheme="naive-actorder",
                                     backend="cuda")
         naive, res["serve_naive"] = phase_serve(
@@ -2260,23 +2456,46 @@ def phase_serve_archs() -> tuple[dict, dict]:
     return out, refs
 
 
-def phase_serve_tp_archs(refs: dict) -> tuple[dict, dict]:
+def phase_serve_tp_archs(refs: dict) -> dict:
     """Phase 19: each of ``TP_ARCHS`` at tp=2 with ``TP_SERVE`` on two
     rank processes (granite's odd vocab split by ``d_model``), as phases
     14 and 15: K3 and K1 launches per step per rank, the fused ring
     bit-identical to the plain one, psum at tp=2 against phase 18's tp=1
-    engine layer by layer.  Returns the results and each arch's rank traces under
-    ``TP_SERVE`` (phase 20's reference)."""
-    out, traces = {}, {}
+    engine layer by layer."""
+    out = {}
     for arch in TP_ARCHS:
         cfg = arch_config(arch).with_quant(mode="mlp", scheme="tp-aware",
                                            backend="auto")
-        serve, cross, traces[arch] = phase_serve_tp(
+        serve, cross, _ = phase_serve_tp(
             cfg, refs[arch]["trace"], TP_PAIRS[:1], f"serve-tp {arch}",
             f"tp-crosscheck {arch}", refs[arch]["layers"])
         out[arch] = {"serve_tp": serve, "tp_crosscheck": cross,
                      "embed_split": cm.embed_specs(cfg, TP)}
-    return out, traces
+    return out
+
+
+def phase_artifact_granite() -> dict:
+    """Phase 20: phases 16 and 17 for granite at full width and
+    ``ARTIFACT_GRANITE_LAYERS`` layers, each held to in-memory engines of
+    that depth from seed 0: at tp=1 one served here first (its four
+    requests, the launch counts checked as in phase 18), at tp=2 one in
+    each rank process."""
+    full = get_config("granite-3-8b").num_layers
+    cfg = get_config("granite-3-8b").with_(
+        num_layers=ARTIFACT_GRANITE_LAYERS).with_quant(
+            mode="mlp", scheme="tp-aware", backend="auto")
+    line("artifact granite-3-8b", f"full width, depth cut from {full} to "
+         f"{cfg.num_layers} layers (the artifact's save and load take most "
+         f"of the phase)")
+    engine, serve = phase_serve(cfg, "dequant_matmul_ordered",
+                                f"serve granite-3-8b {cfg.num_layers}L")
+    ref = memory_reference(engine, cfg, serve)
+    del engine
+    torch.cuda.empty_cache()
+    return {"layers": cfg.num_layers, "full_layers": full,
+            "tp1": phase_artifact(cfg, ref, "artifact granite-3-8b"),
+            "tp2": phase_artifact_tp(cfg, None, None,
+                                     "artifact-tp granite-3-8b")}
 
 
 def phase_long_forward() -> dict:
@@ -2389,6 +2608,364 @@ def phase_long_forward() -> dict:
     return out
 
 
+#: phases 22-23: the paged cache's layout and the requests' shapes (half
+#: of them share a prompt prefix of two full pages); the engines' capacity,
+#: and the larger one of the dense-against-paged pair at a long capacity
+PAGE = 16
+PAGED = f"paged:{PAGE}"
+SHARED_PREFIX = 2 * PAGE
+PAGED_MAX_SEQ = 64
+LONG_MAX_SEQ = 1024
+GREEDY = SamplingConfig(temperature=0.0)
+SEEDED = SamplingConfig(temperature=0.8, top_k=40)
+
+
+def _paged_requests(cfg) -> list:
+    """Eight requests of 16 new tokens, each seeded by its rid: even rids
+    a shared 32-token prefix and a tail of 1-6 tokens, odd rids 24-31
+    tokens of their own.  The odd ones retire after the first wave's
+    shared pages are complete, so the second wave's shared requests find
+    them (prefix hits, replay skipped)."""
+    rng = np.random.default_rng(22)
+    prefix = rng.integers(0, cfg.vocab_size, SHARED_PREFIX)
+    reqs = []
+    for rid in range(8):
+        if rid % 2 == 0:
+            tail = rng.integers(0, cfg.vocab_size, int(rng.integers(1, 7)))
+            prompt = np.concatenate([prefix, tail])
+        else:
+            prompt = rng.integers(0, cfg.vocab_size, int(rng.integers(24, 32)))
+        reqs.append(Request(rid=rid, prompt=prompt.astype(np.int32),
+                            max_new_tokens=16, seed=rid))
+    return reqs
+
+
+def _sibling(engine, kv: str = "dense", max_seq: int = PAGED_MAX_SEQ):
+    """A fresh engine (no captured step yet) on ``engine``'s params under
+    the cache layout ``kv``."""
+    return Engine(model=engine.model, params=engine.params,
+                  device=engine.device, max_seq=max_seq,
+                  policy=engine.policy.with_(kv=kv))
+
+
+def _recorded_serve(engine, cfg, scfg, kernel: str, what: str,
+                    sched=None) -> dict:
+    """Serve ``_paged_requests`` through a scheduler of 4 slots on
+    ``engine`` (or ``sched``), the launch counts set to 0 just before and
+    read just after: every step launches ``kernel`` once for each MLP
+    weight and no other counted kernel.  Each request's logits row of
+    every step that emits is kept (the engine's ``decode`` wrapped)."""
+    if sched is None:
+        sched = Scheduler(engine, max_batch=4, prompt_budget=40, scfg=scfg,
+                          seed=0)
+    rows = {}
+    step = engine.decode
+
+    def decode(cache, tokens, pos, pages=None):
+        logits, cache = step(cache, tokens, pos, pages)
+        for i, s in enumerate(sched._slots):
+            if s is not None and s.fed + 1 >= s.req.prompt.size:
+                rows.setdefault(s.req.rid, []).append(logits[i])
+        return logits, cache
+
+    engine.decode = decode
+    for req in _paged_requests(cfg):
+        sched.submit(req)
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    steps0 = sched.steps
+    reset_counts()
+    try:
+        done, dt, step_ms = _run_steps(sched)
+    finally:
+        del engine.decode
+    counts = read_counts()
+    steps = sched.steps - steps0
+    expect_counts(counts, {kernel: mlp_launches(cfg) * steps},
+                  f"{what} ({steps} decode steps)")
+    if sorted(done) != list(range(8)) or any(
+            len(r.output) != 16 for r in done.values()):
+        raise AssertionError(f"{what}: requests incomplete")
+    if not engine.decode_mode.startswith("CUDA graph"):
+        raise AssertionError(f"{what}: decode step {engine.decode_mode}")
+    return {"sched": sched, "steps": steps, "run_s": dt,
+            "steady_ms_per_step": statistics.median(step_ms[1:]),
+            "first_step_ms": step_ms[0], "launches": counts[kernel],
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "allocated_before_bytes": before,
+            "decode_mode": engine.decode_mode,
+            "ids": {k: r.output for k, r in sorted(done.items())},
+            "logits": {k: torch.stack(v) for k, v in sorted(rows.items())}}
+
+
+def _bit_equal(a: dict, b: dict, what: str) -> None:
+    """Equal ids and bit-equal emission logits, request by request."""
+    for rid, ids in a["ids"].items():
+        if ids != b["ids"][rid] or not torch.equal(a["logits"][rid],
+                                                   b["logits"][rid]):
+            gap = (a["logits"][rid] - b["logits"][rid]).abs().max().item()
+            raise AssertionError(f"{what}: request {rid}'s ids or logits "
+                                 f"differ (max logit gap {gap:.3g})")
+
+
+def _quantized_gap(fp: dict, q: dict) -> dict:
+    """A quantized-page serve against the fp one (greedy): ids agreeing,
+    and the logit gap up to each request's first differing id."""
+    gap, first, agree = 0.0, 0.0, 0
+    for rid, ids in fp["ids"].items():
+        same = next((i for i, (x, y) in enumerate(zip(ids, q["ids"][rid]))
+                     if x != y), len(ids))
+        agree += ids == q["ids"][rid]
+        n = max(same, 1)
+        d = (fp["logits"][rid][:n] - q["logits"][rid][:n]).abs()
+        gap = max(gap, d.max().item())
+        first = max(first, d[0].max().item())
+    scale = max(v.abs().max().item() for v in fp["logits"].values())
+    return {"requests_ids_equal": agree, "max_logit_gap": gap,
+            "first_token_gap": first, "max_logit": scale}
+
+
+def _paged_summary(run: dict) -> dict:
+    st = run["sched"].cache_stats()
+    return {k: v for k, v in run.items()
+            if k not in ("sched", "logits")} | {"cache": st}
+
+
+def phase_serve_paged_pair(engine, cfg, kernel: str, phase: str,
+                           seeded: bool = True) -> tuple[dict, dict]:
+    """The eight requests dense and ``PAGED`` on ``engine``'s params,
+    greedy and (with ``seeded``) seeded, each run through the captured
+    step: greedy logits and ids bit-equal request by request, seeded ids
+    equal, prefix hits in the paged runs and no live page after the
+    drain.  Returns the summary and the greedy paged run."""
+    runs = {}
+    samplings = (("greedy", GREEDY),) + ((("seeded", SEEDED),) if seeded
+                                         else ())
+    for name, scfg in samplings:
+        for kv in ("dense", PAGED):
+            runs[name, kv] = _recorded_serve(
+                _sibling(engine, kv), cfg, scfg, kernel,
+                f"{phase} {name} {kv}")
+    _bit_equal(runs["greedy", "dense"], runs["greedy", PAGED],
+               f"{phase} greedy")
+    if seeded and runs["seeded", "dense"]["ids"] != runs["seeded",
+                                                          PAGED]["ids"]:
+        raise AssertionError(f"{phase}: seeded ids differ")
+    for name, _ in samplings:
+        st = runs[name, PAGED]["sched"].cache_stats()
+        if st["prefix"]["hits"] < 1 or st["pages"]["live"]:
+            raise AssertionError(f"{phase} {name}: prefix {st['prefix']}, "
+                                 f"pages {st['pages']}")
+    out = {f"{name} {kv}": _paged_summary(r)
+           for (name, kv), r in runs.items()}
+    g = runs["greedy", PAGED]
+    st = g["sched"].cache_stats()
+    line(phase, f"{describe(cfg)} {cfg.quant.scheme}, 8 requests (4 share a "
+                f"{SHARED_PREFIX}-token prefix) x 16 tokens, 4 slots, max_seq "
+                f"{PAGED_MAX_SEQ}: dense and {PAGED} greedy logits and ids "
+                f"bit-equal request by request"
+                + (", seeded ids equal; " if seeded else "; ") +
+                f"{kernel} {mlp_launches(cfg)} a step in every run "
+                f"({g['launches']} in {g['steps']} paged greedy steps, dense "
+                f"{runs['greedy', 'dense']['steps']}); decode step: "
+                f"{g['decode_mode']}; steady step dense "
+                f"{runs['greedy', 'dense']['steady_ms_per_step']:.2f} / paged "
+                f"{g['steady_ms_per_step']:.2f} ms; prefix hits "
+                f"{st['prefix']['hits']} (hit rate "
+                f"{st['prefix']['hit_rate']}), pages live {st['pages']['live']} peak "
+                f"{st['pages']['peak_live']} of {st['pages']['total']}, bytes "
+                f"pool {st['bytes']['pool']} peak_live "
+                f"{st['bytes']['peak_live']} dense_equiv "
+                f"{st['bytes']['dense_equiv']}")
+    return out, g
+
+
+def phase_serve_paged(engine, cfg) -> dict:
+    """Phase 22 at tp=1 (tp=2 runs in phase 14's ranks): the dense and
+    paged pair, int8 and int4 pages against fp, the pair at
+    ``LONG_MAX_SEQ``, and a release of the cache and a second serve."""
+    out, fp = phase_serve_paged_pair(engine, cfg, "dequant_matmul_ordered",
+                                     "serve-paged")
+    for bits in (8, 4):
+        kv = f"{PAGED}:int{bits}"
+        q = _recorded_serve(_sibling(engine, kv), cfg, GREEDY,
+                            "dequant_matmul_ordered", f"serve-paged {kv}")
+        st = q["sched"].cache_stats()
+        if not st["bytes"]["saved_quantized"] > 0:
+            raise AssertionError(f"{kv}: {st['bytes']}")
+        out[kv] = _paged_summary(q) | {"vs_fp": _quantized_gap(fp, q)}
+        gap = out[kv]["vs_fp"]
+        line("serve-paged", f"{kv}: {gap['requests_ids_equal']} of 8 "
+             f"requests' greedy ids equal fp pages'; logit gap "
+             f"{gap['first_token_gap']:.3g} at the first token, "
+             f"{gap['max_logit_gap']:.3g} up to the first differing id "
+             f"(max|logit| {gap['max_logit']:.3g}); bytes per page "
+             f"{st['bytes']['per_page']} (fp "
+             f"{fp['sched'].cache_stats()['bytes']['per_page']}), "
+             f"saved_quantized {st['bytes']['saved_quantized']}; steady "
+             f"step {q['steady_ms_per_step']:.2f} ms")
+    long = {kv: _recorded_serve(_sibling(engine, kv, LONG_MAX_SEQ), cfg,
+                                GREEDY, "dequant_matmul_ordered",
+                                f"serve-paged {kv} max_seq {LONG_MAX_SEQ}")
+            for kv in ("dense", PAGED)}
+    _bit_equal(long["dense"], long[PAGED], f"max_seq {LONG_MAX_SEQ}")
+    out[f"max_seq {LONG_MAX_SEQ}"] = {kv: _paged_summary(r)
+                                      for kv, r in long.items()}
+    d, p = long["dense"], long[PAGED]
+    line("serve-paged", f"max_seq {LONG_MAX_SEQ}: dense and {PAGED} greedy "
+         f"logits and ids bit-equal; steady step dense "
+         f"{d['steady_ms_per_step']:.2f} / paged {p['steady_ms_per_step']:.2f}"
+         f" ms; max_memory_allocated above what was allocated before each "
+         f"run (the params, earlier runs) dense "
+         f"{(d['peak_bytes'] - d['allocated_before_bytes']) / 2**30:.3f} / "
+         f"paged {(p['peak_bytes'] - p['allocated_before_bytes']) / 2**30:.3f}"
+         f" GiB; paged "
+         f"pool {p['sched'].cache_stats()['bytes']['pool']} bytes, peak live "
+         f"{p['sched'].cache_stats()['bytes']['peak_live']}, dense_equiv "
+         f"{p['sched'].cache_stats()['bytes']['dense_equiv']}")
+    del long
+    # release the pool (and its captured step), then serve again; the
+    # allocated bytes are read with no recorded logits alive
+    eng = _sibling(engine, PAGED)
+    first = _recorded_serve(eng, cfg, GREEDY, "dequant_matmul_ordered",
+                            "serve-paged before release_cache")
+    sched = first["sched"]
+    first_logits = {k: v.cpu() for k, v in first.pop("logits").items()}
+    held = torch.cuda.memory_allocated()
+    if not sched.release_cache() or eng.graphs:
+        raise AssertionError("release_cache kept the pool or its graph")
+    released = torch.cuda.memory_allocated()
+    again = _recorded_serve(eng, cfg, GREEDY, "dequant_matmul_ordered",
+                            "serve-paged after release_cache", sched)
+    again["logits"] = {k: v.cpu() for k, v in again["logits"].items()}
+    _bit_equal(first | {"logits": first_logits}, again,
+               "after release_cache")
+    if eng.captures != 2 or sched.cache_stats()["builds"] != 2:
+        raise AssertionError(f"release: {eng.captures} captures")
+    out["release"] = {"allocated_with_cache": held,
+                      "allocated_released": released,
+                      "allocated_again": torch.cuda.memory_allocated(),
+                      "pool_bytes": sched.cache_stats()["bytes"]["pool"],
+                      "captures": eng.captures, "ids_equal": True}
+    r = out["release"]
+    line("serve-paged", f"release_cache: {(held - released) / 2**20:.2f} "
+         f"MiB freed (the pool {r['pool_bytes'] / 2**20:.2f} MiB, its "
+         f"graph's buffers); serving the same requests again built a "
+         f"second pool and a second capture "
+         f"({(r['allocated_again'] - released) / 2**20:.2f} MiB allocated "
+         f"again): ids and greedy logits equal the first serve's")
+    return out
+
+
+def _http_post(port: int, body: dict) -> list:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request("POST", "/v1/generate", json.dumps(body),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        out, event = [], None
+        for raw in resp.read().decode("utf-8").split("\n"):
+            if raw.startswith("event: "):
+                event = raw[len("event: "):]
+            elif raw.startswith("data: "):
+                out.append((event, json.loads(raw[len("data: "):])))
+        return out
+    finally:
+        conn.close()
+
+
+def _http_get(port: int, path: str) -> dict:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", path)
+        return json.loads(conn.getresponse().read())
+    finally:
+        conn.close()
+
+
+def phase_http(engine, cfg) -> dict:
+    """Phase 23: the HTTP/SSE front end (``ServingServer`` on
+    127.0.0.1:0) over a ``PAGED`` engine on ``engine``'s params, whose
+    step the server's loop thread captures and replays: 8 clients on
+    threads at once, each SSE stream start / 16 tokens / done, the seeded
+    ids those of the same requests through a ``Scheduler`` without the
+    server, K1 108 a step; ``/v1/health`` names the layout and
+    ``/v1/stats`` gives TTFT and inter-token latency."""
+    import threading
+
+    from repro_torch.serving import ServingServer
+
+    served = _sibling(engine, PAGED)
+    srv = ServingServer(served, max_batch=4, prompt_budget=40, scfg=SEEDED,
+                        seed=0, queue_capacity=16)
+    reqs = _paged_requests(cfg)
+    results: dict = {}
+
+    def client(req):
+        results[req.rid] = _http_post(srv.port, {
+            "prompt": [int(t) for t in req.prompt], "max_new_tokens": 16,
+            "seed": req.seed})
+
+    reset_counts()
+    srv.start()
+    try:
+        health = _http_get(srv.port, "/v1/health")
+        threads = [threading.Thread(target=client, args=(r,)) for r in reqs]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("http: a client did not finish")
+        stats = _http_get(srv.port, "/v1/stats")
+    finally:
+        srv.shutdown(drain=False, timeout=60)
+    counts = read_counts()
+    steps = srv.loop.scheduler.steps
+    expect_counts(counts, {"dequant_matmul_ordered":
+                           mlp_launches(cfg) * steps},
+                  f"http ({steps} decode steps)")
+    if health["kv"] != PAGED or served.captures != 1:
+        raise AssertionError(f"http: health {health}, {served.captures} "
+                             "captures")
+    ids = {}
+    for rid, events in sorted(results.items()):
+        kinds = [k for k, _ in events]
+        if kinds != ["start"] + ["token"] * 16 + ["done"]:
+            raise AssertionError(f"http: request {rid}'s stream {kinds}")
+        ids[rid] = [p["token"] for k, p in events if k == "token"]
+    solo = Scheduler(_sibling(engine, PAGED), max_batch=4, prompt_budget=40,
+                     scfg=SEEDED, seed=0)
+    for req in reqs:
+        solo.submit(req)
+    want = {k: r.output for k, r in sorted(solo.run().items())}
+    if ids != want:
+        raise AssertionError(f"http: ids {ids} differ from the scheduler's "
+                             f"{want}")
+    lat = stats["latency_ms"]
+    out = {"health": health, "stats": stats, "wall_s": wall,
+           "decode_steps": steps, "launches": counts["dequant_matmul_ordered"],
+           "decode_mode": served.decode_mode, "ids_equal": True}
+    line("http", f"{describe(cfg)} behind ServingServer (kv "
+         f"{health['kv']}): 8 concurrent SSE clients, 16 tokens each in "
+         f"{wall:.2f}s, every stream start/token x16/done; seeded ids equal "
+         f"the same requests through a Scheduler; dequant_matmul_ordered "
+         f"{counts['dequant_matmul_ordered']} = {mlp_launches(cfg)} x "
+         f"{steps} steps (the loop thread's captured step: "
+         f"{served.decode_mode}); TTFT p50 {lat['ttft']['p50']} / p90 "
+         f"{lat['ttft']['p90']} ms, ITL p50 {lat['itl']['p50']} / p90 "
+         f"{lat['itl']['p90']} ms; tokens/s "
+         f"{stats['tokens']['per_s']}; cache prefix hits "
+         f"{stats['cache']['prefix']['hits']}")
+    return out
+
+
 def _entry(name, source, replaces, launches, max_abs_err, t: dict,
            library_ms=None) -> dict:
     return {"name": name, "route": "cuda", "source": source,
@@ -2451,27 +3028,28 @@ def main() -> int:
                              f"{split} split-adds per step, expected {per} "
                              f"and 0")
     scheme_cross = phase_scheme_crosscheck(engine, naive, cfg)
+    # (the greedy paged run it also returns holds the naive params)
+    paged_naive = phase_serve_paged_pair(naive, naive_cfg,
+                                         "dequant_matmul_gidx",
+                                         "serve-paged-naive",
+                                         seeded=False)[0]
     del naive
     torch.cuda.empty_cache()
     forward = phase_forward_flash(engine, cfg)
     materialize = phase_dequantize(engine)
     serve_tp, tp_cross, tp_traces = phase_serve_tp(
-        cfg, greedy_reference(engine, cfg))
+        cfg, greedy_reference(engine, cfg), paged=True)
     artifact = phase_artifact(cfg, memory_reference(engine, cfg, serve))
     artifact_tp = phase_artifact_tp(cfg, serve_tp, tp_traces)
+    serve_paged = phase_serve_paged(engine, cfg)
+    serve_paged["naive"] = paged_naive
+    serve_paged["tp2"] = serve_tp.pop("paged")
+    http = phase_http(engine, cfg)
     del engine
     torch.cuda.empty_cache()
     archs, refs = phase_serve_archs()
-    tp_archs, arch_traces = phase_serve_tp_archs(refs)
-    granite = arch_config("granite-3-8b").with_quant(
-        mode="mlp", scheme="tp-aware", backend="auto")
-    artifact_granite = {
-        "tp1": phase_artifact(granite, refs["granite-3-8b"],
-                              "artifact granite-3-8b"),
-        "tp2": phase_artifact_tp(granite,
-                                 tp_archs["granite-3-8b"]["serve_tp"],
-                                 arch_traces["granite-3-8b"],
-                                 "artifact-tp granite-3-8b")}
+    tp_archs = phase_serve_tp_archs(refs)
+    artifact_granite = phase_artifact_granite()
     long_forward = phase_long_forward()
 
     src = "src/repro_torch/csrc/"
@@ -2511,6 +3089,40 @@ def main() -> int:
                checks["dequant_matmul_wire_ordered"]["main_max_abs_err"],
                timing["dequant_matmul_wire_ordered"]["int8"]),
     ]
+    # K2 on starcoder2's long forward (phase 21), timed in phase 4
+    fl = timing["flash_attention_long"]
+    kernels.append(_entry(
+        "flash_attention (starcoder2-3b S8192 window 4096)",
+        src + "flash_attention.cu", tpu + "flash_attention.py:107",
+        long_forward["flash_launches"], fl["max_abs_err"], fl,
+        fl["library_ms"]))
+    # the same kernels on the paged cache's paths (phases 22 and 23)
+    paged_key = f"greedy {PAGED}"
+    kernels += [
+        _entry(f"dequant_matmul_ordered ({PAGED} serve)",
+               src + "dequant_matmul_ordered.cu",
+               tpu + "dequant_matmul.py:104",
+               serve_paged[paged_key]["launches"],
+               checks["dequant_matmul_ordered"]["main_max_abs_err"],
+               _layer(timing["dequant_matmul_ordered"])),
+        _entry(f"dequant_matmul_gidx ({PAGED} serve)",
+               src + "dequant_matmul_gidx.cu",
+               tpu + "dequant_matmul.py:333",
+               paged_naive[paged_key]["launches"],
+               checks["dequant_matmul_gidx"]["main_max_abs_err"],
+               _layer(timing["dequant_matmul_gidx"])),
+        _entry(f"dequant_matmul_wire_ordered ({PAGED} serve, tp=2)",
+               src + "dequant_matmul_wire_ordered.cu",
+               tpu + "dequant_matmul.py:229",
+               serve_paged["tp2"][0]["counts"]["dequant_matmul_wire_ordered"],
+               checks["dequant_matmul_wire_ordered"]["main_max_abs_err"],
+               timing["dequant_matmul_wire_ordered"]["int8"]),
+        _entry("dequant_matmul_ordered (HTTP serve)",
+               src + "dequant_matmul_ordered.cu",
+               tpu + "dequant_matmul.py:104", http["launches"],
+               checks["dequant_matmul_ordered"]["main_max_abs_err"],
+               _layer(timing["dequant_matmul_ordered"])),
+    ]
     # the same kernels on the other archs' paths (phases 18 and 19), per
     # layer at M=4 (K3: one rank's down projection, int8 wire)
     for a in ARCHS:
@@ -2548,10 +3160,14 @@ def main() -> int:
                    "artifact": artifact, "artifact_tp": artifact_tp,
                    "serve_archs": archs, "serve_tp_archs": tp_archs,
                    "artifact_granite": artifact_granite,
-                   "long_forward": long_forward, "kernels": kernels,
+                   "long_forward": long_forward,
+                   "serve_paged": serve_paged, "http": http,
+                   "kernels": kernels, "phase_seconds": phase_seconds(),
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
-    line("done", f"chip_smoke.py in {time.perf_counter() - t_start:.1f}s")
+    line("done", f"chip_smoke.py in {time.perf_counter() - t_start:.1f}s; "
+                 "by phase: " + ", ".join(
+                     f"{k} {v:.1f}" for k, v in phase_seconds().items()))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,9 +4,11 @@
 ``backend`` keys the kernel registry (``kernels/dispatch.py``);
 ``collective`` is a ``CollectiveSpec`` or a per-layer ``CollectivePlan``
 (or a shorthand of either) that ``comm/dispatch.py`` runs at each row-TP
-epilogue; ``mesh`` is a ``MeshPlan`` (``dp1xtpN``).  What is not ported
-yet raises ``ValueError`` naming the slice of ``ROADMAP.md`` that ports
-it: the paged KV cache, ``dp > 1`` and ``:overlap`` collectives.
+epilogue; ``kv`` is a ``PageSpec`` (the decode cache's layout:
+``dense`` or ``paged:N[:int8|:int4]``); ``mesh`` is a ``MeshPlan``
+(``dp1xtpN``).  What is not ported yet raises ``ValueError`` naming the
+slice of ``ROADMAP.md`` that ports it: ``dp > 1`` and ``:overlap``
+collectives.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Any, Optional, Union
 
 import torch
 
+from repro_torch.cache.spec import PageSpec
 from repro_torch.comm.spec import (CollectivePlan, CollectiveSpec,
                                    parse_collective)
 from repro_torch.dist.topology import MeshPlan
@@ -41,6 +44,9 @@ class ExecutionPolicy:
     accum_dtype: Any = torch.float32
     collective: Union[CollectiveSpec, CollectivePlan, str] = CollectiveSpec()
     tiling: KernelTiling = KernelTiling()
+    # Decode-cache layout (``PageSpec``): dense per-slot rows, or a shared
+    # page pool ("paged:16", "paged:16:int8", ...); shorthands parse in
+    # __post_init__, as ``collective`` does.
     kv: Any = None
     mesh: Any = None
 
@@ -62,12 +68,8 @@ class ExecutionPolicy:
                              f"got accum_dtype={self.accum_dtype}")
         object.__setattr__(self, "collective",
                            parse_collective(self.collective))
+        object.__setattr__(self, "kv", PageSpec.parse(self.kv))
         object.__setattr__(self, "mesh", MeshPlan.parse(self.mesh))
-        if self.kv not in (None, "dense"):
-            raise ValueError(
-                f"KV-cache layout {self.kv!r} is not ported yet: only the "
-                "dense cache exists until the serving-stack slice "
-                "(ROADMAP.md queue 1, item 7)")
 
     def with_(self, **kw) -> "ExecutionPolicy":
         return dataclasses.replace(self, **kw)
@@ -92,8 +94,7 @@ class ExecutionPolicy:
         """The plan recorded in a ``ModelConfig`` (its ``quant``) or a
         ``QuantConfig``; ``backend="auto"`` resolves for ``device``."""
         qc = getattr(cfg, "quant", cfg)
-        kv = ("dense" if qc.kv_page_size is None and qc.kv_bits is None
-              else f"paged:{qc.kv_page_size}:{qc.kv_bits}")
+        kv = PageSpec(page_size=qc.kv_page_size, bits=qc.kv_bits)
         kw = dict(compute_dtype=qc.compute_dtype, collective=qc.collective,
                   kv=kv)
         if qc.backend == "auto":

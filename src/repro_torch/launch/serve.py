@@ -7,7 +7,8 @@ one-shot lifecycle, and prepare-once / serve-many).
         [--smoke] [--scheme tp-aware] [--backend auto|cuda|torch|ref] \
         [--tp 2 --collective quant-int8:fused] \
         [--requests 8 --max-new 16 --prompt-budget 32 --max-batch 4 \
-         --temperature 0.8 --seed 0] [--device cpu]
+         --temperature 0.8 --seed 0] [--kv-page-size 16 [--kv-bits 8]] \
+        [--http [HOST]:PORT [--queue-capacity 64]] [--device cpu]
 
 * prepare once, serve many (the paper's a-priori plan, on disk):
 
@@ -28,6 +29,14 @@ one-shot lifecycle, and prepare-once / serve-many).
   choice at load, whatever backend the manifest names
   (``plan/artifact.py``).
 
+``--kv-page-size N [--kv-bits 8|4]`` serves from the paged KV cache
+(``cache/``): on the in-memory plan through the config, and over an
+``--artifact`` as a runtime override of its policy, never of its config
+(the cache layout is runtime-only).  ``--http [HOST]:PORT`` serves the
+same engine over HTTP/SSE (``serving/``: ``POST /v1/generate``,
+``GET /v1/health``, ``GET /v1/stats``; ``:0`` binds a free port) instead
+of the synthetic requests; it needs one rank (``--tp 1``).
+
 Runs on the CUDA card unless ``--device cpu`` is given; without a card it
 exits with an error naming the missing card.  ``--tp N`` spawns N rank
 processes (``launch/mesh.py``): each builds its slices of the plan from
@@ -45,6 +54,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.cache.spec import PageSpec
 from repro_torch.comm.spec import parse_collective
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core.policy import ExecutionPolicy
@@ -62,7 +72,9 @@ def _build_cfg(args, backend: str = "auto"):
     cfg = (get_smoke_config(args.arch) if args.smoke
            else get_config(args.arch))
     return cfg.with_quant(mode="mlp", scheme=args.scheme, backend=backend,
-                          collective=args.collective)
+                          collective=args.collective,
+                          kv_page_size=args.kv_page_size,
+                          kv_bits=args.kv_bits)
 
 
 def _collective(value: str) -> str:
@@ -83,6 +95,12 @@ def _plan_args(ap: argparse.ArgumentParser):
                          "quant-int4[:block][:fused], none, or a "
                          "'per-layer:<glob>=<spec>,...' plan")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kv-page-size", type=int, default=None,
+                    help="serve from the paged KV cache with pages of this "
+                         "many tokens (default: dense per-slot rows)")
+    ap.add_argument("--kv-bits", type=int, default=None, choices=[8, 4],
+                    help="quantize the pages to int8 or int4 (needs "
+                         "--kv-page-size)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
 
@@ -135,20 +153,31 @@ def _artifact_plan(args, device):
     cfg = cfg.with_quant(**man["quant"])
     policy = art.policy(backend=args.backend, device=device).with_(
         mesh=MeshPlan(tp=args.tp))
+    if args.kv_page_size is not None or args.kv_bits is not None:
+        # the cache layout is runtime-only: the flags override the
+        # manifest's on the policy, never on cfg (its hash is the plan's)
+        policy = policy.with_(kv=PageSpec(page_size=args.kv_page_size,
+                                          bits=args.kv_bits))
     return cfg, policy
 
 
-def _serve(args, device, group=None, transport="1 device"):
-    """Build the engine (this rank's slices under TP), serve the seeded
-    requests, and return (ids by request, the lines rank 0 prints, this
-    rank's artifact ledger or None)."""
+def _engine(args, device, group=None):
+    """(cfg, the engine: this rank's slices under TP)."""
     if args.artifact:
         cfg, policy = _artifact_plan(args, device)
     else:
         cfg, policy = _build_cfg(args, args.backend), None
     max_seq = args.prompt_budget + args.max_new + 1
-    engine = make_engine(cfg, args.seed, device=device, max_seq=max_seq,
-                         policy=policy, group=group, artifact=args.artifact)
+    return cfg, make_engine(cfg, args.seed, device=device, max_seq=max_seq,
+                            policy=policy, group=group,
+                            artifact=args.artifact)
+
+
+def _serve(args, device, group=None, transport="1 device"):
+    """Build the engine, serve the seeded requests, and return (ids by
+    request, the lines rank 0 prints, this rank's artifact ledger or
+    None)."""
+    cfg, engine = _engine(args, device, group)
     policy = engine.policy
     sched = Scheduler(engine, max_batch=args.max_batch,
                       prompt_budget=args.prompt_budget,
@@ -177,8 +206,8 @@ def _serve(args, device, group=None, transport="1 device"):
         f"\n{len(done)} requests, {total_new} tokens in {dt:.1f}s "
         f"({total_new / dt:.1f} tok/s) [scheme={policy.scheme} "
         f"backend={policy.backend} collective="
-        f"{policy.collective.shorthand()} mesh={policy.mesh.shorthand()} "
-        f"({transport}) "
+        f"{policy.collective.shorthand()} kv={policy.kv.shorthand()} "
+        f"mesh={policy.mesh.shorthand()} ({transport}) "
         f"device={device} {source}]")
     lines.append(f"decode step: {engine.decode_mode}")
     st = engine.load_stats
@@ -186,6 +215,29 @@ def _serve(args, device, group=None, transport="1 device"):
         f"resident_artifact_bytes={st.file_bytes_loaded}/"
         f"{st.file_bytes_total} ranks={list(st.ranks)}")
     return {rid: r.output for rid, r in done.items()}, lines, resident
+
+
+def _serve_http(args, device):
+    """Serve the engine over HTTP/SSE until interrupted (then drain)."""
+    from repro_torch.serving import ServingServer
+
+    cfg, engine = _engine(args, device)
+    policy = engine.policy
+    host, _, port = args.http.rpartition(":")
+    srv = ServingServer(
+        engine, host=host or "127.0.0.1", port=int(port or 0),
+        max_batch=args.max_batch, prompt_budget=args.prompt_budget,
+        scfg=SamplingConfig(temperature=args.temperature, top_k=40),
+        seed=args.seed, queue_capacity=args.queue_capacity)
+    source = f"artifact={args.artifact}" if args.artifact else \
+        "in-memory plan"
+    print(f"serving {cfg.arch_id} on http://{srv.address[0]}:{srv.port} "
+          f"[scheme={policy.scheme} backend={policy.backend} "
+          f"collective={policy.collective.shorthand()} "
+          f"kv={policy.kv.shorthand()} tp=1 max_batch={args.max_batch} "
+          f"queue={args.queue_capacity} device={device} {source}]",
+          flush=True)
+    srv.serve_forever()
 
 
 def _serve_rank(ctx, args):
@@ -219,12 +271,27 @@ def main(argv=None):
     ap.add_argument("--tp", type=int, default=None,
                     help="tensor-parallel ranks, one process each "
                          "(default: the artifact's, else 1)")
+    ap.add_argument("--http", default=None, metavar="[HOST]:PORT",
+                    help="serve over HTTP/SSE instead of the synthetic "
+                         "requests: POST /v1/generate streams token events, "
+                         "GET /v1/health, GET /v1/stats (':0' binds a free "
+                         "port)")
+    ap.add_argument("--queue-capacity", type=int, default=64,
+                    help="admission queue bound; a full wait line answers "
+                         "429 + Retry-After (HTTP mode)")
     args = ap.parse_args(argv)
 
     device = _device(args)
     if args.tp is None:
         args.tp = (DeploymentArtifact.load_manifest(args.artifact)["tp"]
                    if args.artifact else 1)
+    if args.http is not None:
+        if args.tp > 1:
+            raise SystemExit(
+                f"error: --http serves one rank; at --tp {args.tp} the ranks "
+                "are separate processes, and a front end over them is "
+                "ROADMAP.md queue 1, item 9")
+        return _serve_http(args, device)
     if args.tp > 1:
         results = mesh.run(_serve_rank, args.tp, args,
                            device_type=device.type)

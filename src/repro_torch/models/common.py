@@ -290,8 +290,8 @@ def attention_forward(cfg: ModelConfig, p, x, *, positions=None,
 
 
 def attention_decode(cfg: ModelConfig, p, x, cache, pos, *, window=None,
-                     group=None):
-    """One-token decode over a dense KV cache.
+                     group=None, pages=None, kv_len=None):
+    """One-token decode over a dense KV cache or a page pool.
 
     x: (B, 1, d); cache: {"k", "v": (B, C, KV, D)}; pos: an int (all rows
     in lockstep) or a (B,) tensor of per-slot positions.  The new token's
@@ -299,6 +299,15 @@ def attention_decode(cfg: ModelConfig, p, x, cache, pos, *, window=None,
     new cache; updating in place keeps one copy on the card, and is the
     counterpart of the reference's ``donate_argnums``).  Returns
     (out, cache).
+
+    ``pages``: (B, Pmax) per-slot page table; ``cache`` is then one
+    layer's page pool {"k","v": (N_pages, page_size, KV, D)} (plus
+    scale/zero leaves for quantized pages; ``cache/paged.py``).  The token
+    scatters into ``(pages[b, pos // ps], pos % ps)``, then the first
+    ``kv_len`` positions (the dense cache's capacity, the engine's
+    ``max_seq``; required with ``pages``) are gathered back and masked
+    ``j <= pos``: an fp pool gives the dense step's bits.  A paged step
+    takes per-slot positions and no window, as the reference's does.
 
     The per-slot path builds nothing on the host and never reads a
     position back, so a CUDA graph can hold it (``Engine.decode``); the
@@ -323,6 +332,27 @@ def attention_decode(cfg: ModelConfig, p, x, cache, pos, *, window=None,
                 else torch.full((b, 1), int(pos), device=x.device))
         q = rope(q, posv, cfg.rope_theta)
         k = rope(k, posv, cfg.rope_theta)
+
+    if pages is not None:
+        from repro_torch.cache import paged as paged_pool
+
+        if window is not None:
+            raise ValueError("paged decode does not take a ring-buffer "
+                             "window (windowed caches are fixed-size per "
+                             "slot and stay dense)")
+        if not per_slot:
+            raise ValueError("paged decode requires per-slot (B,) "
+                             "positions (the page table is per slot)")
+        if kv_len is None:
+            raise ValueError("paged decode requires kv_len (the dense "
+                             "capacity the gather returns)")
+        paged_pool.scatter_token(cache, k[:, 0], v[:, 0], pages, pos)
+        cap = kv_len
+        kk, vv = paged_pool.gather(cache, pages, cap)   # (B, cap, KV, D)
+        valid = torch.arange(cap, device=x.device)[None, :] <= pos[:, None]
+        mask = valid[:, None, :].expand(b, 1, cap)
+        out = _sdpa(q, kk.to(x.dtype), vv.to(x.dtype), mask)
+        return _out_proj(p, out, group), cache
 
     ck, cv = cache["k"], cache["v"]
     cap = ck.shape[1]
@@ -357,6 +387,20 @@ def init_kv_cache(cfg: ModelConfig, num_layers: int, batch: int,
     shape = (num_layers, batch, cap, kvp // tp, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def init_paged_kv_cache(cfg: ModelConfig, num_layers: int, n_pages: int,
+                        page_size: int, *, bits=None, dtype=torch.bfloat16,
+                        device=None, tp: int = 1) -> dict:
+    """Layer-stacked page pool of this rank's KV heads, replacing
+    ``init_kv_cache``'s dense rows: leaves (L, N_pages, page_size,
+    KVp / tp, D) — see ``cache/paged.py``."""
+    from repro_torch.cache import paged as paged_pool
+
+    kvp, _, _ = head_grid(cfg)
+    return paged_pool.init_pool((num_layers,), n_pages, page_size, kvp // tp,
+                                cfg.head_dim, dtype=dtype, bits=bits,
+                                device=device)
 
 
 # ---------------------------------------------------------------------------

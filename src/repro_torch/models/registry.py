@@ -72,10 +72,29 @@ class Model:
                                       dtype=dtype,
                                       device=resolve_device(device), tp=tp)
 
+    def init_paged_cache(self, n_pages: int, page_size: int, *,
+                         bits=None, dtype=torch.bfloat16,
+                         device: DeviceLike = None, tp: int = 1):
+        """A page pool in place of ``init_cache``'s dense rows, for the
+        families whose KV grows with the sequence."""
+        if not self.supports_paged:
+            raise ValueError(
+                f"family {self.cfg.family!r} has no paged cache (its decode "
+                "state is fixed-size per slot)")
+        return self.module.init_paged_cache(
+            self.cfg, n_pages, page_size, bits=bits, dtype=dtype,
+            device=resolve_device(device), tp=tp)
+
+    @property
+    def supports_paged(self) -> bool:
+        return hasattr(self.module, "init_paged_cache")
+
     def decode_step(self, params, cache, tokens, pos,
-                    policy: ExecutionPolicy, *, window=None, group=None):
+                    policy: ExecutionPolicy, *, window=None, group=None,
+                    pages=None, kv_len=None):
         return self.module.decode_step(self.cfg, params, cache, tokens, pos,
-                                       policy, window=window, group=group)
+                                       policy, window=window, group=group,
+                                       pages=pages, kv_len=kv_len)
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -104,17 +104,29 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *, window=None,
                             window=window, dtype=dtype, device=device, tp=tp)
 
 
+def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int, *,
+                     bits=None, dtype=torch.bfloat16, device=None,
+                     tp: int = 1) -> dict:
+    """The page pool for all layers, ``n_pages`` pages."""
+    return cm.init_paged_kv_cache(cfg, cfg.num_layers, n_pages, page_size,
+                                  bits=bits, dtype=dtype, device=device,
+                                  tp=tp)
+
+
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos,
-                policy: ExecutionPolicy, *, window=None, group=None):
+                policy: ExecutionPolicy, *, window=None, group=None,
+                pages=None, kv_len=None):
     """One-token decode. tokens: (B,), pos: int or (B,) -> (logits (B, V),
-    cache); the cache is updated in place."""
+    cache); the cache is updated in place.  With ``pages`` (B, Pmax) the
+    cache is the page pool, sliced per layer as the dense cache is, and
+    ``kv_len`` the positions attention reads (``attention_decode``)."""
     x = cm.embed_tokens(cfg, params["embed"], tokens[:, None], group=group)
     for i, lp in enumerate(params["layers"]):
-        layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
+        layer_cache = {name: leaf[i] for name, leaf in cache.items()}
         h, _ = cm.attention_decode(cfg, lp["attn"],
                                    cm.apply_norm(cfg, lp["ln1"], x),
                                    layer_cache, pos, window=window,
-                                   group=group)
+                                   group=group, pages=pages, kv_len=kv_len)
         x = _mlp_residual(cfg, lp, x, h, policy, group).to(x.dtype)
     x = cm.apply_norm(cfg, params["final_norm"], x)
     return cm.lm_head(cfg, params["embed"], x, group=group)[:, 0], cache

@@ -76,7 +76,7 @@ def policy_fields(policy: ExecutionPolicy) -> dict:
         "compute_dtype": str(policy.compute_dtype).removeprefix("torch."),
         "accum_dtype": str(policy.accum_dtype).removeprefix("torch."),
         "collective": policy.collective.shorthand(),
-        "kv": policy.kv or "dense",
+        "kv": policy.kv.shorthand(),
         "mesh": policy.mesh.shorthand(),
     }
 
@@ -182,13 +182,13 @@ class DeploymentArtifact:
     def policy(self, *, backend: Optional[str] = None,
                device: Optional[torch.device] = None) -> ExecutionPolicy:
         """The manifest's plan as a port policy for the artifact's TP
-        degree.  ``backend``: None takes the manifest's, by its port name;
-        ``"auto"`` the port's rule for ``device``; any other the backend
-        named."""
+        degree, its recorded ``kv`` layout included.  ``backend``: None
+        takes the manifest's, by its port name; ``"auto"`` the port's rule
+        for ``device``; any other the backend named."""
         p = self.manifest["policy"]
         kw = dict(compute_dtype=p["compute_dtype"],
                   accum_dtype=p["accum_dtype"], collective=p["collective"],
-                  mesh=MeshPlan(tp=self.tp))
+                  kv=p.get("kv", "dense"), mesh=MeshPlan(tp=self.tp))
         if backend == "auto":
             return ExecutionPolicy.auto(p["scheme"], device=device, **kw)
         if backend is None:

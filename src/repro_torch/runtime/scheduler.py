@@ -1,12 +1,25 @@
-"""Continuous-batching request scheduler on the dense cache; port of
+"""Continuous-batching request scheduler; port of
 ``repro/runtime/scheduler.py`` (``Request``, ``StepEvent``, ``Scheduler``
-in continuous mode; the paged cache and batch-drain modes follow later).
+in continuous mode, on the dense cache or the paged one; the batch-drain
+mode, which serves only the audio and vision families, comes with those
+families, ROADMAP.md queue 1, item 10).
 
 One fixed-shape decode program steps all ``max_batch`` slots together,
 each slot on its own clock; a finished slot takes the next queued request
 at the next step boundary.  Prompt replay and generation are the same
 decode loop.  The causal mask hides other slots' cache rows, so a
 request's tokens do not depend on which other requests share the batch.
+
+Paged mode (``engine.uses_page_table``): a ``PagedCacheManager`` owns
+per-slot page tables over a shared page pool.  Admission reserves each
+request's worst-case page count, so growth never deadlocks mid-decode,
+and credits prefix-shared pages: complete leading prompt pages that an
+earlier request wrote skip replay (``fed0``).  The queue is FIFO; a head
+the pool cannot hold yet waits (``can_admit``) rather than failing.
+
+Cache lifetime: the decode cache (dense rows or the pool) is built on the
+first step and freed by ``release_cache`` while idle, with the engine's
+captured steps on it and the prefix LRU.
 
 Each request owns a ``torch.Generator`` seeded from ``req.seed`` or from
 (scheduler seed, rid); it draws only on the steps where the request emits
@@ -22,6 +35,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.cache import PagedCacheManager
+from repro_torch.cache import paged as paged_pool
 from repro_torch.device import derive_seed, new_generator
 from repro_torch.runtime import sampling
 from repro_torch.runtime.serve import Engine
@@ -64,7 +79,7 @@ class Scheduler:
     def __init__(self, engine: Engine, *, max_batch: int = 8,
                  prompt_budget: int = 128,
                  scfg: sampling.SamplingConfig = sampling.SamplingConfig(),
-                 seed: int = 0):
+                 seed: int = 0, n_pages: Optional[int] = None):
         self.engine = engine
         self.max_batch = max_batch
         self.prompt_budget = prompt_budget
@@ -77,6 +92,12 @@ class Scheduler:
         self._cache = None
         self._slots: list[Optional[_Slot]] = []
         self._step_no = 0
+        self._cache_builds = 0
+        self.manager = None
+        if engine.uses_page_table:
+            self.manager = PagedCacheManager(
+                engine.policy.kv, max_batch=max_batch,
+                max_seq=engine.max_seq, n_pages=n_pages)
 
     def submit(self, req: Request):
         family = self.engine.model.cfg.family
@@ -92,7 +113,27 @@ class Scheduler:
             raise ValueError(
                 f"prompt {req.prompt.size} + max_new {req.max_new_tokens} "
                 f"> engine max_seq {self.engine.max_seq}")
+        if self.manager is not None:
+            worst = self.manager.pages_needed(req.prompt.size,
+                                              req.max_new_tokens)
+            if worst > self.manager.n_pages:
+                raise ValueError(
+                    f"request {req.rid} needs {worst} pages worst-case but "
+                    f"the pool only has {self.manager.n_pages} — it can "
+                    "never be admitted")
         self.queue.append(req)
+
+    def can_admit(self, req: Request) -> bool:
+        """Would ``step()`` admit this request now, given a free slot?
+        Always for a dense cache; in paged mode its worst-case pages must
+        fit the pool beside everything live or already queued."""
+        if self.manager is None:
+            return True
+        pending = sum(self.manager.pages_needed(r.prompt.size,
+                                                r.max_new_tokens)
+                      for r in self.queue)
+        return self.manager.can_admit(req.prompt.size, req.max_new_tokens,
+                                      pending_pages=pending)
 
     def cancel(self, rid: int) -> bool:
         """Retire a request: a queued one at once, a live one at the next
@@ -134,15 +175,69 @@ class Scheduler:
         self.finished[req.rid] = req
         if cancelled:
             events.append(StepEvent(req.rid, None, True, cancelled=True))
+        self._retire_slot(i)
+
+    def _retire_slot(self, i: int):
+        """Free slot ``i``: in paged mode its pages go back (complete
+        shared prefix pages park in the allocator's LRU)."""
         self._slots[i] = None
+        if self.manager is not None:
+            self.manager.release(i)
+
+    def _build_cache(self):
+        b = self.max_batch
+        if self.manager is not None:
+            # pool_pages = n_pages + 1: idle lanes scatter into the
+            # trailing scratch page (cache/manager.py)
+            self._cache = self.engine.init_paged_cache(
+                self.manager.pool_pages)
+            (self.manager.page_bytes,
+             self.manager.page_bytes_fp) = paged_pool.pool_page_bytes(
+                 self._cache, self.manager.pool_pages)
+        else:
+            self._cache = self.engine.init_cache(b)
+        self._slots = [None] * b
+        self._cache_builds += 1
+
+    def release_cache(self) -> bool:
+        """Drop the decode cache while idle, so a long-lived serving loop
+        does not hold peak-batch cache memory between bursts; the engine's
+        captured steps on it and the prefix LRU (whose pages index the
+        pool) go with it.  False (a no-op) while a request is live or
+        queued, or with no cache; the next ``step()`` builds it again."""
+        if self.live_slots or self.queue or self._cache is None:
+            return False
+        if self.manager is not None:
+            self.manager.reset()
+        self.engine.release(self._cache)
+        self._cache = None
+        self._slots = []
+        return True
+
+    def cache_stats(self) -> dict:
+        """Cache telemetry for the stats endpoint, in the reference's
+        keys."""
+        out: dict = {"allocated": self._cache is not None,
+                     "builds": self._cache_builds}
+        if self.manager is None:
+            out["spec"] = "dense"
+            if self._cache is not None:
+                out["bytes"] = {"pool": sum(
+                    t.numel() * t.element_size()
+                    for t in self._cache.values())}
+            return out
+        out.update(self.manager.stats())
+        out["per_request_pages"] = {
+            s.req.rid: self.manager.slot_pages(i)
+            for i, s in enumerate(self._slots) if s is not None}
+        return out
 
     def step(self) -> list[StepEvent]:
         """One admission + decode step; returns a ``StepEvent`` per request
         that emitted a token or was retired."""
         b = self.max_batch
         if self._cache is None:
-            self._cache = self.engine.init_cache(b)
-            self._slots = [None] * b
+            self._build_cache()
         slots = self._slots
         events: list[StepEvent] = []
 
@@ -161,10 +256,21 @@ class Scheduler:
             if slots[i] is not None and slots[i].req.cancelled:
                 self._finish(i, events, cancelled=True)
 
+        # FIFO admission into free slots; in paged mode the head waits
+        # until its worst-case pages fit (no later request jumps it)
         for i in range(b):
             if slots[i] is None and self.queue:
-                req = self.queue.popleft()
-                slots[i] = _Slot(req=req, gen=self._request_generator(req))
+                req = self.queue[0]
+                fed0 = 0
+                if self.manager is not None:
+                    if not self.manager.can_admit(req.prompt.size,
+                                                  req.max_new_tokens):
+                        break
+                    fed0 = self.manager.admit(i, req.prompt,
+                                              req.max_new_tokens)
+                self.queue.popleft()
+                slots[i] = _Slot(req=req, gen=self._request_generator(req),
+                                 fed=fed0)
                 self.admissions.append((self._step_no, req.rid))
         if not any(slots):
             return events
@@ -190,9 +296,15 @@ class Scheduler:
                 gens[i] = s.gen
 
         dev = self.engine.device
+        pages = None
+        if self.manager is not None:
+            for i, s in enumerate(slots):
+                if s is not None:
+                    self.manager.ensure(i, s.fed)   # page for this scatter
+            pages = torch.from_numpy(self.manager.table()).to(dev)
         logits, self._cache = self.engine.decode(
             self._cache, torch.from_numpy(tokens).to(dev),
-            torch.from_numpy(pos).to(dev))
+            torch.from_numpy(pos).to(dev), pages)
         sampled = sampling.sample_slots(
             gens, logits, torch.from_numpy(temperature).to(dev),
             torch.from_numpy(top_p).to(dev),
@@ -202,6 +314,9 @@ class Scheduler:
             if s is None:
                 continue
             s.fed += 1
+            if self.manager is not None:
+                # owned prompt pages now fully written become shareable
+                self.manager.advance(i, s.fed)
             if s.fed >= s.req.prompt.size:
                 s.last = int(sampled[i])
                 s.req.output.append(s.last)

@@ -6,14 +6,20 @@ Prefill replays the prompt through the decode step, exactly as the
 reference does, so prompt and generation share one numeric path.
 ``prefill_logits`` is the full-sequence forward (the reference's
 ``prefill_logits``), whose attention ``attn_backend`` picks.  Batching
-across requests is the scheduler's job (``runtime/scheduler.py``).
+across requests is the scheduler's job (``runtime/scheduler.py``); under
+a paged policy (``policy.kv``) it steps a page pool (``init_paged_cache``)
+through ``decode(..., pages=table)``, while ``prefill`` and ``generate``
+keep the dense cache, as the reference's do.
 
 The reference jits its decode step once (``jax.jit(decode,
 donate_argnums=1)``) and replays that program for every token.  The
 port's counterpart is a CUDA graph: on the card, ``Engine.decode``
 captures the step once per batch size and replays it, writing into the
-cache in place as the donated buffers let XLA do.  ``decode_eager`` is the
-step run op by op; it is what the CPU runs, and what tp > 1 runs.
+cache in place as the donated buffers let XLA do.  A paged step's graph
+also reads the page table from a static buffer that each replay fills
+from the scheduler's table, as it fills tokens and positions.
+``decode_eager`` is the step run op by op; it is what the CPU runs, and
+what tp > 1 runs.
 
 Under tensor parallelism every rank runs its own ``Engine`` over its
 slices of the params with the ranks' process group (``group``); the
@@ -50,9 +56,10 @@ class StepGraph:
     capture counted and cost."""
 
     graph: Any                  # torch.cuda.CUDAGraph
-    cache: tuple                # _cache_key of the cache it writes into
+    cache: tuple                # _step_key of the cache and page table
     tokens: torch.Tensor        # (B,) int64, read by each replay
     pos: torch.Tensor           # (B,) int64, read by each replay
+    pages: Optional[torch.Tensor]  # (B, Pmax) page table (paged), or None
     logits: torch.Tensor        # (B, V) float32, written by each replay
     launches: tuple             # ops.launch_counts() of one replay
     seconds: float              # wall time of the capture
@@ -60,9 +67,18 @@ class StepGraph:
 
 
 def _cache_key(cache) -> tuple:
-    """Where a cache's tensors live: a graph writes into these addresses."""
-    return tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
-                 for t in (cache["k"], cache["v"]))
+    """Where a cache's tensors live, every leaf by name (a dense cache's
+    k/v, a pool's k/v and its quantized pages' scales and zeros): a graph
+    writes into these addresses."""
+    return tuple((name, t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
+                 for name, t in sorted(cache.items()))
+
+
+def _step_key(cache, pages) -> tuple:
+    """What a captured step is bound to: the cache's addresses, and the
+    shape and dtype of the page table it reads (None: a dense step)."""
+    table = None if pages is None else (tuple(pages.shape), pages.dtype)
+    return _cache_key(cache), table
 
 
 def _fill_positions(buf: torch.Tensor, pos) -> None:
@@ -117,6 +133,34 @@ class Engine:
         return self.model.init_cache(batch, self.max_seq, window=self.window,
                                      device=self.device, tp=self.tp)
 
+    @property
+    def supports_continuous(self) -> bool:
+        """The scheduler may step this model at token granularity on
+        per-slot positions: its whole decode state is the position-masked
+        KV cache (the dense family, the one the port has)."""
+        return self.model.cfg.family == "dense"
+
+    @property
+    def uses_page_table(self) -> bool:
+        """Decode steps take a page table: a paged policy and a family
+        whose KV grows with the sequence."""
+        return self.policy.kv.paged and self.model.supports_paged
+
+    def init_paged_cache(self, n_pages: int):
+        """The page pool of ``policy.kv`` with ``n_pages`` physical pages
+        (the manager's ``pool_pages``), this rank's KV heads."""
+        spec = self.policy.kv
+        return self.model.init_paged_cache(n_pages, spec.page_size,
+                                           bits=spec.bits,
+                                           device=self.device, tp=self.tp)
+
+    def release(self, cache) -> None:
+        """Drop the captured steps that write into ``cache`` (it is being
+        freed), so their graph pools go with it."""
+        key = _cache_key(cache)
+        for b in [b for b, g in self.graphs.items() if g.cache[0] == key]:
+            del self.graphs[b]
+
     @torch.inference_mode()
     def prefill_logits(self, tokens: torch.Tensor) -> torch.Tensor:
         """The full-sequence forward: tokens (B, S) -> logits (B, S, V)
@@ -137,41 +181,47 @@ class Engine:
         return f"CUDA graph, {self.captures} captures"
 
     @torch.inference_mode()
-    def decode(self, cache, tokens: torch.Tensor, pos):
+    def decode(self, cache, tokens: torch.Tensor, pos, pages=None):
         """One decode step: tokens (B,), pos int or (B,) -> (logits, cache).
         The cache is updated in place; the logits are the caller's own.
+        ``pages``: the (B, Pmax) page table of a page pool ``cache``.
 
         On the card with one rank this replays the step's CUDA graph, the
         counterpart of the reference's jitted step, bit-equal to
         ``decode_eager``.  The graph is captured at the first call of a
         batch size, and again when that batch size's cache is at other
-        addresses; a capturing call runs its step eagerly first on the
-        capture stream (the kernels build at first use, cuBLAS makes its
-        handle and workspace) and returns that step's logits.  A capture
+        addresses or the step changes between dense and paged; a
+        capturing call runs its step eagerly first on the capture stream
+        (the kernels build at first use, cuBLAS makes its handle and
+        workspace) and returns that step's logits.  A capture
         or a replay that fails raises.  On the CPU, and with a TP group
         (gloo through host memory, which no graph can hold), this is
         ``decode_eager``.
         """
         if self.device.type != "cuda" or self.group is not None:
-            return self.decode_eager(cache, tokens, pos)
+            return self.decode_eager(cache, tokens, pos, pages)
         step = self.graphs.get(tokens.shape[0])
-        if step is None or step.cache != _cache_key(cache):
-            return self._capture(cache, tokens, pos)
+        if step is None or step.cache != _step_key(cache, pages):
+            return self._capture(cache, tokens, pos, pages)
         step.tokens.copy_(tokens)
         _fill_positions(step.pos, pos)
+        if pages is not None:
+            step.pages.copy_(pages)
         step.graph.replay()
         ops.add_launch_counts(step.launches)
         return step.logits.clone(), cache
 
     @torch.inference_mode()
-    def decode_eager(self, cache, tokens: torch.Tensor, pos):
+    def decode_eager(self, cache, tokens: torch.Tensor, pos, pages=None):
         """The decode step run op by op (the reference's un-jitted
-        ``decode``): tokens (B,), pos int or (B,) -> (logits, cache)."""
-        return self.model.decode_step(self.params, cache, tokens, pos,
-                                      self.policy, window=self.window,
-                                      group=self.group)
+        ``decode``): tokens (B,), pos int or (B,) -> (logits, cache).  A
+        paged step's attention reads ``max_seq`` positions, the dense
+        cache's capacity."""
+        return self.model.decode_step(
+            self.params, cache, tokens, pos, self.policy, window=self.window,
+            group=self.group, pages=pages, kv_len=self.max_seq)
 
-    def _capture(self, cache, tokens: torch.Tensor, pos):
+    def _capture(self, cache, tokens: torch.Tensor, pos, pages=None):
         """Run this call's step eagerly on the capture stream, capture the
         step on per-slot positions (the path that reads its positions from
         the card) for this batch size and cache, and return the eager
@@ -184,12 +234,18 @@ class Engine:
         static_pos = torch.empty(b, dtype=torch.int64, device=dev)
         static_tokens.copy_(tokens)
         _fill_positions(static_pos, pos)
+        static_pages = None
+        if pages is not None:
+            static_pages = torch.empty(pages.shape, dtype=pages.dtype,
+                                       device=dev)
+            static_pages.copy_(pages)
         if self._stream is None:
             self._stream = torch.cuda.Stream(dev)
         current = torch.cuda.current_stream(dev)
         self._stream.wait_stream(current)
         with torch.cuda.stream(self._stream):
-            logits, _ = self.decode_eager(cache, static_tokens, static_pos)
+            logits, _ = self.decode_eager(cache, static_tokens, static_pos,
+                                          static_pages)
         logits.record_stream(current)
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
@@ -199,13 +255,14 @@ class Engine:
         t0 = time.perf_counter()
         with torch.cuda.graph(graph, stream=self._stream):
             static_logits, _ = self.decode_eager(cache, static_tokens,
-                                                 static_pos)
+                                                 static_pos, static_pages)
         seconds = time.perf_counter() - t0
         launches = tuple(a - c for a, c in zip(ops.launch_counts(), counts))
         ops.add_launch_counts(-n for n in launches)
         self.graphs[b] = StepGraph(
-            graph=graph, cache=_cache_key(cache), tokens=static_tokens,
-            pos=static_pos, logits=static_logits, launches=launches,
+            graph=graph, cache=_step_key(cache, pages),
+            tokens=static_tokens, pos=static_pos, pages=static_pages,
+            logits=static_logits, launches=launches,
             seconds=seconds,
             pool_bytes=torch.cuda.memory_reserved(dev) - reserved)
         self.captures += 1

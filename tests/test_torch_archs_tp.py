@@ -119,7 +119,7 @@ def _serve_args(artifact: str) -> argparse.Namespace:
         artifact=artifact, tp=2, backend="auto", requests=2, max_new=4,
         prompt_budget=32, max_batch=4, temperature=0.8, seed=0,
         device="cpu", arch="granite-3-8b", smoke=True, scheme="tp-aware",
-        collective="psum")
+        collective="psum", kv_page_size=None, kv_bits=None)
 
 
 def _odd_rank(ctx, ref: dict):

@@ -49,9 +49,9 @@ def test_policy_auto_and_unported_options():
     pol = ExecutionPolicy(collective="quant-int8:64:fused", mesh="dp1xtp2")
     assert pol.collective.shorthand() == "quant-int8:64:fused"
     assert pol.mesh.tp == 2
+    assert ExecutionPolicy(kv="paged:16").kv.shorthand() == "paged:16"
     for kw, slice_name in ((dict(collective="quant-int8:overlap"),
                             "item 9"),
-                           (dict(kv="paged:16"), "serving-stack"),
                            (dict(mesh="dp2xtp2"), "distributed-runtime")):
         with pytest.raises(ValueError, match=slice_name):
             ExecutionPolicy(**kw)
