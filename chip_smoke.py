@@ -159,10 +159,37 @@ Phases, one line each:
      same requests through a ``Scheduler``, 108 K1 launches a step,
      ``/v1/health`` naming the layout, ``/v1/stats`` TTFT and
      inter-token p50 / p90
+ 24. gptq: one qwen3-4b MLP pair at full width (2560 / 9728), random
+     weights and 512 calibration rows made on the card: the Hessians,
+     ``plan_pair(use_gptq=True)`` (the factors' and the codes' seconds)
+     and RTN in the same orders; GPTQ's output error on the calibration
+     rows must be below RTN's (held-out rows reported); the GPTQ pair's
+     three GEMMs through K1 against their plain version at M 4 and 512
+ 25. fold: qwen3-4b at full width, 36 layers, with the attention V->O
+     fold (``attn_tp_aware``): the port's prepare on the card, saved,
+     served from the directory (the aux's bytes); the four requests
+     through the captured step, which launches K1 for the MLP and for V
+     and O (``fold_launches``: 180 a step); a few steps traced beside
+     phase 6's dense step (K1, sgemm, split-add); the captured step
+     bit-equal to ``decode_eager`` over 16 lockstep and 16 per-slot
+     steps; with a float32 carry, each layer on the same input carry
+     within the float32 GEMM tolerance of the same layer with the fold's
+     effective dense ``wv``/``wo`` (``layerwise``); greedy ids against the
+     effective-weights engine reported
+ 26. fold-tp: the fold tuned at tp=2 (``prepare`` with
+     ``autotune=True``; full width, depth cut to 8 layers, printed): the
+     tuned sites printed as the CLI prints them, the rank files and the
+     aux saved and served on two rank processes over gloo, each with its
+     heads of the fold: ids equal on both ranks, K3 where the tuner fused
+     the MLP and K1 for the other GEMMs and V and O; with a float32
+     carry under psum, each layer within the float32 GEMM tolerance of
+     phase 25's tp=1 fold on the same input carries
 
 then the per-kernel JSON line (after the first six: K2 on the long
-forward, the paged and HTTP serves' K1, K4 and K3 rows, then the other
-archs' K1, K4 and K3 rows), the total seconds and each phase's, the
+forward, the paged and HTTP serves' K1, K4 and K3 rows, the other
+archs' K1, K4 and K3 rows, then K1 on the GPTQ pair and on the fold's V
+and O, and K3 where phase 26's tuner fused the MLP), the total seconds
+and each phase's, the
 card's nvidia-smi line
 and, as the last line, ``{"ok": true, "device": {...}}``.  Every path
 runs with the launch counts set to 0 just before it and read just
@@ -195,15 +222,18 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.comm import dispatch as comm  # noqa: E402
+from repro_torch.comm.spec import parse_collective  # noqa: E402
 from repro_torch.comm.wire import wire_params  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import quantization as qz  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import dequant_matmul as dk  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.core.policy import ExecutionPolicy  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import mesh  # noqa: E402
 from repro_torch.models import common as cm  # noqa: E402
+from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.plan import compiler  # noqa: E402
 from repro_torch.plan.artifact import DeploymentArtifact  # noqa: E402
 from repro_torch.runtime.sampling import SamplingConfig  # noqa: E402
@@ -315,9 +345,35 @@ def describe(cfg) -> str:
             f"vocab{cfg.vocab_size}")
 
 
+def fold_shapes(cfg) -> list:
+    """(name, K, N, gs) of the attention V->O fold's two GEMMs at ``cfg``
+    (``compiler.stage_fold_attention``'s group sizes): V, d_model to the
+    KV heads' channels, and O, the query heads' channels to d_model."""
+    kvp, _, hp = cm.head_grid(cfg)
+    hd = cfg.head_dim
+    gs = qz.choose_group_size(hd, cfg.quant.group_size)
+    return [(f"{cfg.arch_id} fold V", cfg.d_model, kvp * hd,
+             qz.choose_group_size(cfg.d_model, gs)),
+            (f"{cfg.arch_id} fold O", hp * hd, cfg.d_model,
+             qz.choose_group_size(min(hd, hp * hd), gs))]
+
+
+def fold_launches(cfg) -> int:
+    """K1 launches of one decode step with the fold: the MLP's and V and
+    O in every layer."""
+    return mlp_launches(cfg) + 2 * cfg.num_layers
+
+
 ARCH_SHAPES = {a: mlp_shapes(arch_config(a)) for a in ARCHS}
 ARCH_TP_DOWN = {a: mlp_shapes(arch_config(a), TP)[1] for a in TP_ARCHS}
 QWEN_KN = {(UP[1], UP[2]), (DOWN[1], DOWN[2])}
+#: qwen3-4b's fold GEMMs (V: K 2560, N 1024; O: K 4096, N 2560; gs 128)
+FOLD = fold_shapes(QWEN)
+#: calibration rows of phase 24 (GPTQ on one full-width MLP pair)
+GPTQ_ROWS = 512
+#: phase 26's depth (the tp=2 tuned fold plan; full width): its files'
+#: save and load and the gloo step dominate the phase
+FOLD_TP_LAYERS = 8
 DEQUANT_SHAPES += [shape[1:] for shape in ARCH_SHAPES["granite-3-8b"]]
 #: K3's own edges, (k, n, gs, tp, bits, preferred block): blocks of 86
 #: over n_pad 258 (blocks straddle 128-column tiles, and the padded
@@ -660,11 +716,12 @@ def _check_wire(gen) -> dict:
 def _kernel_launches(fn) -> dict:
     """Device kernels (and copies) one call of ``fn`` launches, by name.
     A profiler session that records no device event at all is run again,
-    up to three times: a call of a kernel's wrapper launches something,
-    so then the profiler missed it."""
+    up to five times: a call of a kernel's wrapper launches something,
+    so then the profiler missed it (three empty sessions in a row have
+    been seen on the card)."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
@@ -797,23 +854,35 @@ def phase_check(gen) -> dict:
              for m in (1, 4)]
     t = dk.tensor_core_min_m()
     large = _large_m_cases(t)
+    # the attention fold's V and O at decode M and the forward's
+    fold = [(m, k, n, gs) for _, k, n, gs in FOLD for m in (4, 2048)]
     wire = _check_wire(gen)
     tc0 = dk.dequant_matmul_ordered.tensor_core_launches
     ordered = _check_gemm(
-        gen, "dequant_matmul_ordered", SWEEP + full + large + archs,
+        gen, "dequant_matmul_ordered", SWEEP + full + large + archs + fold,
         "ordered",
         lambda x, ql, dt: ops.dequant_matmul(x, ql, compute_dtype=dt),
         lambda x, ql, dt: dk.dequant_matmul_ordered_torch(
             x, ql.qweight, ql.scales, ql.zeros,
             group_size=ql.group_size, compute_dtype=dt))
     tc = dk.dequant_matmul_ordered.tensor_core_launches - tc0
-    want = sum(m >= t for m, *_ in SWEEP + full + large + archs)  # f32
+    want = sum(m >= t for m, *_ in SWEEP + full + large + archs
+               + fold)  # f32
     if tc != want:
         raise AssertionError(f"K1's tensor-core loop ran {tc} times in the "
                              f"check, expected {want} (float32, M >= {t})")
     ordered["tensor_core_min_m"] = t
     ordered["tensor_core_launches"] = tc
     ordered["arch_max_abs_err"] = _arch_errs(ordered["cases"])
+    ordered["fold_max_abs_err"] = {
+        f"{name} M={m}": max(r["max_abs_err"] for r in ordered["cases"]
+                             if (r["k"], r["n"], r["m"]) == (k, n, m)
+                             and r["dtype"] == str(torch.float32))
+        for name, k, n, _ in FOLD for m in (4, 2048)}
+    line("check", "dequant_matmul_ordered at the fold's shapes, float32 "
+                  "max_abs_err: " + ", ".join(
+                      f"{key} {err:.3g}"
+                      for key, err in ordered["fold_max_abs_err"].items()))
     line("check", f"dequant_matmul_ordered: tensor-core loop from M={t} "
                   f"(float32): {tc} of the cases above ran it")
     gidx_full = [(m, k, n, gs) for _, k, n, gs in (UP, DOWN)
@@ -1216,6 +1285,7 @@ def phase_timing(gen) -> dict:
     flash_long = _time_flash_long(gen)
     wire = _time_wire(gen)
     large = _time_k1_large(gen)
+    fold = _time_gemm(gen, "ordered", shapes=FOLD)
     u, d = ordered[UP[0]], ordered[DOWN[0]]
     line("timing", "K1 f32 M=4, CUDA-graph replay: up/gate {:.4f} ms (bound "
          "{:.4f}, plain {:.4f}, matmul on dequantized weight {:.4f} "
@@ -1290,8 +1360,18 @@ def phase_timing(gen) -> dict:
                             large["per_layer_matmul_dequantized_ms"],
                             QWEN.num_layers, large["per_forward_ms"],
                             mlp_launches(QWEN)))
+    for name, *_ in FOLD:
+        r = fold[name]
+        line("timing", "K1 f32 M=4 {} (K {} N {} gs {}), CUDA-graph "
+             "replay: {:.4f} ms (bound {:.4f} by {}, {:.2f} MB; plain "
+             "{:.4f}, matmul on dequantized weight {:.4f} [context], eager "
+             "call {:.4f})".format(
+                 name, r["k"], r["n"], r["gs"], r["ms"], r["bound_ms"],
+                 r["bound_by"], r["bytes"] / 1e6, r["plain_ms"],
+                 r["matmul_dequantized_ms"], r["eager_ms"]))
     archs = _time_archs(gen)
     return {"dequant_matmul_ordered": ordered, "dequant_matmul_gidx": gidx,
+            "dequant_matmul_ordered_fold": fold,
             "dequant_matmul_ordered_m2048": large,
             "gidx_over_ordered_per_layer": ratio,
             "gidx_naive_over_ordered_layout_per_layer": in_kernel,
@@ -1480,18 +1560,26 @@ def _greedy_compare(eng_a, eng_b, cfg, text: str,
     return text, out
 
 
+def _layer_folds(engine) -> list:
+    """The engine's V->O fold of each layer (its aux), or Nones."""
+    n = len(engine.params["layers"])
+    plans = (engine.aux or {}).get("attn_plans") or {}
+    return plans.get("layers.attn") or [None] * n
+
+
 @torch.inference_mode()
 def layer_trace(engine, tokens) -> tuple[list, list]:
     """``engine``'s full-sequence forward over ``tokens`` one layer at a
     time: the carry entering each layer and each layer's float32 output
-    (``layer_forward``, before the cast to the carry's dtype)."""
+    (``layer_forward``, through the layer's fold where the engine has
+    one, before the cast to the carry's dtype)."""
     cfg, params = engine.model.cfg, engine.params
     x = cm.embed_tokens(cfg, params["embed"], tokens, group=engine.group)
     carries, outputs = [], []
-    for lp in params["layers"]:
+    for lp, vo in zip(params["layers"], _layer_folds(engine)):
         carries.append(x)
         y = engine.model.module.layer_forward(cfg, lp, x, engine.policy,
-                                              group=engine.group)
+                                              group=engine.group, vo=vo)
         outputs.append(y)
         x = y.to(x.dtype)
     return carries, outputs
@@ -1503,8 +1591,9 @@ def layer_outputs(engine, carries) -> list:
     cfg = engine.model.cfg
     return [engine.model.module.layer_forward(cfg, lp, x.to(engine.device),
                                               engine.policy,
-                                              group=engine.group)
-            for lp, x in zip(engine.params["layers"], carries)]
+                                              group=engine.group, vo=vo)
+            for lp, vo, x in zip(engine.params["layers"],
+                                 _layer_folds(engine), carries)]
 
 
 def layerwise(outs: list, refs: list, what: str) -> dict:
@@ -1569,13 +1658,20 @@ def _is_split_add(name: str) -> bool:
     return "add_splits_kernel" in name
 
 
+def _is_sgemm(name: str) -> bool:
+    """A float32 library GEMM on the CUDA cores (the attention projections
+    and the lm_head): CUTLASS's SIMT sgemm or cuBLAS's sgemm kernels."""
+    return "sgemm" in name.lower()
+
+
 def _is_old_wire_epilogue(name: str) -> bool:
     """A kernel of K3's earlier three-launch form."""
     return "wire_params" in name or "wire_payload" in name
 
 
 def phase_trace(engine, kernels: dict, phase: str | None = "trace",
-                rank: int = 0, expect: dict | None = None) -> dict | None:
+                rank: int = 0, expect: dict | None = None,
+                steps: int = 3) -> dict | None:
     """Device time of full-width decode steps (4 slots, cache half full)
     through ``engine.decode`` (on one rank, the captured step) by kernel,
     from ``torch.profiler``, against the same steps' wall time measured
@@ -1590,11 +1686,12 @@ def phase_trace(engine, kernels: dict, phase: str | None = "trace",
     ``expect`` gives launches per step by label, the steps run three
     times (on every rank, so the ranks stay in step) and rank 0 keeps the
     first trace that counts them, else the last: profiler sessions have
-    dropped events.  The caller checks the counts."""
+    dropped events (more often the more events a session holds, so a
+    step of many kernels is traced over fewer ``steps``).  The caller
+    checks the counts."""
     cache = engine.init_cache(4)
     tokens = torch.arange(4, device=engine.device)
     pos = torch.full((4,), 24, device=engine.device)
-    steps = 3
 
     def runner(step):
         def run():
@@ -2966,6 +3063,427 @@ def phase_http(engine, cfg) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 24-26: offline planning (GPTQ, the attention fold, the tuner)
+# ---------------------------------------------------------------------------
+
+def _timed(fn, acc: list):
+    """``fn`` with its seconds (after a synchronize) added to ``acc``."""
+    def run(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        acc.append(time.perf_counter() - t0)
+        return out
+    return run
+
+
+@torch.inference_mode()
+def phase_gptq() -> dict:
+    """Phase 24: GPTQ on one qwen3-4b MLP pair at full width (2560 /
+    9728), random weights and ``GPTQ_ROWS`` calibration rows made on the
+    card from a seed: the Hessians of the pair's inputs (up and gate: x;
+    down: the hidden activations), ``plan_pair(use_gptq=True)`` and, for
+    comparison, the RTN plan in the same processing orders (diag(H));
+    the seconds of the Hessians, the factors and the codes; each pair's
+    output error on the calibration rows and on as many held-out rows
+    (GPTQ's must be below RTN's on the calibration rows); and the GPTQ
+    pair's three GEMMs through K1 against their plain version at M 4 and
+    M ``GPTQ_ROWS``."""
+    from repro_torch.core import reorder, schemes
+
+    cfg = QWEN
+    d, ff = cfg.d_model, cfg.d_ff
+    gs_up, gs_down = mlp_shapes(cfg)[0][3], mlp_shapes(cfg)[1][3]
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    w = {"w_up": cm.dense_init(gen, (d, ff)),
+         "w_gate": cm.dense_init(gen, (d, ff)),
+         "w_down": cm.dense_init(gen, (ff, d))}
+    x = torch.randn(GPTQ_ROWS, d, generator=gen, device="cuda")
+    held = torch.randn(GPTQ_ROWS, d, generator=gen, device="cuda")
+    act = schemes.ACTIVATIONS[cfg.activation]
+
+    def dense(rows):
+        hid = act(rows @ w["w_gate"]) * (rows @ w["w_up"])
+        return hid, hid @ w["w_down"]
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hid, y = dense(x)
+    h_up, h_down = qz.make_hessian(x), qz.make_hessian(hid)
+    torch.cuda.synchronize()
+    hessian_s = time.perf_counter() - t0
+    _, y_held = dense(held)
+    factor_s, codes_s = [], []
+    factor, codes = qz.cholesky_hinv_upper, qz._gptq_codes
+    qz.cholesky_hinv_upper = _timed(factor, factor_s)
+    qz._gptq_codes = _timed(codes, codes_s)
+    kw = dict(w_gate=w["w_gate"], group_size_up=gs_up,
+              group_size_down=gs_down, hessian_up=h_up, hessian_down=h_down)
+    try:
+        t0 = time.perf_counter()
+        gptq = reorder.plan_pair(w["w_up"], w["w_down"], use_gptq=True, **kw)
+        torch.cuda.synchronize()
+        gptq_s = time.perf_counter() - t0
+    finally:
+        qz.cholesky_hinv_upper, qz._gptq_codes = factor, codes
+    t0 = time.perf_counter()
+    rtn = reorder.plan_pair(w["w_up"], w["w_down"], **kw)
+    torch.cuda.synchronize()
+    rtn_s = time.perf_counter() - t0
+    policy = ExecutionPolicy.auto("tp-aware", device=torch.device("cuda"))
+    errs = {}
+    launches = {}
+    for name, pp in (("rtn", rtn), ("gptq", gptq)):
+        reset_counts()
+        calib = pp.forward(x, policy, activation=cfg.activation)
+        counts = read_counts()
+        launches[name] = counts["dequant_matmul_ordered"]
+        expect_counts(counts, {"dequant_matmul_ordered": 3,
+                               TC: 3 if GPTQ_ROWS >= dk.tensor_core_min_m()
+                               else 0}, f"gptq: the {name} pair's forward")
+        out = pp.forward(held, policy, activation=cfg.activation)
+        errs[name] = {
+            "calibration_mse": torch.mean(torch.square(calib - y)).item(),
+            "held_out_mse": torch.mean(torch.square(out - y_held)).item()}
+    if not errs["gptq"]["calibration_mse"] < errs["rtn"]["calibration_mse"]:
+        raise AssertionError(f"gptq: GPTQ's calibration error is not below "
+                             f"RTN's: {errs}")
+    rows, worst = [], 0.0
+    xg = x.index_select(-1, gptq.p1_up)
+    y1 = act(ops.dequant_matmul(xg, gptq.gate)) * ops.dequant_matmul(
+        xg, gptq.up)
+    for name, xin, ql in (("up", xg, gptq.up), ("gate", xg, gptq.gate),
+                          ("down", y1, gptq.down)):
+        for m in (4, GPTQ_ROWS):
+            got = ops.dequant_matmul(xin[:m], ql)
+            ref = dk.dequant_matmul_ordered_torch(
+                xin[:m], ql.qweight, ql.scales, ql.zeros,
+                group_size=ql.group_size)
+            err = (got - ref).abs().max().item()
+            rtol, atol = TOL[torch.float32]
+            _within(rows, err, ref, rtol, atol, f"gptq {name}", m=m,
+                    k=ql.k, n=ql.n, gs=ql.group_size)
+            worst = max(worst, err)
+    ratio = errs["gptq"]["calibration_mse"] / errs["rtn"]["calibration_mse"]
+    out = {"rows": GPTQ_ROWS, "hessian_s": hessian_s,
+           "factor_s": factor_s, "codes_s": codes_s, "plan_pair_s": gptq_s,
+           "rtn_plan_pair_s": rtn_s, "errors": errs,
+           "calibration_mse_ratio": ratio, "k1_cases": rows,
+           "launches": launches["gptq"],
+           "k1_max_abs_err": worst}
+    line("gptq", "qwen3-4b layer-0-shaped MLP pair at full width (up/gate "
+         "{}x{} gs {}, down {}x{} gs {}), {} calibration rows on the card: "
+         "Hessians {:.2f}s; plan_pair(use_gptq=True) {:.2f}s, of it the "
+         "factors {} s (up, down, gate) and the codes {} s; RTN in the same "
+         "orders {:.2f}s; output MSE on the calibration rows GPTQ {:.4g} "
+         "vs RTN {:.4g} ({:.3f}x), held-out rows {:.4g} vs {:.4g}; the "
+         "GPTQ pair through K1 (3 launches a forward) within 1e-5*max|ref|"
+         "+1e-4 of its plain version at M 4 and {} (max_abs_err "
+         "{:.3g})".format(
+             d, ff, gs_up, ff, d, gs_down, GPTQ_ROWS, hessian_s, gptq_s,
+             "/".join(f"{s:.2f}" for s in factor_s),
+             "/".join(f"{s:.2f}" for s in codes_s), rtn_s,
+             errs["gptq"]["calibration_mse"], errs["rtn"]["calibration_mse"],
+             ratio, errs["gptq"]["held_out_mse"],
+             errs["rtn"]["held_out_mse"], GPTQ_ROWS, worst))
+    return out
+
+
+def _effective_attention(engine) -> dict:
+    """``engine``'s params with each layer's ``wv`` and ``wo`` replaced by
+    its fold's effective dense weights (V's dequantized rows put back in
+    the input's order; O's dequantized sorted rows): the dense attention
+    then computes the fold's function."""
+    layers = []
+    for lp, vo in zip(engine.params["layers"], _layer_folds(engine)):
+        wv = qz.dequantize(vo.up)
+        back = torch.empty_like(wv)
+        back[vo.p1_up.long()] = wv
+        layers.append(dict(lp, attn=dict(lp["attn"], wv=back,
+                                         wo=qz.dequantize(vo.down))))
+    return dict(engine.params, layers=layers)
+
+
+def _aux_bytes(aux) -> int:
+    return sum(t.nbytes for t in checkpoint.flatten_keys(aux).values())
+
+
+def phase_fold(dense_trace: dict) -> tuple[dict, tuple]:
+    """Phase 25: qwen3-4b at full width, all 36 layers, with the attention
+    fold: the port's ``prepare`` on the card, saved to a temporary
+    directory, served from it; the four requests through the captured
+    step, which launches K1 ``fold_launches`` times (the MLP's, and V and
+    O in each layer); a few steps traced beside phase 6's dense step; the
+    captured step against ``decode_eager`` bit for bit (16 lockstep and
+    16 per-slot steps); and, with a float32 carry (the bfloat16 carry
+    rounds the fold's V and output to bfloat16, as the reference's does,
+    where dense float32 projections do not round), each layer's output on
+    the same input carry within 1e-5 of max|.| + 1e-4 of the same layer
+    with the fold's effective dense ``wv``/``wo`` (``layerwise``); the
+    greedy ids of the served engine and the effective-weights engine
+    reported.  Returns the results, and the float32-carry layer trace
+    (carries, outputs) phase 26 is held to."""
+    cfg = QWEN.with_quant(mode="mlp", scheme="tp-aware", backend="auto",
+                          attn_tp_aware=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    art = compiler.prepare(cfg, tp=1, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    aux_bytes = _aux_bytes(art.aux)
+    path, nbytes = _artifact_dir(list(art.rank_params) + [art.aux])
+    try:
+        t0 = time.perf_counter()
+        art.save(path)
+        save_s = time.perf_counter() - t0
+        del art
+        torch.cuda.empty_cache()
+        files = {f: os.path.getsize(os.path.join(path, f))
+                 for f in sorted(os.listdir(path))}
+        t0 = time.perf_counter()
+        engine = make_engine(cfg, device="cuda", max_seq=32 + 16 + 1,
+                             artifact=path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(path)
+    folds = _layer_folds(engine)
+    if engine.policy.backend != "cuda" or len(folds) != cfg.num_layers \
+            or any(vo is None for vo in folds):
+        raise AssertionError(f"fold: the engine serves {engine.policy} with "
+                             f"{len(folds)} folds")
+    sched = Scheduler(engine, max_batch=4, prompt_budget=32,
+                      scfg=SamplingConfig(temperature=0.8, top_k=40), seed=0)
+    _submit_requests(sched, cfg)
+    reset_counts()
+    done, dt, step_ms = _run_steps(sched)
+    counts = read_counts()
+    steps, per = sched.steps, fold_launches(cfg)
+    expect_counts(counts, {"dequant_matmul_ordered": per * steps},
+                  f"fold ({steps} decode steps)")
+    if engine.captures != 1 or sorted(done) != [0, 1, 2, 3] or any(
+            len(r.output) != 16 for r in done.values()):
+        raise AssertionError(f"fold: {engine.captures} captures, requests "
+                             f"{ {k: r.output for k, r in done.items()} }")
+    tokens = sum(len(r.output) for r in done.values())
+    serve = {"decode_steps": steps, "launches": counts[
+        "dequant_matmul_ordered"], "counts": counts, "run_s": dt,
+        "tokens_per_s": tokens / dt, "first_step_ms": step_ms[0],
+        "steady_ms_per_step": statistics.median(step_ms[1:]),
+        "step_ms": step_ms, "decode_mode": engine.decode_mode,
+        "outputs": {k: r.output for k, r in sorted(done.items())}}
+    trace = phase_trace(engine, {"K1": _is_k1, "split-add": _is_split_add,
+                                 "sgemm": _is_sgemm}, "trace-fold",
+                        expect={"K1": per}, steps=2)
+    # the wrappers' counts gate the launches (above); torch.profiler has
+    # dropped a K1 event of this step in all three of phase_trace's
+    # sessions in full runs of this script, so its count is reported
+    k1_device = trace["kernels"]["K1"]["launches_per_step"]
+    captures, offsets, _ = _captured_vs_eager(engine, cfg, 16,
+                                              "capture-fold")
+
+    # layer by layer on one input carry, float32 carry
+    f32 = build_model(cfg.with_(dtype="float32"))
+    eff = Engine(model=f32, params=_effective_attention(engine),
+                 device=engine.device, max_seq=engine.max_seq,
+                 policy=engine.policy)
+    fold32 = dataclasses.replace(engine, model=f32)
+    toks = torch.from_numpy(_greedy_inputs(cfg)[0]).cuda()
+    carries, outs = layer_trace(fold32, toks)
+    refs = layer_outputs(eff, carries)
+    lw = layerwise(outs, refs, "fold vs its effective dense weights")
+    eff16 = dataclasses.replace(eff, model=engine.model)
+    text, greedy = _greedy_compare(engine, eff16, cfg, "greedy 2 prompts x "
+                                   "8 tokens, the fold (K1) vs its effective "
+                                   "dense wv/wo (bfloat16 carry)",
+                                   gate=False)
+    d = dense_trace
+    out = {"prepare_s": prepare_s, "prepare_peak_bytes": peak,
+           "save_s": save_s, "load_s": load_s, "file_bytes": files,
+           "reckoned_bytes": nbytes, "aux_bytes": aux_bytes,
+           "aux_file_bytes": files.get("aux.npz"), "serve": serve,
+           "trace": trace, "k1_device_launches_per_step": k1_device,
+           "dense_trace": {
+               k: d[k] for k in ("wall_ms_per_step", "device_ms_per_step",
+                                 "busy_share", "kernels")},
+           "capture": {"captures": captures, "offsets": offsets,
+                       "bit_equal": True},
+           "layerwise": lw, "greedy_vs_effective": greedy}
+    k, dk1 = trace["kernels"], d["kernels"]
+    line("fold", "{} with attn_tp_aware: prepared on the card in {:.2f}s "
+         "(max_memory_allocated {:.2f} GiB; aux {:.3f} GB in memory, "
+         "aux.npz {:.3f} GB), saved in {:.2f}s, loaded by "
+         "make_engine(artifact=DIR) in {:.2f}s; 4 requests, {} tokens, "
+         "{:.1f} tok/s, first step {:.1f} ms, then a median {:.2f} ms; "
+         "dequant_matmul_ordered {} = {} x {} (decode step: {})".format(
+             describe(cfg), prepare_s, peak / 2**30, aux_bytes / 1e9,
+             files.get("aux.npz", 0) / 1e9, save_s, load_s, tokens,
+             serve["tokens_per_s"], step_ms[0], serve["steady_ms_per_step"],
+             counts["dequant_matmul_ordered"], per, steps,
+             serve["decode_mode"]))
+    line("fold", "captured step against the dense one (phase 6): wall "
+         "{:.2f} vs {:.2f} ms, kernels {:.2f} vs {:.2f} ms, K1 {:.3f} ms in "
+         "{:.2f} vs {:.3f} ms in {:.2f} (device kernels a step, "
+         "torch.profiler), sgemm {:.3f} ms in {:.0f} vs {:.3f} "
+         "ms in {:.0f}, split-add {:.3f} vs {:.3f} ms".format(
+             trace["wall_ms_per_step"], d["wall_ms_per_step"],
+             trace["device_ms_per_step"], d["device_ms_per_step"],
+             k["K1"]["ms_per_step"], k["K1"]["launches_per_step"],
+             dk1["K1"]["ms_per_step"], dk1["K1"]["launches_per_step"],
+             k["sgemm"]["ms_per_step"], k["sgemm"]["launches_per_step"],
+             dk1["sgemm"]["ms_per_step"], dk1["sgemm"]["launches_per_step"],
+             k["split-add"]["ms_per_step"], dk1["split-add"]["ms_per_step"]))
+    line("fold", f"captured step bit-equal to decode_eager over 16 "
+         f"lockstep and 16 per-slot steps (captures {captures}); float32 "
+         f"carry, layer by layer on the same input carries: the "
+         f"{lw['layers']} layers through the fold (K1) within 1e-5 of "
+         f"max|.| + 1e-4 of the effective dense wv/wo, worst "
+         f"{lw['max_abs_err']:.3g} ({lw['max_rel_err']:.3g} of max|.|); "
+         f"{text}")
+    del engine, eff, eff16, fold32, sched
+    torch.cuda.empty_cache()
+    return out, ([c.cpu() for c in carries[:FOLD_TP_LAYERS]],
+                 [o.cpu() for o in outs[:FOLD_TP_LAYERS]])
+
+
+def _fold_tp_rank(ctx, cfg, path, carries) -> dict:
+    """One rank of phase 26: read this rank's file and the aux, serve the
+    four requests under the artifact's tuned plan with the counts set to
+    0 just before and read just after, then each layer's float32-carry
+    output under psum on ``carries``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    plan = DeploymentArtifact(manifest=DeploymentArtifact.load_manifest(
+        path)).policy(backend="auto", device=ctx.device)
+    t0 = time.perf_counter()
+    engine = make_engine(cfg, device=ctx.device, max_seq=32 + 16 + 1,
+                         group=ctx.group, policy=plan, artifact=path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    sched = Scheduler(engine, max_batch=4, prompt_budget=32,
+                      scfg=SamplingConfig(temperature=0.8, top_k=40), seed=0)
+    _submit_requests(sched, cfg)
+    reset_counts()
+    t0 = time.perf_counter()
+    done = sched.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = read_counts()
+    f32 = dataclasses.replace(
+        engine, model=build_model(cfg.with_(dtype="float32")),
+        policy=engine.policy.with_(collective="psum"))
+    vo = _layer_folds(engine)[0]
+    return {"rank": ctx.rank, "load_s": load_s, "run_s": run_s,
+            "stats": dataclasses.asdict(engine.load_stats),
+            "decode_steps": sched.steps, "counts": counts,
+            "collective": engine.policy.collective.shorthand(),
+            "decode_mode": engine.decode_mode,
+            "fold_shapes": [tuple(vo.up.qweight.shape),
+                            tuple(vo.down.qweight.shape)],
+            "outputs": {k: r.output for k, r in sorted(done.items())},
+            "layer_outputs": [o.cpu() for o in layer_outputs(f32, carries)]}
+
+
+def phase_fold_tp(tp1: tuple) -> dict:
+    """Phase 26: ``prepare --autotune-collectives`` with the fold at tp=2
+    (full width, depth cut to ``FOLD_TP_LAYERS``; the cut printed): the
+    tuned sites' choices printed as the CLI prints them, the rank files
+    and the aux saved, and served on two rank processes over gloo, each
+    reading its own file and the whole aux and keeping its heads of the
+    fold: the four requests' ids equal on both ranks, K3 launched where
+    the tuner marked the MLP ``:fused`` (one a layer a step) and K1 for the
+    other MLP GEMMs and V and O; then, with a float32 carry under psum,
+    each layer's output on phase 25's tp=1 input carries within 1e-5 of
+    max|.| + 1e-4 of its tp=1 output (the tp=2 plan is the tp=1 plan
+    sharded: the same seed streams, and a prefix of layers is a prefix of
+    the plan)."""
+    full = QWEN.num_layers
+    cfg = QWEN.with_(num_layers=FOLD_TP_LAYERS).with_quant(
+        mode="mlp", scheme="tp-aware", backend="auto", attn_tp_aware=True)
+    line("fold-tp", f"full width, depth cut from {full} to "
+         f"{cfg.num_layers} layers (the files' save and load and the gloo "
+         f"step dominate the phase)")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    art = compiler.prepare(cfg, tp=TP, seed=0, device="cuda", autotune=True)
+    torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t0
+    report = art.manifest["collective_tuner"]
+    for site in report:
+        line("fold-tp", f"  tuned {site['path']} [{site['kind']}]: "
+             f"{site['chosen']} ({site['status']})")
+    sites = {s["path"]: s for s in report}
+    if set(sites) != {"layers.mlp", "layers.attn"} or any(
+            s["status"] != "tuned" for s in report):
+        raise AssertionError(f"fold-tp: tuner report {report}")
+    path, nbytes = _artifact_dir(list(art.rank_params) + [art.aux])
+    try:
+        t0 = time.perf_counter()
+        art.save(path)
+        save_s = time.perf_counter() - t0
+        del art
+        torch.cuda.empty_cache()
+        files = {f: os.path.getsize(os.path.join(path, f))
+                 for f in sorted(os.listdir(path))}
+        ranks = mesh.run(_fold_tp_rank, TP, cfg, path, tp1[0],
+                         device_type="cuda", timeout=600)
+    finally:
+        shutil.rmtree(path)
+    fused = sites["layers.mlp"]["fused"]
+    k3_per = cfg.num_layers if fused else 0
+    k1_per = fold_launches(cfg) - k3_per
+    r0 = ranks[0]
+    for r in ranks:
+        steps = r["decode_steps"]
+        expect_counts(r["counts"], {
+            "dequant_matmul_wire_ordered": k3_per * steps,
+            "dequant_matmul_ordered": k1_per * steps},
+            f"fold-tp rank {r['rank']} ({steps} decode steps)")
+        if r["outputs"] != r0["outputs"] or steps != r0["decode_steps"]:
+            raise AssertionError("fold-tp: the ranks emitted different "
+                                 "tokens")
+        if r["stats"]["aux_bytes_loaded"] != files["aux.npz"]:
+            raise AssertionError(f"fold-tp rank {r['rank']}: read "
+                                 f"{r['stats']}")
+    lw = [layerwise(r["layer_outputs"], tp1[1],
+                    f"fold psum tp=2 rank {r['rank']} vs tp=1")
+          for r in ranks]
+    out = {"layers": cfg.num_layers, "full_layers": full,
+           "prepare_s": prepare_s, "save_s": save_s, "file_bytes": files,
+           "reckoned_bytes": nbytes, "tuner": report,
+           "collective": r0["collective"],
+           "load_s": [r["load_s"] for r in ranks],
+           "ms_per_step": [r["run_s"] / r["decode_steps"] * 1e3
+                           for r in ranks],
+           "decode_steps": r0["decode_steps"],
+           "counts": [r["counts"] for r in ranks],
+           "load_stats": [r["stats"] for r in ranks],
+           "fold_shapes": r0["fold_shapes"], "outputs": r0["outputs"],
+           "layerwise": lw}
+    line("fold-tp", "{} tp=2 tuned ({}) prepared on the card in {:.2f}s, "
+         "saved in {:.2f}s ({}); each rank read its own file and the whole "
+         "aux.npz ({} bytes) and kept its heads of the fold (V {} and O {} "
+         "packed words), loaded in {} s; 4 requests: ids equal on both "
+         "ranks, {:.1f} ms/step (rank 0; decode step: {}); per rank "
+         "dequant_matmul_wire_ordered {} = {} x {} and dequant_matmul_"
+         "ordered {} = {} x {}; psum, float32 carry, layer by layer on the "
+         "tp=1 fold's carries: the {} layers within 1e-5 of max|.| + 1e-4 "
+         "on both ranks, worst {}".format(
+             describe(cfg), r0["collective"], prepare_s, save_s,
+             ", ".join(f"{f} {b / 1e9:.3f} GB" for f, b in files.items()
+                       if b > 2**20), files["aux.npz"],
+             r0["fold_shapes"][0], r0["fold_shapes"][1],
+             "/".join(f"{s:.2f}" for s in out["load_s"]),
+             out["ms_per_step"][0], r0["decode_mode"],
+             r0["counts"]["dequant_matmul_wire_ordered"], k3_per,
+             r0["decode_steps"], r0["counts"]["dequant_matmul_ordered"],
+             k1_per, r0["decode_steps"], lw[0]["layers"],
+             "/".join(f"{x['max_abs_err']:.3g}" for x in lw)))
+    return out
+
 def _entry(name, source, replaces, launches, max_abs_err, t: dict,
            library_ms=None) -> dict:
     return {"name": name, "route": "cuda", "source": source,
@@ -3005,8 +3523,8 @@ def main() -> int:
     cfg = base.with_quant(mode="mlp", scheme="tp-aware", backend="auto")
     engine, serve = phase_serve(cfg, "dequant_matmul_ordered")
     per = mlp_launches(cfg)
-    trace = phase_trace(engine, {"K1": _is_k1, "split-add": _is_split_add},
-                        expect={"K1": per})
+    trace = phase_trace(engine, {"K1": _is_k1, "split-add": _is_split_add,
+                                 "sgemm": _is_sgemm}, expect={"K1": per})
     k1 = trace["kernels"]["K1"]["launches_per_step"]
     if k1 != per:
         raise AssertionError(f"captured decode step: {k1} K1 kernels per "
@@ -3051,6 +3569,9 @@ def main() -> int:
     tp_archs = phase_serve_tp_archs(refs)
     artifact_granite = phase_artifact_granite()
     long_forward = phase_long_forward()
+    gptq = phase_gptq()
+    fold, fold_ref = phase_fold(trace)
+    fold_tp = phase_fold_tp(fold_ref)
 
     src = "src/repro_torch/csrc/"
     tpu = "src/repro/kernels/"
@@ -3147,6 +3668,33 @@ def main() -> int:
             checks["dequant_matmul_wire_ordered"]["arch_max_abs_err"][
                 ARCH_TP_DOWN[a][0]],
             timing["archs"][a]["wire"]["int8"]))
+    # offline planning (phases 24-26): K1 on the GPTQ pair, on the fold's
+    # V and O (per layer, M=4) beside the MLP's in the fold serve, and K3
+    # where the tuner fused the tp=2 MLP
+    k1_fold_err = max(checks["dequant_matmul_ordered"][
+        "fold_max_abs_err"].values())
+    kernels += [
+        _entry("dequant_matmul_ordered (GPTQ pair)",
+               src + "dequant_matmul_ordered.cu",
+               tpu + "dequant_matmul.py:104", gptq["launches"],
+               gptq["k1_max_abs_err"],
+               _layer(timing["dequant_matmul_ordered"])),
+        _entry("dequant_matmul_ordered (attn V->O fold serve; V and O per "
+               "layer)", src + "dequant_matmul_ordered.cu",
+               tpu + "dequant_matmul.py:104", fold["serve"]["launches"],
+               k1_fold_err, _layer(timing["dequant_matmul_ordered_fold"],
+                                   FOLD, gated=False)),
+    ]
+    chosen = parse_collective(fold_tp["collective"]).resolve("layers.mlp")
+    if chosen.fused:
+        kernels.append(_entry(
+            f"dequant_matmul_wire_ordered (fold, tp=2 tuned "
+            f"{chosen.shorthand()}, {fold_tp['layers']} layers)",
+            src + "dequant_matmul_wire_ordered.cu",
+            tpu + "dequant_matmul.py:229",
+            fold_tp["counts"][0]["dequant_matmul_wire_ordered"],
+            checks["dequant_matmul_wire_ordered"]["main_max_abs_err"],
+            timing["dequant_matmul_wire_ordered"][f"int{chosen.bits}"]))
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"nvidia_smi": smi, "build": build, "check": checks,
@@ -3162,6 +3710,7 @@ def main() -> int:
                    "artifact_granite": artifact_granite,
                    "long_forward": long_forward,
                    "serve_paged": serve_paged, "http": http,
+                   "gptq": gptq, "fold": fold, "fold_tp": fold_tp,
                    "kernels": kernels, "phase_seconds": phase_seconds(),
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(json.dumps({"kernels": kernels}))

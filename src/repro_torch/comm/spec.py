@@ -136,6 +136,9 @@ class CollectiveSpec:
                              f"(got {value!r})")
         return cls(name=name)
 
+    def with_(self, **kw) -> "CollectiveSpec":
+        return dataclasses.replace(self, **kw)
+
     def shorthand(self) -> str:
         """The string form ``parse`` round-trips."""
         if self.name == "cast":

@@ -1,5 +1,5 @@
-"""Group-wise int4 RTN quantization with act-order; port of
-``repro/core/quantization.py`` (the RTN path; GPTQ follows later).
+"""Group-wise int4 quantization with act-order and GPTQ error
+compensation (static groups); port of ``repro/core/quantization.py``.
 
 Layout convention as in the reference: ``W`` is ``(K, N)`` with K the
 reduction dim (``Y = X @ W``); groups run along K, 8 nibbles per 32-bit
@@ -9,7 +9,18 @@ Packed words are held as **int32 bit views** of the reference's uint32:
 torch on the CPU has no shifts for ``uint32``.  Nibble ``j`` of a word is
 ``(w >> 4j) & 0xF``, which is the same on the int32 view because the mask
 drops the sign-extended bits.  ``torch.round`` and ``jnp.round`` both
-round half to even, so codes are bit-equal to the reference's.
+round half to even, so RTN codes are bit-equal to the reference's.
+
+GPTQ (``use_gptq``) quantizes the rows one at a time in processing order
+and feeds each row's error forward through the upper Cholesky factor of
+the inverse Hessian (``cholesky_hinv_upper``).  The reference updates the
+whole matrix under a 0/1 mask at every row; ``_gptq_codes`` updates only
+the rows below, which gives the same bits (the masked rows get ``w - 0``)
+and moves K/2 times fewer bytes.  The updates are not blocked as in
+Frantar et al.: blocking changes the order of the sums.  The factor
+itself comes from ``torch.linalg`` and is within a few ulps of the
+reference's, not bit-equal, so a GPTQ code may differ where a row sits on
+a rounding edge.
 """
 
 from __future__ import annotations
@@ -106,6 +117,55 @@ def quantize_rtn(w: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor,
     return torch.clamp(q, 0, QMAX).to(torch.int32).reshape(k, n)
 
 
+# ---------------------------------------------------------------------------
+# GPTQ error compensation (static groups)
+# ---------------------------------------------------------------------------
+
+def _gptq_codes(w: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor,
+                group_size: int, hinv_u: torch.Tensor) -> torch.Tensor:
+    """Sequential GPTQ quantization with error feedback.
+
+    ``w`` is in processing order; ``hinv_u`` is the upper Cholesky factor
+    of the inverse (permuted, damped) Hessian.  Row ``i`` is rounded with
+    its group's metadata, and its error, divided by ``hinv_u[i, i]``, is
+    fed to the rows below through row ``i`` of the factor.  Returns the
+    int codes in processing order."""
+    k, n = w.shape
+    work = w.to(torch.float32).clone()
+    codes = torch.empty((k, n), dtype=torch.int32, device=w.device)
+    for i in range(k):
+        g = i // group_size
+        s, z = scales[g], zeros[g]
+        row = work[i]
+        q = torch.clamp(torch.round(row / s + z), 0, QMAX)
+        err = (row - (q - z) * s) / hinv_u[i, i]
+        if i + 1 < k:
+            work[i + 1:] -= hinv_u[i, i + 1:, None] * err[None, :]
+        codes[i] = q.to(torch.int32)
+    return codes
+
+
+def cholesky_hinv_upper(h: torch.Tensor, damp_frac: float = 0.01
+                        ) -> torch.Tensor:
+    """Upper-triangular U with ``H^-1 = U^T U`` (GPTQ's ``Hinv``), after
+    damping the diagonal by ``damp_frac`` of its mean."""
+    k = h.shape[0]
+    damp = damp_frac * torch.mean(torch.diagonal(h)) + 1e-8
+    h = h + damp * torch.eye(k, dtype=h.dtype, device=h.device)
+    hinv = torch.linalg.inv(h)
+    # lower L with hinv = L L^T; the GPTQ factor is U = L^T
+    return torch.linalg.cholesky(hinv).T
+
+
+def make_hessian(x_cal: torch.Tensor, damp: float = 0.0) -> torch.Tensor:
+    """Calibration Hessian ``2 X^T X`` (GPTQ) from ``(B, K)`` activations."""
+    x = x_cal.to(torch.float32)
+    h = (2.0 * x.T) @ x
+    if damp:
+        h = h + damp * torch.eye(h.shape[0], dtype=h.dtype, device=h.device)
+    return h
+
+
 @dataclasses.dataclass(frozen=True)
 class QuantResult:
     """Both deployment layouts of one quantized weight, plus its perms."""
@@ -120,15 +180,21 @@ def quantize(
     w: torch.Tensor,
     group_size: int = 128,
     act_order: bool = True,
+    importance: Optional[torch.Tensor] = None,
+    hessian: Optional[torch.Tensor] = None,
+    use_gptq: bool = False,
     generator: Optional[torch.Generator] = None,
     proc_order: Optional[torch.Tensor] = None,
 ) -> QuantResult:
-    """RTN-quantize ``W (K, N)`` and emit both deployment layouts.
+    """Quantize ``W (K, N)`` and emit both deployment layouts.
 
-    The processing order is ``proc_order`` when given (tests pass the
-    reference's so codes compare bit for bit); else, with ``act_order``
-    and a ``generator``, a ``randperm`` drawn from it (the reference draws
-    ``jax.random.permutation``); else the identity.
+    The processing order, by the reference's precedence: ``proc_order``
+    when given; else, with ``act_order``, descending ``importance``, then
+    descending ``diag(hessian)``, then a ``randperm`` drawn from
+    ``generator`` (the reference draws ``jax.random.permutation``), then
+    the identity; without ``act_order`` the identity.  ``use_gptq`` runs
+    the sequential error-feedback pass over ``hessian`` (the identity when
+    None) instead of round-to-nearest.
     """
     k, n = w.shape
     if k % group_size != 0:
@@ -137,7 +203,13 @@ def quantize(
     w = w.to(torch.float32)
 
     if proc_order is None:
-        if act_order and generator is not None:
+        if not act_order:
+            proc_order = torch.arange(k)
+        elif importance is not None:
+            proc_order = torch.argsort(-importance, stable=True)
+        elif hessian is not None:
+            proc_order = torch.argsort(-torch.diagonal(hessian), stable=True)
+        elif generator is not None:
             proc_order = torch.randperm(k, generator=generator,
                                         device=generator.device)
         else:
@@ -152,7 +224,14 @@ def quantize(
     w_proc = w[proc_order]
     scales, zeros = _group_metadata(
         w_proc.reshape(k // group_size, group_size, n))
-    q_proc = quantize_rtn(w_proc, scales, zeros, group_size)
+    if use_gptq:
+        if hessian is None:
+            hessian = torch.eye(k, dtype=torch.float32, device=dev)
+        h = hessian.to(device=dev, dtype=torch.float32)
+        hinv_u = cholesky_hinv_upper(h[proc_order][:, proc_order])
+        q_proc = _gptq_codes(w_proc, scales, zeros, group_size, hinv_u)
+    else:
+        q_proc = quantize_rtn(w_proc, scales, zeros, group_size)
 
     q_orig = torch.empty_like(q_proc)
     q_orig[proc_order] = q_proc
@@ -190,3 +269,17 @@ def permute_columns(ql: QuantizedLinear, p: torch.Tensor) -> QuantizedLinear:
     return dataclasses.replace(
         ql, qweight=ql.qweight[:, p], scales=ql.scales[:, p],
         zeros=ql.zeros[:, p])
+
+
+def quant_error(ql: QuantizedLinear, w: torch.Tensor,
+                perm: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean |W - dq(q(W))| against the original-layout W; an ordered
+    linear needs its ``perm`` to put its rows back."""
+    dq = dequantize(ql)
+    if ql.kind == "ordered":
+        if perm is None:
+            raise ValueError("an ordered linear needs its perm")
+        back = torch.empty_like(dq)
+        back[perm.long()] = dq
+        dq = back
+    return torch.mean(torch.abs(w - dq))

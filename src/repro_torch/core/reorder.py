@@ -55,8 +55,16 @@ class PlannedPair:
                                        pair_path=pair_path)
 
     @property
+    def k1(self) -> int:
+        return self.up.k
+
+    @property
     def n1(self) -> int:
         return self.up.n
+
+    @property
+    def n2(self) -> int:
+        return self.down.n
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,12 +85,21 @@ def quantize_pair(
     group_size_down: int = 128,
     act_order: bool = True,
     generator: Optional[torch.Generator] = None,
+    importance_up: Optional[torch.Tensor] = None,
+    importance_down: Optional[torch.Tensor] = None,
+    hessian_up: Optional[torch.Tensor] = None,
+    hessian_down: Optional[torch.Tensor] = None,
+    use_gptq: bool = False,
 ) -> PairBundle:
     """Compiler stage 1 for one pair: quantize, no layout decision yet.
 
-    The gate is quantized in the up matrix's processing order (the
-    reference's default ``share_p1``), so the runtime gathers ``X[:, P1]``
-    once for both.  Up's and down's orders are drawn from ``generator``.
+    Each matrix's processing order follows ``qz.quantize``'s precedence
+    (importance, then its Hessian's diagonal, then ``generator``, which
+    draws up's order before down's).  ``use_gptq`` runs GPTQ over
+    ``hessian_up`` (up and gate) and ``hessian_down``.  The gate is
+    quantized with ``proc_order=q_up.perm`` (the reference's default
+    ``share_p1``, its argument as the reference passes it), so the
+    runtime gathers ``X[:, P1]`` once for both.
     """
     k1, n1 = w_up.shape
     n1_d, _ = w_down.shape
@@ -93,12 +110,16 @@ def quantize_pair(
         raise ValueError(f"gate shape {tuple(w_gate.shape)} != up shape "
                          f"{(k1, n1)}")
 
-    q_up = qz.quantize(w_up, group_size_up, act_order, generator=generator)
+    q_up = qz.quantize(w_up, group_size_up, act_order,
+                       importance=importance_up, hessian=hessian_up,
+                       use_gptq=use_gptq, generator=generator)
     q_down = qz.quantize(w_down, group_size_down, act_order,
-                         generator=generator)
+                         importance=importance_down, hessian=hessian_down,
+                         use_gptq=use_gptq, generator=generator)
     q_gate = None
     if w_gate is not None:
         q_gate = qz.quantize(w_gate, group_size_up, act_order,
+                             hessian=hessian_up, use_gptq=use_gptq,
                              proc_order=q_up.perm)
     return PairBundle(up=q_up, gate=q_gate, down=q_down)
 
@@ -128,6 +149,36 @@ def layout_pair(bundle: PairBundle, scheme: str = "tp-aware") -> PlannedPair:
     # p1_gate None: the gate shares p1_up's gather
     return PlannedPair(up=up, gate=gate, down=q_down.ordered,
                        p1_up=q_up.perm, p1_gate=None, p2=p2, scheme=scheme)
+
+
+def plan_pair(
+    w_up: torch.Tensor,
+    w_down: torch.Tensor,
+    *,
+    w_gate: Optional[torch.Tensor] = None,
+    scheme: str = "tp-aware",
+    group_size_up: int = 128,
+    group_size_down: int = 128,
+    act_order: bool = True,
+    generator: Optional[torch.Generator] = None,
+    importance_up: Optional[torch.Tensor] = None,
+    importance_down: Optional[torch.Tensor] = None,
+    hessian_up: Optional[torch.Tensor] = None,
+    hessian_down: Optional[torch.Tensor] = None,
+    use_gptq: bool = False,
+) -> PlannedPair:
+    """Quantize and lay out one pair in ``scheme`` (``quantize_pair`` then
+    ``layout_pair``): the one-shot entry for a pair planned outside the
+    compiler, e.g. with calibration Hessians."""
+    if scheme not in SCHEMES:
+        raise ValueError(f"unknown scheme {scheme!r}, expected one of "
+                         f"{SCHEMES}")
+    return layout_pair(quantize_pair(
+        w_up, w_down, w_gate=w_gate, group_size_up=group_size_up,
+        group_size_down=group_size_down, act_order=act_order,
+        generator=generator, importance_up=importance_up,
+        importance_down=importance_down, hessian_up=hessian_up,
+        hessian_down=hessian_down, use_gptq=use_gptq), scheme)
 
 
 # ---------------------------------------------------------------------------

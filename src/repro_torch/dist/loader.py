@@ -12,7 +12,10 @@ ranks' files are only ``os.path.getsize``d, for the byte ledger.
 
 ``RankLoadStats`` is the proof: ``file_bytes_loaded`` (the bytes of the
 file this rank read) against ``file_bytes_total`` (all rank files); at
-tp > 1 the first is less.  The serve banner prints both.
+tp > 1 the first is less.  The serve banner prints both.  An artifact's
+``aux.npz`` (the attention folds) is read whole by every rank, as the
+reference's ``load_for_mesh`` reads it (``load_aux``); its bytes are
+``aux_bytes_loaded``.
 """
 
 from __future__ import annotations
@@ -25,7 +28,9 @@ from repro_torch import interop
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.train import checkpoint
 
-__all__ = ["RankLoadStats", "load_per_rank", "rank_file"]
+__all__ = ["RankLoadStats", "load_aux", "load_per_rank", "rank_file"]
+
+AUX = "aux.npz"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +41,7 @@ class RankLoadStats:
     bytes_loaded: int            # sum of leaf nbytes across those files
     file_bytes_loaded: int       # on-disk bytes of the files read
     file_bytes_total: int        # on-disk bytes of all rank files
+    aux_bytes_loaded: int = 0    # on-disk bytes of the aux.npz read
 
     @property
     def resident_fraction(self) -> float:
@@ -73,3 +79,17 @@ def load_per_rank(dirpath: str, manifest: dict, rank: int, *,
         file_bytes_total=sum(os.path.getsize(rank_file(dirpath, r))
                              for r in range(tp)))
     return checkpoint.map_tensors(tree, lambda _, t: t.to(dev)), stats
+
+
+def load_aux(dirpath: str, *, device: DeviceLike = None
+             ) -> tuple[Any, int]:
+    """The artifact's aux tree (the reference's layout: folds stacked
+    over the layers) on ``device`` (default: the CUDA card), and the
+    bytes of its file; ``(None, 0)`` when it has none."""
+    path = os.path.join(dirpath, AUX)
+    if not os.path.exists(path):
+        return None, 0
+    dev = resolve_device(device)
+    return (checkpoint.map_tensors(checkpoint.load(path),
+                                   lambda _, t: t.to(dev)),
+            os.path.getsize(path))

@@ -14,20 +14,27 @@ one-shot lifecycle, and prepare-once / serve-many).
 
     PYTHONPATH=src python -m repro_torch.launch.serve prepare \
         --arch qwen3-4b --smoke --scheme tp-aware --tp 2 --out DIR \
-        [--collective quant-int8:fused --seed 0] [--device cpu]
+        [--collective quant-int8:fused --seed 0] [--device cpu] \
+        [--autotune-collectives [--tune-budget 0.05]]
     PYTHONPATH=src python -m repro_torch.launch.serve --artifact DIR \
         [--tp 2] [--backend auto] [--requests 8 ...] [--device cpu]
 
   ``prepare`` runs the plan compiler from the seed (quantize, lay out,
   pre-shard for ``--tp`` ranks) and writes a ``DeploymentArtifact`` in
-  the reference's format.  Serving from it quantizes nothing: the
-  manifest is the plan (``--arch``, ``--smoke``, ``--scheme`` and
-  ``--collective`` are ignored), ``--tp`` defaults to the artifact's, and
-  the manifest is validated against the config, the policy and the TP
-  degree, so a mismatched plan refuses to serve.  ``--backend`` (default
-  auto: the CUDA kernels on the card for ordered layouts) is the port's
-  choice at load, whatever backend the manifest names
-  (``plan/artifact.py``).
+  the reference's format; ``--autotune-collectives`` chooses a per-layer
+  collective plan (``plan/tuner.py``) and prints each site's choice.  A
+  config with ``quant.attn_tp_aware`` (no flag, as in the reference:
+  ``compiler.prepare`` of ``cfg.with_quant(attn_tp_aware=True)``) also
+  writes the attention V->O folds, which ``--artifact`` serves (the
+  banner says ``attn V->O fold: N layers``).  ``--overlap-collectives``
+  is ROADMAP.md queue 1, item 9, and exits 1.  Serving from an artifact
+  quantizes nothing: the manifest is the plan (``--arch``, ``--smoke``,
+  ``--scheme`` and ``--collective`` are ignored), ``--tp`` defaults to
+  the artifact's, and the manifest is validated against the config, the
+  policy and the TP degree, so a mismatched plan refuses to serve.
+  ``--backend`` (default auto: the CUDA kernels on the card for ordered
+  layouts) is the port's choice at load, whatever backend the manifest
+  names (``plan/artifact.py``).
 
 ``--kv-page-size N [--kv-bits 8|4]`` serves from the paged KV cache
 (``cache/``): on the in-memory plan through the config, and over an
@@ -55,7 +62,7 @@ import numpy as np
 import torch
 
 from repro_torch.cache.spec import PageSpec
-from repro_torch.comm.spec import parse_collective
+from repro_torch.comm.spec import OVERLAP_NOT_PORTED, parse_collective
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core.policy import ExecutionPolicy
 from repro_torch.core.reorder import SCHEMES
@@ -122,7 +129,23 @@ def prepare(argv=None) -> str:
                     help="TP degree the rank files are split for (serving "
                          "must use the same)")
     ap.add_argument("--out", required=True, help="artifact directory")
+    ap.add_argument("--autotune-collectives", action="store_true",
+                    help="score every full-output collective per pair and "
+                         "fold site (wire bytes and a calibration error "
+                         "probe; plan/tuner.py) and compile the chosen "
+                         "per-layer plan into the artifact (overrides "
+                         "--collective)")
+    ap.add_argument("--tune-budget", type=float, default=None,
+                    help="max relative activation error a tuned "
+                         "collective may introduce (default: the tuner's "
+                         "DEFAULT_BUDGET, 0.05)")
+    ap.add_argument("--overlap-collectives", action="store_true",
+                    help="mark tuned quantized epilogues ':overlap' (not "
+                         "ported: ROADMAP.md queue 1, item 9)")
     args = ap.parse_args(argv)
+    if args.overlap_collectives:
+        raise SystemExit(f"error: --overlap-collectives: "
+                         f"{OVERLAP_NOT_PORTED}")
     device = _device(args)
     cfg = _build_cfg(args)
     policy = ExecutionPolicy.from_config(cfg, device=device).with_(
@@ -130,7 +153,9 @@ def prepare(argv=None) -> str:
     t0 = time.perf_counter()
     art = compiler.prepare(cfg, tp=args.tp, seed=args.seed, policy=policy,
                            extra_manifest={"smoke": bool(args.smoke)},
-                           device=device)
+                           device=device,
+                           autotune=args.autotune_collectives,
+                           tune_budget=args.tune_budget)
     path = art.save(args.out)
     print(f"prepared {args.arch} (scheme={args.scheme} "
           f"collective={art.manifest['policy']['collective']} "
@@ -138,6 +163,11 @@ def prepare(argv=None) -> str:
           f"{len(art.manifest['pairs'])} planned pair(s), "
           f"{len(art.manifest['leaf_shards'])} leaves, "
           f"{time.perf_counter() - t0:.1f}s on {device}")
+    for site in art.manifest.get("collective_tuner", ()):
+        # ':fused' choices run the wire kernel; attn_vo sites are the
+        # attention folds' epilogues
+        print(f"  tuned {site['path']} [{site.get('kind', 'pair')}]: "
+              f"{site['chosen']} ({site['status']})")
     return path
 
 
@@ -209,12 +239,21 @@ def _serve(args, device, group=None, transport="1 device"):
         f"{policy.collective.shorthand()} kv={policy.kv.shorthand()} "
         f"mesh={policy.mesh.shorthand()} ({transport}) "
         f"device={device} {source}]")
-    lines.append(f"decode step: {engine.decode_mode}")
+    lines.append(f"decode step: {engine.decode_mode}; "
+                 f"attn V->O fold: {fold_layers(engine)}")
     st = engine.load_stats
     resident = None if st is None else (
         f"resident_artifact_bytes={st.file_bytes_loaded}/"
         f"{st.file_bytes_total} ranks={list(st.ranks)}")
     return {rid: r.output for rid, r in done.items()}, lines, resident
+
+
+def fold_layers(engine) -> str:
+    """How many layers' attention the engine runs through a V->O fold
+    (``"36 layers"``), or ``"none"``."""
+    plans = (engine.aux or {}).get("attn_plans") or {}
+    n = sum(len(v) for v in plans.values())
+    return f"{n} layers" if n else "none"
 
 
 def _serve_http(args, device):

@@ -22,6 +22,16 @@ Dtypes follow what JAX reaches: activations enter a layer in bf16
 the layer's output is cast back to the carry dtype.  Torch's ``matmul``
 does not promote mixed dtypes (JAX does), so ``promoted`` makes those
 casts explicit.  Elementwise ops promote the same way in both.
+
+With an attention V->O fold (``vo``, a ``PlannedPair`` from
+``core/attention_fold.py``; the artifact's aux plans), V and the output
+projection run as quantized GEMMs through ``schemes.qmatmul`` (the
+kernel ``policy.backend`` names) instead of ``wv`` and ``wo``, cast to
+the input's dtype as the reference casts them.  The folded V channels
+land in the cache permuted within head blocks, which attention commutes
+with and ``vo.down``'s sorted rows expect.  Under TP ``vo`` holds this
+rank's heads, and the output projection closes by the float32
+all-reduce that closes ``wo``.
 """
 
 from __future__ import annotations
@@ -210,7 +220,10 @@ def _flash_sdpa(q, k, v, *, causal: bool, window):
     g = h // k.shape[2]
     qt = q.transpose(1, 2).contiguous()
     kt = k.transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
-    vt = v.transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
+    # a folded V is in the input's dtype; widening it to q's is exact, as
+    # the reference's kernel promotes it in its products
+    vt = v.transpose(1, 2).repeat_interleave(g, dim=1).to(q.dtype)
+    vt = vt.contiguous()
     out = ops.flash_attention(qt, kt, vt, causal=causal, window=window)
     return out.transpose(1, 2).reshape(b, s, h * hd)
 
@@ -230,15 +243,30 @@ def _local_heads(cfg: ModelConfig, p) -> tuple[int, int]:
     return p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
 
 
-def _out_proj(p, out, group):
-    """The output projection; under TP ``wo`` holds this rank's rows, so
-    the product is a partial sum closed by a float32 all-reduce."""
+def _vo_project_v(vo: PlannedPair, src, policy) -> torch.Tensor:
+    """V through a V->O fold: gather the input by P1, run the folded
+    quantized up GEMM, cast to the input's dtype.  The output channels
+    are permuted within each KV-head block, which ``vo.down``'s sorted
+    rows expect."""
+    xin = src.index_select(-1, vo.p1_up) if vo.p1_up is not None else src
+    return schemes.qmatmul(xin, vo.up, policy).to(src.dtype)
+
+
+def _out_proj(p, out, group, vo: Optional[PlannedPair] = None,
+              policy=None, dtype=None):
+    """The output projection; under TP ``wo`` (or ``vo.down``) holds this
+    rank's rows, so the product is a partial sum closed by a float32
+    all-reduce.  Through a fold the result is cast to ``dtype``."""
+    if vo is not None:
+        return comm.raw_psum(schemes.qmatmul(out, vo.down, policy),
+                             group).to(dtype)
     return comm.raw_psum(matmul(out, p["wo"]), group)
 
 
 def attention_forward(cfg: ModelConfig, p, x, *, positions=None,
                       window=None, causal=True, attn_backend="xla",
-                      group=None):
+                      group=None, vo: Optional[PlannedPair] = None,
+                      policy: Optional[ExecutionPolicy] = None):
     """Full-sequence self-attention.
 
     ``attn_backend`` as in the reference's ``ParallelContext``: ``"xla"``
@@ -247,7 +275,8 @@ def attention_forward(cfg: ModelConfig, p, x, *, positions=None,
     ``Q_CHUNK_MIN_SEQ``, S a multiple of ``Q_CHUNK``) runs one Q chunk at
     a time: each chunk's softmax rows see the whole key range, so the
     result is the unchunked one, while the score tensor shrinks from
-    (S, T) to (Q_CHUNK, T) (the reference's ``chunk_scan=False`` form)."""
+    (S, T) to (Q_CHUNK, T) (the reference's ``chunk_scan=False`` form).
+    ``vo``: a V->O fold, whose GEMMs run under ``policy``."""
     if attn_backend not in ATTN_BACKENDS:
         raise ValueError(f"unknown attn_backend {attn_backend!r}, expected "
                          f"one of {ATTN_BACKENDS}")
@@ -256,7 +285,8 @@ def attention_forward(cfg: ModelConfig, p, x, *, positions=None,
     h, kvh = _local_heads(cfg, p)
     q = matmul(x, p["wq"]).reshape(b, s, h, hd)
     k = matmul(x, p["wk"]).reshape(b, s, kvh, hd)
-    v = matmul(x, p["wv"]).reshape(b, s, kvh, hd)
+    v = (_vo_project_v(vo, x, policy) if vo is not None
+         else matmul(x, p["wv"])).reshape(b, s, kvh, hd)
     if cfg.qk_norm:
         q = rms_head_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_head_norm(k, p["k_norm"], cfg.norm_eps)
@@ -267,7 +297,8 @@ def attention_forward(cfg: ModelConfig, p, x, *, positions=None,
         k = rope(k, positions, cfg.rope_theta)
     if attn_backend == "flash":
         return _out_proj(p, _flash_sdpa(q, k, v, causal=causal,
-                                        window=window), group)
+                                        window=window), group, vo, policy,
+                         x.dtype)
 
     def mask_rows(i0: int, rows: int):
         """The causal (and window) mask of query rows i0 .. i0 + rows."""
@@ -286,11 +317,13 @@ def attention_forward(cfg: ModelConfig, p, x, *, positions=None,
                          for i0 in range(0, s, Q_CHUNK)], dim=1)
     else:
         out = _sdpa(q, k, v, mask_rows(0, s))
-    return _out_proj(p, out, group)
+    return _out_proj(p, out, group, vo, policy, x.dtype)
 
 
 def attention_decode(cfg: ModelConfig, p, x, cache, pos, *, window=None,
-                     group=None, pages=None, kv_len=None):
+                     group=None, pages=None, kv_len=None,
+                     vo: Optional[PlannedPair] = None,
+                     policy: Optional[ExecutionPolicy] = None):
     """One-token decode over a dense KV cache or a page pool.
 
     x: (B, 1, d); cache: {"k", "v": (B, C, KV, D)}; pos: an int (all rows
@@ -313,6 +346,9 @@ def attention_decode(cfg: ModelConfig, p, x, cache, pos, *, window=None,
     position back, so a CUDA graph can hold it (``Engine.decode``); the
     lockstep path bakes ``int(pos)`` into the step and is run eagerly.
     Both give the same bits for the same positions.
+
+    ``vo``: a V->O fold, whose GEMMs run under ``policy``; the folded V
+    channels are what the cache holds.
     """
     b = x.shape[0]
     hd = cfg.head_dim
@@ -321,7 +357,8 @@ def attention_decode(cfg: ModelConfig, p, x, cache, pos, *, window=None,
 
     q = matmul(x, p["wq"]).reshape(b, 1, h, hd)
     k = matmul(x, p["wk"]).reshape(b, 1, kvh, hd)
-    v = matmul(x, p["wv"]).reshape(b, 1, kvh, hd)
+    v = (_vo_project_v(vo, x, policy) if vo is not None
+         else matmul(x, p["wv"])).reshape(b, 1, kvh, hd)
     if cfg.qk_norm:
         q = rms_head_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_head_norm(k, p["k_norm"], cfg.norm_eps)
@@ -352,7 +389,7 @@ def attention_decode(cfg: ModelConfig, p, x, cache, pos, *, window=None,
         valid = torch.arange(cap, device=x.device)[None, :] <= pos[:, None]
         mask = valid[:, None, :].expand(b, 1, cap)
         out = _sdpa(q, kk.to(x.dtype), vv.to(x.dtype), mask)
-        return _out_proj(p, out, group), cache
+        return _out_proj(p, out, group, vo, policy, x.dtype), cache
 
     ck, cv = cache["k"], cache["v"]
     cap = ck.shape[1]
@@ -374,7 +411,7 @@ def attention_decode(cfg: ModelConfig, p, x, cache, pos, *, window=None,
         valid = valid | (pb >= cap)
     mask = valid[:, None, :].expand(b, 1, cap)
     out = _sdpa(q, ck.to(x.dtype), cv.to(x.dtype), mask)
-    return _out_proj(p, out, group), cache
+    return _out_proj(p, out, group, vo, policy, x.dtype), cache
 
 
 def init_kv_cache(cfg: ModelConfig, num_layers: int, batch: int,

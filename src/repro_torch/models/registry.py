@@ -6,7 +6,7 @@ The other families follow in the order of ``ROADMAP.md``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -59,11 +59,31 @@ class Model:
         """Per leaf, the dim split over ``tp`` ranks (None: replicated)."""
         return self.module.param_specs(self.cfg, params, tp)
 
+    @property
+    def supports_attn_vo(self) -> bool:
+        """The family's attention consumes V->O folds from ``aux``."""
+        return bool(getattr(self.module, "SUPPORTS_ATTN_VO", False))
+
+    @property
+    def attn_vo_path(self) -> Optional[str]:
+        """Where the family's folds sit in the aux tree's ``attn_plans``."""
+        return getattr(self.module, "ATTN_VO_PATH", None)
+
+    def _aux(self, aux) -> dict:
+        if aux is None:
+            return {}
+        if not self.supports_attn_vo:
+            raise ValueError(f"family {self.cfg.family!r} has no V->O fold "
+                             f"integration; it cannot serve aux plans")
+        return {"aux": aux}
+
     def forward(self, params, batch, policy: ExecutionPolicy, *,
-                window=None, attn_backend="xla", group=None):
+                window=None, attn_backend="xla", group=None, aux=None):
+        """``aux``: an artifact's aux plans (attention V->O folds), for
+        families that declare ``SUPPORTS_ATTN_VO``."""
         return self.module.forward(self.cfg, params, batch, policy,
                                    window=window, attn_backend=attn_backend,
-                                   group=group)
+                                   group=group, **self._aux(aux))
 
     def init_cache(self, batch: int, seq_len: int, *, window=None,
                    dtype=torch.bfloat16, device: DeviceLike = None,
@@ -91,10 +111,11 @@ class Model:
 
     def decode_step(self, params, cache, tokens, pos,
                     policy: ExecutionPolicy, *, window=None, group=None,
-                    pages=None, kv_len=None):
+                    pages=None, kv_len=None, aux=None):
         return self.module.decode_step(self.cfg, params, cache, tokens, pos,
                                        policy, window=window, group=group,
-                                       pages=pages, kv_len=kv_len)
+                                       pages=pages, kv_len=kv_len,
+                                       **self._aux(aux))
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -5,6 +5,11 @@ Layers are a list of per-layer dicts driven by a Python loop (the
 reference stacks them and runs ``lax.scan``).  ``group`` is the process
 group of the TP ranks (None: one device); under TP ``params`` are this
 rank's slices (``param_specs``) and the cache holds this rank's KV heads.
+
+``aux``: an artifact's aux plans; the attention V->O folds at
+``ATTN_VO_PATH`` (stacked over the layers, as the artifact holds them,
+or a per-layer list, as the engine keeps them) run each layer's V and
+output projection (``models/common.py``).
 """
 
 from __future__ import annotations
@@ -16,10 +21,35 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.policy import ExecutionPolicy
 from repro_torch.models import common as cm
+from repro_torch.train.checkpoint import map_tensors
 
 #: the pair path of every layer's MLP (the key a per-layer
 #: ``CollectivePlan`` resolves), as the reference's layer body passes it
 MLP_PATH = "layers.mlp"
+
+#: this family consumes attention V->O folds (the registry forwards
+#: ``aux`` only to modules that say so)
+SUPPORTS_ATTN_VO = True
+
+#: the dotted path ``stage_fold_attention`` records this family's
+#: attention dicts under (the key into the aux tree's ``attn_plans``)
+ATTN_VO_PATH = "layers.attn"
+
+
+def _layer_vo(aux, num_layers: int) -> list:
+    """One V->O fold (or None) for each of the ``num_layers`` layers: the
+    aux tree's fold at ``ATTN_VO_PATH``, its stacked leaves split into
+    per-layer views, or its list of layers as it is."""
+    vo = ((aux or {}).get("attn_plans") or {}).get(ATTN_VO_PATH)
+    if vo is None:
+        return [None] * num_layers
+    if not isinstance(vo, list):
+        vo = [map_tensors(vo, lambda _, t, i=i: t[i])
+              for i in range(vo.up.qweight.shape[0])]
+    if len(vo) != num_layers:
+        raise ValueError(f"the V->O fold has {len(vo)} layers, the model "
+                         f"{num_layers}")
+    return vo
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, *,
@@ -76,24 +106,29 @@ def _mlp_residual(cfg, lp, x, h, policy, group):
 
 
 def layer_forward(cfg: ModelConfig, lp, x, policy: ExecutionPolicy, *,
-                  window=None, attn_backend="xla", group=None):
-    """One layer of the forward (the reference's scan body): attention,
-    then the MLP block, each on the pre-normed residual; the result
-    before its cast to the carry's dtype."""
+                  window=None, attn_backend="xla", group=None, vo=None):
+    """One layer of the forward (the reference's scan body): attention
+    (through the V->O fold ``vo`` when given), then the MLP block, each on
+    the pre-normed residual; the result before its cast to the carry's
+    dtype."""
     h = cm.attention_forward(cfg, lp["attn"], cm.apply_norm(cfg, lp["ln1"], x),
                              window=window, causal=cfg.causal,
-                             attn_backend=attn_backend, group=group)
+                             attn_backend=attn_backend, group=group, vo=vo,
+                             policy=policy)
     return _mlp_residual(cfg, lp, x, h, policy, group)
 
 
 def forward(cfg: ModelConfig, params, batch: dict, policy: ExecutionPolicy,
-            *, window=None, attn_backend="xla", group=None) -> torch.Tensor:
+            *, window=None, attn_backend="xla", group=None,
+            aux=None) -> torch.Tensor:
     """Train/prefill forward: batch={"tokens": (B, S)} -> logits.
     ``attn_backend``: ``"xla"`` (einsum) or ``"flash"`` (the kernel)."""
     x = cm.embed_tokens(cfg, params["embed"], batch["tokens"], group=group)
-    for lp in params["layers"]:
+    vos = _layer_vo(aux, len(params["layers"]))
+    for lp, vo in zip(params["layers"], vos):
         x = layer_forward(cfg, lp, x, policy, window=window,
-                          attn_backend=attn_backend, group=group).to(x.dtype)
+                          attn_backend=attn_backend, group=group,
+                          vo=vo).to(x.dtype)
     x = cm.apply_norm(cfg, params["final_norm"], x)
     return cm.lm_head(cfg, params["embed"], x, group=group)
 
@@ -115,18 +150,20 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int, *,
 
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos,
                 policy: ExecutionPolicy, *, window=None, group=None,
-                pages=None, kv_len=None):
+                pages=None, kv_len=None, aux=None):
     """One-token decode. tokens: (B,), pos: int or (B,) -> (logits (B, V),
     cache); the cache is updated in place.  With ``pages`` (B, Pmax) the
     cache is the page pool, sliced per layer as the dense cache is, and
     ``kv_len`` the positions attention reads (``attention_decode``)."""
     x = cm.embed_tokens(cfg, params["embed"], tokens[:, None], group=group)
-    for i, lp in enumerate(params["layers"]):
+    vos = _layer_vo(aux, len(params["layers"]))
+    for i, (lp, vo) in enumerate(zip(params["layers"], vos)):
         layer_cache = {name: leaf[i] for name, leaf in cache.items()}
         h, _ = cm.attention_decode(cfg, lp["attn"],
                                    cm.apply_norm(cfg, lp["ln1"], x),
                                    layer_cache, pos, window=window,
-                                   group=group, pages=pages, kv_len=kv_len)
+                                   group=group, pages=pages, kv_len=kv_len,
+                                   vo=vo, policy=policy)
         x = _mlp_residual(cfg, lp, x, h, policy, group).to(x.dtype)
     x = cm.apply_norm(cfg, params["final_norm"], x)
     return cm.lm_head(cfg, params["embed"], x, group=group)[:, 0], cache

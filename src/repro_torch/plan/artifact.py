@@ -9,9 +9,11 @@ serves the other's artifacts:
   ``leaf_shards``: the dim of each leaf that was split over the ranks, or
   null for a leaf every rank holds whole;
 * ``rank_NN.npz``: rank ``NN``'s planned tree (``train/checkpoint.py``);
-* ``aux.npz``: optional V->O attention folds.  The port cannot serve
-  them yet (ROADMAP.md queue 1, item 4), so ``validate`` refuses an
-  artifact that has one rather than serving without them.
+* ``aux.npz``: optional V->O attention folds (``{"attn_plans":
+  {"layers.attn": PlannedPair}}``, the pair's leaves stacked over the
+  layers), written whole and read whole by every rank, as the reference
+  does; the engine keeps each rank's heads of it (``runtime/serve.py``).
+  ``validate`` refuses an aux tree the port's model does not consume.
 
 Layout.  The files hold the reference's layout: a dense model's layers
 stacked along a leading dim, and ``leaf_shards`` keyed and dimensioned
@@ -50,7 +52,7 @@ from repro_torch.train import checkpoint
 
 FORMAT_VERSION = 1
 MANIFEST = "manifest.json"
-AUX = "aux.npz"
+AUX = loader.AUX
 
 #: the reference's name of each of the port's backends
 BACKEND_NAMES = {"torch": "jnp", "cuda": "pallas", "ref": "ref"}
@@ -134,7 +136,7 @@ class DeploymentArtifact:
 
     manifest: dict
     rank_params: tuple = ()
-    aux: Optional[str] = None       # path of an aux.npz, which is refused
+    aux: Optional[dict] = None      # {"attn_plans": {path: PlannedPair}}
     load_stats: Any = None          # dist.loader.RankLoadStats
 
     # ---- construction -----------------------------------------------------
@@ -143,10 +145,13 @@ class DeploymentArtifact:
     def from_state(cls, *, cfg, policy: ExecutionPolicy, tp: int,
                    rank_params, leaf_shards: dict, pair_meta,
                    seed: Optional[int] = None,
-                   extra: Optional[dict] = None) -> "DeploymentArtifact":
+                   extra: Optional[dict] = None, tuner_report=(),
+                   aux: Optional[dict] = None) -> "DeploymentArtifact":
         """Freeze the compiler's output: ``rank_params`` the ``tp`` rank
         trees, ``leaf_shards`` keyed as ``compiler.shard_params`` records
-        them.  ``extra``: the caller's provenance fields (the CLI's
+        them, ``tuner_report`` the collective tuner's per-site scores
+        (the manifest's ``collective_tuner``), ``aux`` the attention
+        folds.  ``extra``: the caller's provenance fields (the CLI's
         ``smoke``), merged in, never overriding the plan's."""
         manifest = {
             "format_version": FORMAT_VERSION,
@@ -165,9 +170,12 @@ class DeploymentArtifact:
                 "entries": [[pat, spec.shorthand()]
                             for pat, spec in coll.entries],
                 "default": coll.default.shorthand()}
+        if tuner_report:
+            manifest["collective_tuner"] = list(tuner_report)
         if extra:
             manifest = {**extra, **manifest}
-        return cls(manifest=manifest, rank_params=tuple(rank_params))
+        return cls(manifest=manifest, rank_params=tuple(rank_params),
+                   aux=aux)
 
     # ---- accessors --------------------------------------------------------
 
@@ -228,13 +236,11 @@ class DeploymentArtifact:
     def validate(self, cfg=None, policy: Optional[ExecutionPolicy] = None,
                  tp: Optional[int] = None) -> "DeploymentArtifact":
         """Refuse to serve under a mismatched plan, or what the port cannot
-        serve (an aux.npz; a leaf held whole that the port's model would
-        split).  Raises ``PlanMismatchError``; returns self."""
+        serve (an aux tree its model does not consume; a leaf held whole
+        that the port's model would split).  Raises ``PlanMismatchError``;
+        returns self."""
         if self.aux is not None:
-            raise PlanMismatchError(
-                f"artifact has {self.aux} (V->O attention folds), which "
-                "the port cannot serve yet (ROADMAP.md queue 1, item 4); "
-                "prepare it without quant.attn_tp_aware")
+            self._check_aux(cfg)
         if cfg is not None:
             if cfg.arch_id != self.manifest["arch_id"]:
                 raise PlanMismatchError(
@@ -260,6 +266,33 @@ class DeploymentArtifact:
                 f"{tp} TP rank(s) != artifact's TP {self.tp}: re-run "
                 "prepare for this degree")
         return self
+
+    def _check_aux(self, cfg) -> None:
+        """The aux tree must be attention folds (``attn_plans``) at the
+        path the model's attention consumes them from (with ``cfg``):
+        serving without part of a plan would serve another model."""
+        from repro_torch.core.reorder import PlannedPair
+        from repro_torch.models.registry import build_model
+
+        plans = self.aux.get("attn_plans") if isinstance(self.aux,
+                                                         dict) else None
+        if (not isinstance(plans, dict) or set(self.aux) != {"attn_plans"}
+                or not all(isinstance(p, PlannedPair)
+                           for p in plans.values())):
+            have = sorted(self.aux) if isinstance(self.aux, dict) else \
+                type(self.aux).__name__
+            raise PlanMismatchError(
+                f"artifact's {AUX} holds {have}, which the port cannot "
+                "serve: it serves only attention V->O folds (attn_plans)")
+        if cfg is None:
+            return
+        model = build_model(cfg)
+        want = {model.attn_vo_path} if model.supports_attn_vo else set()
+        if set(plans) - want:
+            raise PlanMismatchError(
+                f"artifact's {AUX} folds attention at {sorted(plans)}, "
+                f"but the port's {cfg.family} model consumes folds at "
+                f"{sorted(want)} only and cannot serve the others")
 
     def _check_shards(self, cfg) -> None:
         """Each leaf must be split as the port's model splits it at the
@@ -298,6 +331,8 @@ class DeploymentArtifact:
         for r, tree in enumerate(self.rank_params):
             checkpoint.save(loader.rank_file(dirpath, r),
                             interop.to_reference_layout(tree))
+        if self.aux is not None:
+            checkpoint.save(os.path.join(dirpath, AUX), self.aux)
         return dirpath
 
     @classmethod
@@ -315,16 +350,11 @@ class DeploymentArtifact:
                 f"supported v{FORMAT_VERSION}")
         return manifest
 
-    @staticmethod
-    def _aux(dirpath: str) -> Optional[str]:
-        path = os.path.join(dirpath, AUX)
-        return path if os.path.exists(path) else None
-
     @classmethod
     def load(cls, dirpath: str, *,
              device: DeviceLike = None) -> "DeploymentArtifact":
-        """Every rank's tree, in the port's layout, on ``device`` (default:
-        the CUDA card)."""
+        """Every rank's tree, in the port's layout, and the aux tree, on
+        ``device`` (default: the CUDA card)."""
         dev = resolve_device(device)
         manifest = cls.load_manifest(dirpath)
         ranks = tuple(
@@ -332,18 +362,21 @@ class DeploymentArtifact:
                 interop.to_port_layout(checkpoint.load(
                     loader.rank_file(dirpath, r))), lambda _, t: t.to(dev))
             for r in range(int(manifest["tp"])))
-        return cls(manifest=manifest, rank_params=ranks,
-                   aux=cls._aux(dirpath))
+        aux, _ = loader.load_aux(dirpath, device=dev)
+        return cls(manifest=manifest, rank_params=ranks, aux=aux)
 
     @classmethod
     def load_rank(cls, dirpath: str, rank: int, *,
                   device: DeviceLike = None) -> "DeploymentArtifact":
         """Rank ``rank``'s tree alone, read from its own file only
-        (``dist.loader.load_per_rank``), with the byte ledger."""
+        (``dist.loader.load_per_rank``), and the whole aux tree, with the
+        byte ledger."""
         manifest = cls.load_manifest(dirpath)
         tree, stats = loader.load_per_rank(dirpath, manifest, rank,
                                            device=device)
+        aux, aux_bytes = loader.load_aux(dirpath, device=device)
         ranks = tuple(tree if r == rank else None
                       for r in range(int(manifest["tp"])))
-        return cls(manifest=manifest, rank_params=ranks,
-                   aux=cls._aux(dirpath), load_stats=stats)
+        return cls(manifest=manifest, rank_params=ranks, aux=aux,
+                   load_stats=dataclasses.replace(
+                       stats, aux_bytes_loaded=aux_bytes))

@@ -1,19 +1,26 @@
 """Offline plan compiler; port of ``repro/plan/compiler.py``
-(``stage_quantize``, ``stage_layout``, ``compile_params``,
-``_pair_group_sizes``, ``shard_params``, ``stage_shard``,
-``compile_plan``, ``prepare``; not yet the collective tuner or the
-attention fold).
+(``stage_quantize``, ``stage_layout``, ``stage_fold_attention``,
+``compile_params``, ``_pair_group_sizes``, ``shard_params``,
+``stage_shard``, ``compile_plan``, ``prepare``).
 
 The stages walk a raw param tree and replace every MLP weight dict
 (``{"w_up", "w_down"[, "w_gate"]}``) first by a scheme-agnostic
-``PairBundle``, then by a ``PlannedPair`` in the deployment scheme;
+``PairBundle``, then by a ``PlannedPair`` in the deployment scheme.
+With ``cfg.quant.attn_tp_aware``, ``stage_fold_attention`` plans every
+attention's V->O pair with the head-block-constrained fold
+(``core/attention_fold.py``) into the artifact's aux tree, stacked over
+the layers as the reference's aux holds them.  ``autotune=True`` runs
+the collective tuner (``plan/tuner.py``) over the planned pairs and
+folds and writes its per-layer ``CollectivePlan`` into the policy.
 ``stage_shard`` then keeps one TP rank's slices, as the model's
-``param_specs`` name them.  ``Model.init`` runs the stages one layer at a
-time, so neither the raw f32 MLP weights nor the unsharded plan of all
-layers ever sit in memory together.  ``compile_plan`` runs them over a
-whole raw tree, shards it for every rank and freezes the result as a
-``DeploymentArtifact``; ``prepare`` does so from a seed, and its rank
-``r`` is ``Model.init(seed, tp=tp, rank=r)`` bit for bit.
+``param_specs`` name them; the aux tree stays whole (each rank takes its
+heads of it at load, ``runtime/serve.py``).  ``Model.init`` runs the
+stages one layer at a time, so neither the raw f32 MLP weights nor the
+unsharded plan of all layers ever sit in memory together.
+``compile_plan`` runs them over a whole raw tree, shards it for every
+rank and freezes the result as a ``DeploymentArtifact``; ``prepare`` does
+so from a seed, and its rank ``r`` is ``Model.init(seed, tp=tp, rank=r)``
+bit for bit.
 """
 
 from __future__ import annotations
@@ -24,7 +31,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import reorder
+from repro_torch.core import attention_fold, reorder
 from repro_torch.core.policy import ExecutionPolicy
 from repro_torch.core.quantization import choose_group_size
 from repro_torch.core.quantization import QuantizedLinear
@@ -36,12 +43,30 @@ from repro_torch.dist.topology import MeshPlan
 #: seed part separating the quantization stream from the init stream
 PLAN_RNG_STREAM = 0x504C414E  # "PLAN"
 
+#: seed part of the attention fold's stream, disjoint from the MLP
+#: quantize stage's (the reference offsets its fold_in counter by it)
+ATTN_FOLD_STREAM = 0x41545400
+
 
 def plan_generator(seed: int, device=None) -> torch.Generator:
     """The generator of the act-order processing orders for ``seed``:
     with the init generator ``new_generator(seed)``, the definition of
     "the same seed" that makes ``prepare`` equal ``Model.init``."""
     return new_generator(derive_seed(seed, PLAN_RNG_STREAM), device)
+
+
+def fold_generator(seed: int, device=None) -> torch.Generator:
+    """The generator of the attention folds' importance and V orders."""
+    return new_generator(
+        derive_seed(seed, PLAN_RNG_STREAM, ATTN_FOLD_STREAM), device)
+
+
+def tune_generator(seed: int, device=None) -> torch.Generator:
+    """The generator of the collective tuner's calibration rows."""
+    from repro_torch.plan.tuner import TUNE_RNG_STREAM
+
+    return new_generator(
+        derive_seed(seed, PLAN_RNG_STREAM, TUNE_RNG_STREAM), device)
 
 
 def _is_mlp_dict(node: Any) -> bool:
@@ -100,6 +125,55 @@ def compile_params(cfg: ModelConfig, raw_params: Any, *,
     gen = generator if generator is not None else new_generator(0)
     bundles = stage_quantize(cfg, raw_params, gen)
     return stage_layout(bundles, scheme or cfg.quant.scheme)
+
+
+# ---------------------------------------------------------------------------
+# the attention V->O fold
+# ---------------------------------------------------------------------------
+
+def _is_attn_dict(node: Any) -> bool:
+    return isinstance(node, dict) and "wv" in node and "wo" in node
+
+
+def stage_fold_attention(cfg: ModelConfig, params: Any,
+                         generator: torch.Generator) -> Optional[dict]:
+    """The head-block-constrained V->O folds of every attention dict
+    (``{"wv", "wo", ...}``) of the raw tree, when
+    ``cfg.quant.attn_tp_aware`` is set (else None): ``{dotted path:
+    PlannedPair}``, a list of layers' pairs stacked along a leading dim
+    (``{"layers.attn": pair of (L, ...) leaves}``, the reference's aux
+    tree).  Each fold draws its row importance and V's processing order
+    from ``generator``, layer by layer, over the padded head grid."""
+    from repro_torch import interop
+    from repro_torch.models.common import head_grid
+
+    if not cfg.quant.attn_tp_aware:
+        return None
+    kvp, _, hp = head_grid(cfg)
+    hd = cfg.head_dim
+    gs = choose_group_size(hd, cfg.quant.group_size)
+    plans: dict = {}
+
+    def walk(node, path: tuple, stacked: bool):
+        if _is_attn_dict(node):
+            pp = attention_fold.plan_attention_vo(
+                node["wv"], node["wo"], n_heads=hp, n_kv_heads=kvp,
+                head_dim=hd, group_size=gs, generator=generator)
+            key = ".".join(path)
+            if stacked:
+                plans.setdefault(key, []).append(pp)
+            else:
+                plans[key] = pp
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + (k,), stacked)
+        elif isinstance(node, list):
+            for v in node:
+                walk(v, path, True)
+
+    walk(params, (), False)
+    return {k: interop.stack_layers(v) if isinstance(v, list) else v
+            for k, v in plans.items()} or None
 
 
 # ---------------------------------------------------------------------------
@@ -206,35 +280,62 @@ def compile_plan(cfg: ModelConfig, raw_params: Any, *, tp: int,
                  policy: ExecutionPolicy,
                  generator: Optional[torch.Generator] = None,
                  seed: Optional[int] = None,
-                 extra_manifest: Optional[dict] = None):
+                 extra_manifest: Optional[dict] = None,
+                 autotune: bool = False,
+                 tune_budget: Optional[float] = None,
+                 tune_overlap: bool = False):
     """Raw fp params -> ``DeploymentArtifact``: quantize and lay out (when
-    ``cfg.quant.mode`` is ``"mlp"``, as ``Model.init``), then pre-shard for
-    ``tp`` ranks, and freeze with the manifest.  ``policy`` is recorded,
-    its scheme laid out; ``generator`` draws the processing orders
-    (``compile_params``); ``seed`` is provenance only."""
+    ``cfg.quant.mode`` is ``"mlp"``, as ``Model.init``), fold attention
+    (``cfg.quant.attn_tp_aware``), tune the collectives (``autotune``: max
+    relative error ``tune_budget``, the tuner's default when None;
+    ``tune_overlap`` is ROADMAP.md queue 1, item 9, and raises), then
+    pre-shard for ``tp`` ranks, and freeze with the manifest.  ``policy``
+    is recorded (with the tuned plan), its scheme laid out;
+    ``generator`` draws the MLP processing orders (``compile_params``),
+    and the fold and tuner streams come from ``seed`` (0 when None), which
+    is also recorded as provenance."""
+    from repro_torch.plan import tuner
     from repro_torch.plan.artifact import DeploymentArtifact
 
+    if tune_overlap:
+        raise ValueError(f"tune_overlap: {tuner.OVERLAP_NOT_PORTED}")
+    dev = generator.device if generator is not None else None
+    base = 0 if seed is None else seed
     meta = pair_meta(cfg, raw_params, policy.scheme)
     planned = raw_params
     if cfg.quant.mode == "mlp":
         planned = compile_params(cfg, raw_params, generator=generator,
                                  scheme=policy.scheme)
+    attn_plans = stage_fold_attention(cfg, raw_params,
+                                      fold_generator(base, dev))
+    report = ()
+    if autotune:
+        kw = {} if tune_budget is None else {"budget": tune_budget}
+        policy, report = tuner.autotune_collectives(
+            cfg, planned, meta, policy, tp, attn_plans=attn_plans,
+            generator=tune_generator(base, dev), **kw)
     trees, leaf_shards = shard_params(cfg, planned, tp)
     return DeploymentArtifact.from_state(
         cfg=cfg, policy=policy, tp=tp, rank_params=trees,
         leaf_shards=leaf_shards, pair_meta=meta, seed=seed,
-        extra=extra_manifest)
+        extra=extra_manifest, tuner_report=report,
+        aux=None if attn_plans is None else {"attn_plans": attn_plans})
 
 
 def prepare(cfg: ModelConfig, *, tp: int, seed: int = 0,
             policy: Optional[ExecutionPolicy] = None,
             extra_manifest: Optional[dict] = None,
-            device: DeviceLike = None):
+            device: DeviceLike = None,
+            autotune: bool = False,
+            tune_budget: Optional[float] = None,
+            tune_overlap: bool = False):
     """Seed -> artifact, on ``device`` (default: the CUDA card).  The raw
     init and the plan generator come from ``seed`` exactly as
     ``Model.init`` draws them, so rank ``r`` of the result equals
     ``Model.init(seed, tp=tp, rank=r)`` on the same device bit for bit.
-    ``policy`` defaults to the config's for ``device`` and ``tp`` ranks."""
+    ``policy`` defaults to the config's for ``device`` and ``tp`` ranks;
+    ``autotune``, ``tune_budget`` and ``tune_overlap`` as in
+    ``compile_plan``."""
     from repro_torch.models.registry import build_model
 
     dev = resolve_device(device)
@@ -244,4 +345,5 @@ def prepare(cfg: ModelConfig, *, tp: int, seed: int = 0,
     raw = build_model(cfg).init_raw(seed, device=dev)
     return compile_plan(cfg, raw, tp=tp, generator=plan_generator(seed, dev),
                         policy=policy, seed=seed,
-                        extra_manifest=extra_manifest)
+                        extra_manifest=extra_manifest, autotune=autotune,
+                        tune_budget=tune_budget, tune_overlap=tune_overlap)

@@ -28,6 +28,12 @@ tokens from identically seeded generators.  The policy's ``mesh`` names
 the TP degree the plan was made for, and it must be the group's.  With a
 group the step stays eager: the collectives go through gloo and host
 memory (``launch/mesh.py``), which a CUDA graph cannot hold.
+
+An artifact's aux plans (attention V->O folds, ``Engine.aux``) are kept
+once, at construction, as a list of per-layer folds on the engine's
+device, each rank's heads of them under TP; every forward and decode
+step runs them, and the captured step holds their addresses as it holds
+the params'.
 """
 
 from __future__ import annotations
@@ -110,6 +116,10 @@ class Engine:
     #: what this rank read of an artifact (``dist.loader.RankLoadStats``);
     #: None for params made in memory or loaded whole
     load_stats: Any = None
+    #: the artifact's aux plans (``{"attn_plans": {path: fold}}``, folds
+    #: stacked over the layers or per-layer lists); kept as per-layer
+    #: lists of this rank's heads on ``device``
+    aux: Any = None
     #: the captured decode steps by batch size (``decode`` on the card)
     graphs: dict = dataclasses.field(default_factory=dict, init=False,
                                      repr=False)
@@ -124,6 +134,36 @@ class Engine:
             self.policy = default_policy(self.model.cfg, self.device,
                                          self.tp)
         check_mesh(self.policy, self.tp)
+        self.aux = self._rank_aux(self.aux)
+
+    def _rank_aux(self, aux):
+        """The aux tree as this rank serves it: each fold a list of
+        per-layer folds of this rank's heads, contiguous on ``device``.  A
+        fold stacked over the layers (as the artifact holds it) is split
+        and sliced; a list is taken as this rank's already (so an engine
+        ``dataclasses.replace`` makes from this one keeps it)."""
+        from repro_torch.core.attention_fold import shard_attention_vo
+        from repro_torch.models.common import head_grid
+
+        if not aux:
+            return None
+        cfg = self.model.cfg
+        kvp, _, hp = head_grid(cfg)
+        rank = comm.axis_index(self.group)
+
+        def mine(pp):
+            return shard_attention_vo(pp, self.tp, n_heads=hp,
+                                      n_kv_heads=kvp,
+                                      head_dim=cfg.head_dim)[rank]
+
+        plans = {}
+        for path, vo in (aux.get("attn_plans") or {}).items():
+            layers = vo if isinstance(vo, list) else [
+                mine(map_tensors(vo, lambda _, t, i=i: t[i]))
+                for i in range(vo.up.qweight.shape[0])]
+            plans[path] = [map_tensors(pp, lambda _, t: t.to(self.device))
+                           for pp in layers]
+        return dict(aux, attn_plans=plans)
 
     @property
     def tp(self) -> int:
@@ -168,7 +208,7 @@ class Engine:
         return self.model.forward(self.params, {"tokens": tokens},
                                   self.policy, window=self.window,
                                   attn_backend=self.attn_backend,
-                                  group=self.group)
+                                  group=self.group, aux=self.aux)
 
     @property
     def decode_mode(self) -> str:
@@ -219,7 +259,7 @@ class Engine:
         cache's capacity."""
         return self.model.decode_step(
             self.params, cache, tokens, pos, self.policy, window=self.window,
-            group=self.group, pages=pages, kv_len=self.max_seq)
+            group=self.group, pages=pages, kv_len=self.max_seq, aux=self.aux)
 
     def _capture(self, cache, tokens: torch.Tensor, pos, pages=None):
         """Run this call's step eagerly on the capture stream, capture the
@@ -330,7 +370,8 @@ def make_engine(cfg, seed: int = 0, *, device: DeviceLike = None,
     directory, a rank of a group reads only its own ``rank_NN.npz``
     (``dist.loader.load_per_rank``; ``Engine.load_stats`` keeps the
     ledger), one device all of them (``DeploymentArtifact.load``); either
-    way onto the host first.  The artifact is validated against ``cfg``,
+    way onto the host first, with the artifact's aux plans (the attention
+    folds, ``Engine.aux``).  The artifact is validated against ``cfg``,
     the effective policy and the group's TP degree before any weight
     reaches ``device``: a mismatched plan raises ``PlanMismatchError``.
     The params are in place before the first decode step, so the captured
@@ -341,7 +382,7 @@ def make_engine(cfg, seed: int = 0, *, device: DeviceLike = None,
     if policy is not None:
         check_mesh(policy, tp)
     model = build_model(cfg)
-    load_stats = None
+    load_stats = aux = None
     if artifact is None:
         params = model.init(seed, device=dev, tp=tp, rank=rank)
     else:
@@ -358,7 +399,7 @@ def make_engine(cfg, seed: int = 0, *, device: DeviceLike = None,
         artifact.validate(**plan)
         params = map_tensors(artifact.rank_tree(rank),
                              lambda _, t: t.to(dev))
-        load_stats = artifact.load_stats
+        load_stats, aux = artifact.load_stats, artifact.aux
     return Engine(model=model, params=params, device=dev, max_seq=max_seq,
                   window=window, policy=policy, group=group,
-                  load_stats=load_stats)
+                  load_stats=load_stats, aux=aux)
