@@ -38,7 +38,9 @@ Phases, one line each:
      memory-efficient and math backends timed alone), K3 at the tp=2 down
      projection (int8 and int4; its device kernels a call) beside K1
      followed by the plain quantizer and K1 alone,
-     and K1 at the forward's M=2048 (up/gate and down; its tensor-core
+     K3 at M 2 and 1 and K1 at M 2 at that shard (the ``:overlap``
+     paths' microbatches), and K1 at the forward's M=2048 (up/gate and
+     down; its tensor-core
      loop) against its bounds, its plain version and, as context,
      ``torch.matmul`` on the weight pre-dequantized by K5 (the cuBLAS
      kernel named); K1 and K4 at M=4 at the other archs' MLP shapes and
@@ -118,10 +120,12 @@ Phases, one line each:
      tok/s and peak memory
  19. serve-tp-archs: granite (its odd vocab, 49155, split by d_model) and
      starcoder2 at tp=2 with ``quant-int8:fused`` on two rank processes,
-     as phases 14 and 15: K3 (one per layer) and K1 launches per step per
-     rank, the fused ring bit-identical to the plain one, psum at tp=2
-     against phase 18's tp=1 engine layer by layer (its greedy ids
-     reported)
+     full width, depth cut to 10 layers (printed; to keep the script
+     within its time), as phases 14 and 15: K3 (one per
+     layer) and K1 launches per step per rank, the fused ring
+     bit-identical to the plain one, psum at tp=2 against phase 18's tp=1
+     engine's first 10 layers layer by layer (the greedy ids of those
+     layers reported)
  20. artifact-granite: as phases 16 and 17 for granite at full width,
      depth cut to 10 of its 40 layers (the cut printed; the files' save
      and load dominate the phase): the tp=1 and the tp=2 plans prepared,
@@ -184,11 +188,38 @@ Phases, one line each:
      the MLP and K1 for the other GEMMs and V and O; with a float32
      carry under psum, each layer within the float32 GEMM tolerance of
      phase 25's tp=1 fold on the same input carries
+ 27. overlap-tp: the ``:overlap`` epilogue (``dist/overlap.py``):
+     qwen3-4b at full width, depth cut to 4 layers (printed), prepared
+     at tp=2 with the tuner's ``:overlap`` marks (``prepare
+     --autotune-collectives --overlap-collectives``), saved, and served
+     from the rank files on two rank processes over gloo via host: the
+     tuned MLP carries ``:overlap``; the four requests' ids equal on both
+     ranks; K3 (fused) once per row microbatch and K1 for up and gate, a
+     step per rank, as counted from the config; at how many pipelined
+     sites mb0's ring was still in flight once mb1's GEMM was launched
+     (at least one); greedy logits of the lockstep batch bit-equal to
+     the same plan without ``:overlap``, fused and unfused (K1 runs the
+     down projection per microbatch), and two rows at a time;
+     torch.profiler over traced steps: every pipelined site's first
+     microbatch's ring window (post to wait) holds a down-GEMM kernel,
+     and no window of the synchronous ring does; the steps' wall time
+     with and without ``:overlap`` in alternating blocks; K1 and K3 at a
+     microbatch pair's halves bit-equal to the whole at M 2, 4 and 600,
+     and M 300 (whole on the tensor-core loop, halves not) not split;
+     the library GEMM's rows at M 2 against M 4
+ 28. mesh-dp: the ``dp2xtp2`` grid, four processes on the card, from
+     phase 27's tp=2 rank files: each process reads only its model-axis
+     rank file (resident bytes), each row serves its data rank's two
+     rows of the lockstep batch (K3 and K1 launches from the config), the
+     greedy ids and logits row for row bit-equal to phase 27's
+     ``dp1xtp2`` engine on the same rows, and against its whole 4-row
+     batch ids equal or apart only after a near tie; tokens/s
 
 then the per-kernel JSON line (after the first six: K2 on the long
 forward, the paged and HTTP serves' K1, K4 and K3 rows, the other
 archs' K1, K4 and K3 rows, then K1 on the GPTQ pair and on the fold's V
-and O, and K3 where phase 26's tuner fused the MLP), the total seconds
+and O, K3 where phase 26's tuner fused the MLP, then K3 and K1 on the
+``:overlap`` paths of phases 27 and 28), the total seconds
 and each phase's, the
 card's nvidia-smi line
 and, as the last line, ``{"ok": true, "device": {...}}``.  Every path
@@ -230,6 +261,9 @@ from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import dequant_matmul as dk  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.core.policy import ExecutionPolicy  # noqa: E402
+from repro_torch.dist import overlap  # noqa: E402
+from repro_torch.dist.topology import MeshPlan  # noqa: E402
+from repro_torch.kernels import dispatch as kdispatch  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import mesh  # noqa: E402
 from repro_torch.models import common as cm  # noqa: E402
@@ -261,6 +295,11 @@ MISTRAL_LAYERS = 4
 #: granite's depth in phase 20 (its artifact's save and load take about
 #: half a second a layer each)
 ARTIFACT_GRANITE_LAYERS = 10
+#: granite's and starcoder2's depth at tp=2 (phase 19): the gloo step via
+#: host costs 7-9 ms a layer; a depth-L model is the full one's first L
+#: layers (the init draws them first), so phase 18's full engine gives
+#: the reference of the first L
+TP_ARCH_LAYERS = 10
 #: the long forward (phase 21): starcoder2 at full width, two layers,
 #: one sequence of 8192 tokens (the reference's Q_CHUNK_MIN_SEQ) under
 #: its 4096-token window
@@ -394,6 +433,17 @@ WIRE_SWEEP = [(128, 96, 32, 4, 8, 32), (64, 128, 8, 8, 8, 128),
               (128, 96, 32, 2, 4, 32), (256, 256, 64, 2, 4, 16),
               (608, 90, 76, 4, 8, 128), (608, 100, 76, 4, 4, 12),
               (608, 80, 76, 2, 4, 12)] + WIRE_EDGES + WIRE_RANK + WIRE_ARCHS
+#: phases 27-28 (the :overlap epilogue and the dp2xtp2 grid): depth (full
+#: width; the rank files' save and load and the gloo step dominate), the
+#: rows of a 4-slot step's microbatch, the decode steps traced for the
+#: ring windows, and the lockstep batch of ``serve --mesh --prompt-budget
+#: 16 --max-new 8`` (4 prompts of 8 tokens from seed 0, 8 new tokens; the
+#: gloo step's 0.1-0.2 s make every step count against the time limit)
+OVERLAP_LAYERS = 4
+OVERLAP_MB = 2
+OVERLAP_TRACE_STEPS = 4
+OVERLAP_WALL_BLOCKS = 8
+MESH_BATCH, MESH_PLEN, MESH_NEW = 4, 8, 8
 #: the collectives of the TP phases
 TP_SERVE = "quant-int8:fused"
 TP_PAIRS = (("quant-int8:fused", "quant-int8"),
@@ -1370,7 +1420,25 @@ def phase_timing(gen) -> dict:
                  r["bound_by"], r["bytes"] / 1e6, r["plain_ms"],
                  r["matmul_dequantized_ms"], r["eager_ms"]))
     archs = _time_archs(gen)
+    # the :overlap paths' microbatches (phases 27-28): K3 at the tp=2 down
+    # shard at M=2 (half of a 4-slot step) and M=1 (half of a dp2 row's
+    # 2 slots), K1 at M=2
+    wire_mb = {m: _time_wire(gen, m=m) for m in (OVERLAP_MB, 1)}
+    km = _time_gemm(gen, "ordered", m=OVERLAP_MB,
+                    shapes=(DOWN_TP,))[DOWN_TP[0]]
+    for m, w in wire_mb.items():
+        line("timing", "the :overlap microbatch, M={} at the tp=2 down "
+             "shard, CUDA-graph replay: K3 int8 {:.4f} ms (bound {:.4f}, "
+             "plain {:.4f}), int4 {:.4f} ms (bound {:.4f}, plain "
+             "{:.4f})".format(m, w["int8"]["ms"], w["int8"]["bound_ms"],
+                              w["int8"]["plain_ms"], w["int4"]["ms"],
+                              w["int4"]["bound_ms"], w["int4"]["plain_ms"]))
+    line("timing", "the :overlap microbatch, M={}: K1 at the tp=2 down "
+         "shard {:.4f} ms (bound {:.4f}, plain {:.4f})".format(
+             OVERLAP_MB, km["ms"], km["bound_ms"], km["plain_ms"]))
     return {"dequant_matmul_ordered": ordered, "dequant_matmul_gidx": gidx,
+            "dequant_matmul_wire_ordered_mb": wire_mb,
+            "dequant_matmul_ordered_mb": km,
             "dequant_matmul_ordered_fold": fold,
             "dequant_matmul_ordered_m2048": large,
             "gidx_over_ordered_per_layer": ratio,
@@ -2520,9 +2588,19 @@ def phase_serve_archs() -> tuple[dict, dict]:
         carries, outputs = layer_trace(
             engine, torch.from_numpy(_greedy_inputs(cfg)[0]).cuda())
         if arch in TP_ARCHS:
-            refs[arch] = {"trace": greedy_reference(engine, cfg),
-                          "layers": ([c.cpu() for c in carries],
-                                     [o.cpu() for o in outputs])}
+            # phase 19's reference: the first TP_ARCH_LAYERS layers
+            cut = cfg.with_(num_layers=TP_ARCH_LAYERS)
+            layers = engine.params["layers"][:cut.num_layers]
+            first = Engine(model=build_model(cut),
+                           params=dict(engine.params, layers=layers),
+                           device=engine.device, max_seq=engine.max_seq,
+                           policy=engine.policy)
+            refs[arch] = {"trace": greedy_reference(first, cut),
+                          "layers": ([c.cpu() for c in
+                                      carries[:cut.num_layers]],
+                                     [o.cpu() for o in
+                                      outputs[:cut.num_layers]])}
+            del first
         naive_cfg = base.with_quant(mode="mlp", scheme="naive-actorder",
                                     backend="cuda")
         naive, res["serve_naive"] = phase_serve(
@@ -2555,14 +2633,19 @@ def phase_serve_archs() -> tuple[dict, dict]:
 
 def phase_serve_tp_archs(refs: dict) -> dict:
     """Phase 19: each of ``TP_ARCHS`` at tp=2 with ``TP_SERVE`` on two
-    rank processes (granite's odd vocab split by ``d_model``), as phases
-    14 and 15: K3 and K1 launches per step per rank, the fused ring
-    bit-identical to the plain one, psum at tp=2 against phase 18's tp=1
-    engine layer by layer."""
+    rank processes (granite's odd vocab split by ``d_model``), depth cut
+    to ``TP_ARCH_LAYERS`` (printed), as phases 14 and 15: K3 and K1
+    launches per step per rank, the fused ring bit-identical to the plain
+    one, psum at tp=2 against phase 18's tp=1 engine's first layers layer
+    by layer."""
     out = {}
     for arch in TP_ARCHS:
-        cfg = arch_config(arch).with_quant(mode="mlp", scheme="tp-aware",
-                                           backend="auto")
+        cfg = arch_config(arch).with_(num_layers=TP_ARCH_LAYERS).with_quant(
+            mode="mlp", scheme="tp-aware", backend="auto")
+        line(f"serve-tp {arch}", f"full width, depth cut from "
+             f"{arch_config(arch).num_layers} to {cfg.num_layers} layers "
+             f"(the gloo step via host dominates; phase 18's reference is "
+             f"the full engine's first {cfg.num_layers} layers)")
         serve, cross, _ = phase_serve_tp(
             cfg, refs[arch]["trace"], TP_PAIRS[:1], f"serve-tp {arch}",
             f"tp-crosscheck {arch}", refs[arch]["layers"])
@@ -3484,6 +3567,627 @@ def phase_fold_tp(tp1: tuple) -> dict:
              "/".join(f"{x['max_abs_err']:.3g}" for x in lw)))
     return out
 
+# ---------------------------------------------------------------------------
+# phases 27-28: the :overlap epilogue at tp=2 and the dp2xtp2 grid
+# ---------------------------------------------------------------------------
+
+def microbatches(m: int, gs: int) -> int:
+    """Row microbatches a pipelined down GEMM of ``m`` float32 rows on K1
+    or K3 runs in: two where ``dist/overlap.split_rows`` splits under the
+    kernels' loop rule (``kernels.dispatch.main_loop``), else one."""
+    def loop(rows):
+        return dk.takes_tensor_cores(rows, gs, torch.float32)
+
+    return 1 if overlap.split_rows((m,), loop) is None else 2
+
+
+def overlap_launches(cfg, m: int, fused: bool) -> dict:
+    """K3 and K1 launches of one tp=2 decode step of ``m`` slots per rank
+    under an ``:overlap`` ring on every MLP: up (and gate) whole, the down
+    projection once per microbatch, on K3 where ``fused``."""
+    mb = microbatches(m, mlp_shapes(cfg, TP)[1][3]) * cfg.num_layers
+    col = (2 if cfg.mlp_gated else 1) * cfg.num_layers
+    return {"dequant_matmul_wire_ordered": mb if fused else 0,
+            "dequant_matmul_ordered": col + (0 if fused else mb)}
+
+
+def _without(coll, flag: str):
+    """``coll`` (a spec or a per-layer plan) with ``:flag`` taken off."""
+    return parse_collective(coll.shorthand().replace(f":{flag}", ""))
+
+
+def _mesh_batch(cfg) -> tuple[np.ndarray, np.ndarray]:
+    """``serve --mesh``'s lockstep batch: ``MESH_BATCH`` prompts of
+    ``MESH_PLEN`` tokens from seed 0 (the CLI's rule at --prompt-budget
+    16)."""
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(MESH_BATCH, MESH_PLEN))
+    return tokens, np.full((MESH_BATCH,), MESH_PLEN)
+
+
+def _check_halves(gen) -> dict:
+    """K1 and K3 (int8 and int4 wires) at the tp=2 down shard on a
+    microbatch pair's halves against the whole call, at M 2 and 4 (the
+    decode loop: phase 28's and phase 27's steps), 600 (tensor-core loop)
+    and 300 (whole on the tensor-core loop, halves on the decode loop:
+    ``split_rows`` must refuse it; whether the halves would have
+    differed is reported)."""
+    _, k, n, gs = DOWN_TP
+    ql = _quantized(gen, k, n, gs).ordered
+    pol = ExecutionPolicy(backend="cuda")
+    loop = kdispatch.main_loop(ql, pol, torch.device("cuda"))
+    out = {}
+    for m in (2, 4, 300, 600):
+        x = torch.randn(m, k, generator=gen, device="cuda")
+        split = overlap.split_rows((m,), loop)
+        m0 = m // 2 if split is None else split[1]
+        rows = (x[:m0], x[m0:])
+        equal = {"K1": torch.equal(
+            kdispatch.qmatmul(x, ql, pol),
+            torch.cat([kdispatch.qmatmul(r, ql, pol) for r in rows]))}
+        for short in ("quant-int8:128", "quant-int4:32"):
+            spec = parse_collective(short)
+            whole = kdispatch.qmatmul_wire(x, ql, pol, spec=spec, tp=TP)
+            parts = [kdispatch.qmatmul_wire(r, ql, pol, spec=spec, tp=TP)
+                     for r in rows]
+            equal[f"K3 {short}"] = all(
+                torch.equal(torch.cat([getattr(p, f) for p in parts]),
+                            getattr(whole, f))
+                for f in ("payload", "scales", "zeros")
+                if getattr(whole, f) is not None)
+        out[m] = {"split": split, "halves_bit_equal": equal}
+        if split is not None and not all(equal.values()):
+            raise AssertionError(f"overlap-tp: M={m} split at {m0}: "
+                                 f"halves differ from the whole: {equal}")
+    if out[300]["split"] is not None or any(
+            out[m]["split"] is None for m in (2, 4, 600)):
+        raise AssertionError(f"overlap-tp: split rule {out}")
+    return out
+
+
+def _library_rows(gen) -> dict:
+    """The library's float32 GEMM (``torch.matmul``, which the step runs
+    for attention's projections and the head) at qwen3-4b's tp=2 decode
+    shapes: whether the rows of two M=2 calls equal those of one M=4
+    call, bit for bit (phase 28's grid runs M=2 where the dp1 engine runs
+    M=4)."""
+    h, kvh, hd = QWEN.n_heads, QWEN.n_kv_heads, QWEN.head_dim
+    d = QWEN.d_model
+    out = {}
+    for name, k, n in (("wq", d, h * hd // TP), ("wk", d, kvh * hd // TP),
+                       ("wo", h * hd // TP, d),
+                       ("head", d, QWEN.vocab_size // TP)):
+        x = torch.randn(MESH_BATCH, 1, k, generator=gen, device="cuda")
+        w = torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5
+        half = MESH_BATCH // 2
+        out[name] = torch.equal(torch.cat([x[:half] @ w, x[half:] @ w]),
+                                x @ w)
+    return out
+
+
+def _steps(engine):
+    """A runner of ``OVERLAP_TRACE_STEPS`` decode steps of ``engine`` (4
+    slots, the cache half full), synchronized at the end."""
+    cache = engine.init_cache(MESH_BATCH)
+    tokens = torch.arange(MESH_BATCH, device=engine.device)
+    pos = torch.full((MESH_BATCH,), 24, device=engine.device)
+
+    def run():
+        for i in range(OVERLAP_TRACE_STEPS):
+            engine.decode(cache, tokens, pos + i)
+        torch.cuda.synchronize()
+
+    return run
+
+
+def _alternating_wall(engines: dict) -> dict:
+    """Wall ms a decode step of the ``sync`` and the ``overlap`` engine
+    (no profiler), in ``OVERLAP_WALL_BLOCKS`` blocks of
+    ``OVERLAP_TRACE_STEPS`` steps in the order sync, overlap, overlap,
+    sync, ... (each first as often as second), after a warm-up block
+    each; and ``overlap.stats`` over the overlap blocks."""
+    runs = {k: _steps(e) for k, e in engines.items()}
+    for run in runs.values():
+        run()
+    order = ["sync", "overlap", "overlap", "sync"] * (OVERLAP_WALL_BLOCKS
+                                                      // 4)
+    blocks = {k: [] for k in runs}
+    overlap.stats.reset()
+    for k in order:
+        t0 = time.perf_counter()
+        runs[k]()
+        blocks[k].append((time.perf_counter() - t0) * 1e3
+                         / OVERLAP_TRACE_STEPS)
+    return {"blocks": blocks, "sites": overlap.stats.sites,
+            "in_flight": overlap.stats.in_flight}
+
+
+def _windows(prof, kind: str) -> dict | None:
+    """The ring windows of a traced run and how many hold a down-GEMM
+    kernel (K3 or K1) wholly on the device timeline, or None when a
+    window's ranges are missing.  ``kind`` "overlap": a pipelined site's
+    window runs from the start of its ``overlap.post mb0`` range to the
+    end of its ``overlap.wait mb0`` range; "sync": each
+    ``c10d::alltoall_base_`` call of the synchronous ring."""
+    cpu, gemms = [], []
+    for e in prof.events():
+        span = (e.time_range.start, e.time_range.end)
+        if str(e.device_type).endswith("CUDA"):
+            if _is_k3(e.name) or _is_k1(e.name):
+                gemms.append(span)
+        else:
+            cpu.append((e.name, span))
+    if kind == "overlap":
+        posts = sorted(a for name, (a, _) in cpu
+                       if name == "overlap.post mb0")
+        waits = sorted(b for name, (_, b) in cpu
+                       if name == "overlap.wait mb0")
+        sites = sum(name == "overlap.post mb1" for name, _ in cpu)
+        wins = list(zip(posts, waits))
+        if len(posts) != len(waits) or sites != len(wins):
+            return None
+    else:
+        wins = [span for name, span in cpu if name == "c10d::alltoall_base_"]
+        sites = len(wins)
+    steps = OVERLAP_TRACE_STEPS
+    return {"windows_per_step": len(wins) / steps,
+            "pipelined_sites_per_step": sites / steps,
+            "spanning_per_step": sum(any(a <= s and t <= b
+                                         for s, t in gemms)
+                                     for a, b in wins) / steps,
+            "gemm_kernels_per_step": len(gemms) / steps}
+
+
+def _ring_windows(engine, ctx, kind: str) -> dict | None:
+    """``OVERLAP_TRACE_STEPS`` decode steps of ``engine`` on every rank,
+    rank 0 under torch.profiler (CPU and CUDA), after a warm-up run; the
+    run is repeated (at most three times) only while rank 0's trace
+    lacks a window's ranges (profiler sessions have dropped events),
+    which rank 0 tells the others through the ring's group.  Rank 0
+    returns ``_windows``'."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run = _steps(engine)
+    run()
+    out = None
+    for _ in range(3):
+        if ctx.rank == 0:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                run()
+            out = _windows(prof, kind)
+        else:
+            run()
+        have = torch.tensor([float(out is not None)], device=ctx.device)
+        if comm.raw_psum(have, ctx.group).item() > 0:
+            break
+    if ctx.rank == 0 and out is None:
+        raise AssertionError(f"overlap-tp: no {kind} trace held every "
+                             f"window's ranges")
+    return out
+
+
+def _overlap_tp_rank(ctx, cfg, path, tokens, plen) -> dict:
+    """One rank of phase 27: read this rank's file, serve the four requests
+    under the tuned ``:overlap`` plan with the counts set to 0 just before
+    and read just after (and ``overlap.stats``); greedy traces of the
+    lockstep batch under the plan, under it without ``:overlap``, and
+    both without ``:fused`` (each with its counts), and of the batch two
+    rows at a time with and without ``:overlap`` (phase 28's rows); the
+    ring windows of traced steps, with and without ``:overlap``; the
+    steps' wall time, alternating."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    plan = DeploymentArtifact(manifest=DeploymentArtifact.load_manifest(
+        path)).policy(backend="auto", device=ctx.device)
+    t0 = time.perf_counter()
+    engine = make_engine(cfg, device=ctx.device, max_seq=32 + 16 + 1,
+                         group=ctx.group, policy=plan, artifact=path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    sched = Scheduler(engine, max_batch=4, prompt_budget=32,
+                      scfg=SamplingConfig(temperature=0.8, top_k=40), seed=0)
+    _submit_requests(sched, cfg)
+    reset_counts()
+    overlap.stats.reset()
+    t0 = time.perf_counter()
+    done = sched.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = read_counts()
+    served = {"sites": overlap.stats.sites,
+              "in_flight": overlap.stats.in_flight}
+    coll = engine.policy.collective
+
+    def variant(c):
+        return dataclasses.replace(engine,
+                                   policy=engine.policy.with_(collective=c))
+
+    engines = {"overlap": engine,
+               "sync": variant(_without(coll, "overlap")),
+               "overlap unfused": variant(_without(coll, "fused")),
+               "sync unfused": variant(_without(_without(coll, "fused"),
+                                                "overlap"))}
+    toks = torch.from_numpy(tokens).to(ctx.device)
+    pl = torch.from_numpy(plen).to(ctx.device)
+    traces = {}
+    for name, eng in engines.items():
+        reset_counts()
+        ids, logits = _greedy_trace(eng, toks, pl, MESH_NEW)
+        traces[name] = {"ids": ids.cpu(), "logits": logits.cpu(),
+                        "counts": read_counts()}
+    # the batch as phase 28's data ranks split it, on this dp1 engine
+    half = MESH_BATCH // 2
+    for name in ("overlap", "sync"):
+        reset_counts()
+        parts = [_greedy_trace(engines[name], toks[i:i + half],
+                               pl[i:i + half], MESH_NEW) for i in (0, half)]
+        traces[f"{name} halves"] = {
+            "ids": torch.cat([p[0] for p in parts]).cpu(),
+            "logits": torch.cat([p[1] for p in parts]).cpu(),
+            "counts": read_counts()}
+    windows = {"sync": _ring_windows(engines["sync"], ctx, "sync"),
+               "overlap": _ring_windows(engine, ctx, "overlap")}
+    wall = _alternating_wall({k: engines[k] for k in ("sync", "overlap")})
+    return {"rank": ctx.rank, "transport": ctx.transport, "load_s": load_s,
+            "run_s": run_s, "stats": dataclasses.asdict(engine.load_stats),
+            "decode_steps": sched.steps, "counts": counts, "served": served,
+            "collective": coll.shorthand(),
+            "decode_mode": engine.decode_mode,
+            "outputs": {k: r.output for k, r in sorted(done.items())},
+            "traces": traces, "windows": windows, "wall": wall}
+
+
+def _wall_summary(wall: dict) -> dict:
+    """The alternating blocks' medians, overlap over sync, and in how many
+    adjacent (sync, overlap) block pairs overlap was the slower."""
+    b = wall["blocks"]
+    med = {k: statistics.median(v) for k, v in b.items()}
+    return {"median_ms": med, "ratio": med["overlap"] / med["sync"],
+            "pairs_overlap_slower": sum(o > y for y, o in zip(b["sync"],
+                                                              b["overlap"])),
+            "pairs": len(b["sync"])}
+
+
+def phase_overlap_tp(gen) -> tuple[dict, str, dict]:
+    """Phase 27: qwen3-4b at full width, depth cut to ``OVERLAP_LAYERS``
+    (printed), ``prepare --autotune-collectives --overlap-collectives`` at
+    tp=2 (``compiler.prepare(autotune=True, tune_overlap=True)``) on the
+    card, saved, and served from the rank files on two rank processes
+    over gloo via host: the tuned MLP carries ``:overlap``; the four
+    requests' ids equal on both ranks; K3 and K1 launches a decode step
+    per rank as ``overlap_launches`` counts them from the config (the
+    down projection once per microbatch); every pipelined site of the
+    serve recorded by ``overlap.stats``, and mb0's ring still in flight
+    once mb1's GEMM was launched at some of them (reported, at least
+    one); greedy logits of the lockstep batch bit-equal to the same plan
+    without ``:overlap``, fused and unfused (K1 then runs the down
+    projection per microbatch), and two rows at a time (phase 28's
+    rows) too; the plan without ``:overlap`` two rows at a time against
+    four (the step's own dependence on M, phase 28's witness); every
+    pipelined site's mb0 window holds a down-GEMM kernel in every traced
+    step, and no window of the synchronous ring does; the steps' wall
+    time, alternating; K1 and K3 at the halves bit-equal to the whole
+    (``_check_halves``); the library GEMM's rows at M 2 against M 4
+    (``_library_rows``).  Returns the phase's record, the artifact's
+    directory (phase 28 serves it; the caller removes it) and rank 0's
+    greedy traces (phase 28's references)."""
+    full = QWEN.num_layers
+    cfg = QWEN.with_(num_layers=OVERLAP_LAYERS).with_quant(
+        mode="mlp", scheme="tp-aware", backend="auto")
+    line("overlap-tp", f"full width, depth cut from {full} to "
+         f"{cfg.num_layers} layers (the files' save and load and the gloo "
+         f"step dominate the phase)")
+    halves = _check_halves(gen)
+    library = _library_rows(gen)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    art = compiler.prepare(cfg, tp=TP, seed=0, device="cuda", autotune=True,
+                           tune_overlap=True)
+    torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t0
+    report = art.manifest["collective_tuner"]
+    for site in report:
+        line("overlap-tp", f"  tuned {site['path']} [{site['kind']}]: "
+             f"{site['chosen']} ({site['status']})")
+    mlp = {s["path"]: s for s in report}.get("layers.mlp")
+    if (mlp is None or mlp["status"] != "tuned" or not mlp["overlap"]
+            or not mlp["chosen"].endswith(":overlap")):
+        raise AssertionError(f"overlap-tp: tuner report {report}")
+    path, nbytes = _artifact_dir(art.rank_params)
+    try:
+        t0 = time.perf_counter()
+        art.save(path)
+        save_s = time.perf_counter() - t0
+        del art
+        torch.cuda.empty_cache()
+        files = {f: os.path.getsize(os.path.join(path, f))
+                 for f in sorted(os.listdir(path))}
+        tokens, plen = _mesh_batch(cfg)
+        ranks = mesh.run(_overlap_tp_rank, TP, cfg, path, tokens, plen,
+                         device_type="cuda", timeout=600)
+    except BaseException:
+        shutil.rmtree(path, ignore_errors=True)
+        raise
+    fused = parse_collective(mlp["chosen"]).fused
+    want = overlap_launches(cfg, MESH_BATCH, fused)
+    steps_greedy = MESH_PLEN + MESH_NEW - 1
+    r0 = ranks[0]
+    for r in ranks:
+        steps = r["decode_steps"]
+        expect_counts(r["counts"], {k: v * steps for k, v in want.items()},
+                      f"overlap-tp rank {r['rank']} ({steps} decode steps)")
+        if r["served"]["sites"] != cfg.num_layers * steps:
+            raise AssertionError(f"overlap-tp rank {r['rank']}: "
+                                 f"{r['served']} pipelined sites in {steps} "
+                                 f"steps of {cfg.num_layers} layers")
+        if r["outputs"] != r0["outputs"] or steps != r0["decode_steps"]:
+            raise AssertionError("overlap-tp: the ranks emitted different "
+                                 "tokens")
+        t = r["traces"]
+        for a, b in (("overlap", "sync"),
+                     ("overlap unfused", "sync unfused"),
+                     ("overlap halves", "sync halves")):
+            if not (torch.equal(t[a]["logits"], t[b]["logits"])
+                    and torch.equal(t[a]["ids"], t[b]["ids"])):
+                gap = (t[a]["logits"] - t[b]["logits"]).abs().max().item()
+                raise AssertionError(
+                    f"overlap-tp rank {r['rank']}: {a} differs from {b}: "
+                    f"max |logit gap| {gap:.3g}")
+            if not torch.equal(t[a]["ids"], r0["traces"][a]["ids"]):
+                raise AssertionError(f"overlap-tp: {a} ids differ between "
+                                     f"ranks")
+        for name, fz, m, n in (
+                ("overlap", fused, MESH_BATCH, 1),
+                ("overlap unfused", False, MESH_BATCH, 1),
+                ("overlap halves", fused, MESH_BATCH // 2, 2)):
+            expect_counts(t[name]["counts"], {
+                k: v * steps_greedy * n
+                for k, v in overlap_launches(cfg, m, fz).items()},
+                f"overlap-tp rank {r['rank']} greedy {name}")
+    witness = {k: sum(r["served"][k] + r["wall"][k] for r in ranks)
+               for k in ("sites", "in_flight")}
+    if not witness["in_flight"]:
+        raise AssertionError(f"overlap-tp: mb0's ring had completed before "
+                             f"mb1's GEMM was launched at every site "
+                             f"({witness})")
+    t0r = r0["traces"]
+    # the step's own dependence on M, without :overlap
+    sync_m = _batch_agreement(t0r["sync halves"]["ids"],
+                              t0r["sync halves"]["logits"],
+                              t0r["sync"]["ids"], t0r["sync"]["logits"],
+                              "overlap-tp: the synchronous plan at M=2")
+    win = r0["windows"]
+    ov, sy = win["overlap"], win["sync"]
+    if not (ov["pipelined_sites_per_step"] == cfg.num_layers
+            and ov["spanning_per_step"] == ov["pipelined_sites_per_step"]):
+        raise AssertionError(f"overlap-tp: ring windows {ov}")
+    if sy["windows_per_step"] < cfg.num_layers or sy["spanning_per_step"]:
+        raise AssertionError(f"overlap-tp: synchronous windows {sy}")
+    k1_down = {name: t0r[name]["counts"]["dequant_matmul_ordered"]
+               - (2 if cfg.mlp_gated else 1) * cfg.num_layers * steps_greedy
+               for name in ("overlap unfused", "sync unfused")}
+    walls = [_wall_summary(r["wall"]) for r in ranks]
+    out = {"layers": cfg.num_layers, "full_layers": full,
+           "prepare_s": prepare_s, "save_s": save_s, "file_bytes": files,
+           "reckoned_bytes": nbytes, "tuner": report,
+           "collective": r0["collective"], "halves": halves,
+           "library_rows_m2_vs_m4": library,
+           "load_s": [r["load_s"] for r in ranks],
+           "ms_per_step": [r["run_s"] / r["decode_steps"] * 1e3
+                           for r in ranks],
+           "decode_steps": r0["decode_steps"],
+           "launches_per_step": want,
+           "counts": [r["counts"] for r in ranks],
+           "greedy_counts": {k: v["counts"] for k, v in t0r.items()},
+           "k1_down_launches_greedy": k1_down,
+           "greedy_steps": steps_greedy,
+           "load_stats": [r["stats"] for r in ranks],
+           "outputs": r0["outputs"], "windows": win,
+           "in_flight": {"served": [r["served"] for r in ranks],
+                         "wall": [{k: r["wall"][k]
+                                   for k in ("sites", "in_flight")}
+                                  for r in ranks]},
+           "sync_m2_vs_m4": sync_m,
+           "wall_blocks_ms": [r["wall"]["blocks"] for r in ranks],
+           "wall": walls,
+           "transport": r0["transport"], "decode_mode": r0["decode_mode"]}
+    served = [r["served"] for r in ranks]
+    line("overlap-tp", "{} tp=2 tuned ({}) prepared on the card in {:.2f}s, "
+         "saved in {:.2f}s ({}); {}; 4 requests: ids equal on both ranks, "
+         "{:.1f} ms/step (rank 0; decode step: {}); per rank and step K3 {} "
+         "and K1 {} (the down projection in {} microbatches of {} rows); "
+         "mb0's ring still in flight once mb1's GEMM was launched at {} of "
+         "{} pipelined sites of the serve (ranks 0/1) and {} of {} of the "
+         "timed steps; greedy {}x{} lockstep batch: logits bit-equal to the "
+         "plan without :overlap, fused and unfused (K1's down launches {} "
+         "and {}), and two rows at a time; ring windows a traced step: "
+         "{:.0f} pipelined sites, {:.0f} holding a down GEMM, the "
+         "synchronous ring's {:.0f} windows holding {:.0f}; wall ms a step "
+         "(no profiler, {} alternating blocks of {} steps) sync {:.1f}, "
+         "overlap {:.1f}: overlap/sync {:.3f}, overlap slower in {} of {} "
+         "block pairs (rank 0; rank 1 {:.3f}, {} of {}); halves bit-equal "
+         "at M 2, 4 and 600 (K1, K3), M 300 not split (its halves {})".format(
+             describe(cfg), r0["collective"], prepare_s, save_s,
+             ", ".join(f"{f} {b / 1e9:.3f} GB" for f, b in files.items()
+                       if b > 2**20), r0["transport"],
+             out["ms_per_step"][0], r0["decode_mode"],
+             want["dequant_matmul_wire_ordered"],
+             want["dequant_matmul_ordered"],
+             microbatches(MESH_BATCH, mlp_shapes(cfg, TP)[1][3]),
+             MESH_BATCH // 2,
+             "/".join(str(x["in_flight"]) for x in served),
+             "/".join(str(x["sites"]) for x in served),
+             "/".join(str(r["wall"]["in_flight"]) for r in ranks),
+             "/".join(str(r["wall"]["sites"]) for r in ranks),
+             MESH_BATCH, MESH_PLEN,
+             k1_down["overlap unfused"], k1_down["sync unfused"],
+             ov["pipelined_sites_per_step"], ov["spanning_per_step"],
+             sy["windows_per_step"], sy["spanning_per_step"],
+             OVERLAP_WALL_BLOCKS, OVERLAP_TRACE_STEPS,
+             walls[0]["median_ms"]["sync"], walls[0]["median_ms"]["overlap"],
+             walls[0]["ratio"], walls[0]["pairs_overlap_slower"],
+             walls[0]["pairs"], walls[1]["ratio"],
+             walls[1]["pairs_overlap_slower"], walls[1]["pairs"],
+             "bit-equal" if all(halves[300]["halves_bit_equal"].values())
+             else "would differ: " + ", ".join(
+                 k for k, v in halves[300]["halves_bit_equal"].items()
+                 if not v)))
+    line("overlap-tp", "the step's own dependence on M (phase 28's "
+         "witness): the plan without :overlap, two rows at a time against "
+         "four: ids {}, logit gap {:.3g} (max|logit| {:.3g}); the library's "
+         "float32 GEMM, rows of two M=2 calls against an M=4 call at the "
+         "tp=2 shapes: {}".format(
+             "equal" if sync_m["ids_agree"] else
+             f"apart from {sync_m['first_divergence']} on a near tie",
+             sync_m["max_logit_gap"], sync_m["max_logit"],
+             ", ".join(f"{k} {'bit-equal' if v else 'differ'}"
+                       for k, v in library.items())))
+    return out, path, {k: t0r[k] for k in ("overlap", "overlap halves")}
+
+
+def _mesh_dp_rank(ctx, cfg, path, tokens, plen) -> dict:
+    """One process of phase 28: its row's engine from its own rank file,
+    the policy naming the grid; its data rank's rows of the lockstep
+    batch, greedy, with the counts set to 0 just before and read just
+    after."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    plan = DeploymentArtifact(manifest=DeploymentArtifact.load_manifest(
+        path)).policy(backend="auto", device=ctx.device).with_(
+            mesh=MeshPlan(dp=ctx.dp, tp=ctx.tp))
+    t0 = time.perf_counter()
+    engine = make_engine(cfg, device=ctx.device, max_seq=32 + 16 + 1,
+                         group=ctx.group, policy=plan, artifact=path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    lo = ctx.dp_rank * MESH_BATCH // ctx.dp
+    hi = (ctx.dp_rank + 1) * MESH_BATCH // ctx.dp
+    toks = torch.from_numpy(tokens[lo:hi]).to(ctx.device)
+    pl = torch.from_numpy(plen[lo:hi]).to(ctx.device)
+    reset_counts()
+    t0 = time.perf_counter()
+    ids, logits = _greedy_trace(engine, toks, pl, MESH_NEW)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    return {"process": ctx.process, "dp_rank": ctx.dp_rank,
+            "rank": ctx.rank, "rows": (lo, hi), "ids": ids.cpu(),
+            "logits": logits.cpu(), "counts": read_counts(),
+            "run_s": run_s, "load_s": load_s,
+            "stats": dataclasses.asdict(engine.load_stats),
+            "mesh": engine.policy.mesh.shorthand(),
+            "transport": ctx.transport,
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def _batch_agreement(ids, logits, ref_ids, ref_logits,
+                     what: str = "mesh-dp: the grid") -> dict:
+    """Greedy ids of a run against a reference run of other batch shapes
+    (the card's library GEMMs may sum a row in another order at another
+    M): the first step where they differ, the largest logit gap up to it
+    (both runs fed the same tokens until then) and the reference's top-2
+    margin there.  A difference must be a near tie: a margin within the
+    gap."""
+    diff = (ids != ref_ids).nonzero()
+    upto = ids.shape[1] if not len(diff) else int(diff[:, 1].min()) + 1
+    gap = (logits[:, :upto] - ref_logits[:, :upto]).abs().max().item()
+    out = {"ids_agree": not len(diff), "max_logit_gap": gap,
+           "max_logit": ref_logits.abs().max().item()}
+    if len(diff):
+        first = diff[diff[:, 1].argmin()].tolist()
+        top2 = ref_logits[tuple(first)].topk(2).values
+        out.update(first_divergence=first,
+                   top2_margin=(top2[0] - top2[1]).item())
+        if out["top2_margin"] > gap:
+            raise AssertionError(f"{what}'s ids differ from the whole "
+                                 f"batch's beyond a near tie: {out}")
+    return out
+
+
+def phase_mesh_dp(path: str, ref: dict, sync_m: dict) -> dict:
+    """Phase 28: the ``dp2xtp2`` grid, four processes on the card (gloo
+    via host), from phase 27's tp=2 rank files: each row of two
+    processes an engine of its own over its data rank's two rows of the
+    lockstep batch, each process reading only its model-axis rank file;
+    K3 and K1 launches per process from the config; the greedy ids and
+    logits row for row bit-equal to phase 27's ``dp1xtp2`` engine on the
+    same rows two at a time (``ref["overlap halves"]``), and, against its
+    whole 4-row batch (``ref["overlap"]``), ids equal or apart only after
+    a near tie (the step's own dependence on M: ``sync_m``, phase 27's
+    plan without ``:overlap`` two rows at a time against four, is
+    printed beside it); resident bytes and tokens/s reported."""
+    cfg = QWEN.with_(num_layers=OVERLAP_LAYERS).with_quant(
+        mode="mlp", scheme="tp-aware", backend="auto")
+    plan = MeshPlan(dp=2, tp=TP)
+    tokens, plen = _mesh_batch(cfg)
+    t0 = time.perf_counter()
+    procs = mesh.run(_mesh_dp_rank, TP, cfg, path, tokens, plen, dp=plan.dp,
+                     device_type="cuda", timeout=600)
+    wall_s = time.perf_counter() - t0
+    fused = parse_collective(DeploymentArtifact.load_manifest(path)[
+        "policy"]["collective"]).resolve("layers.mlp").fused
+    rows = MESH_BATCH // plan.dp
+    steps = MESH_PLEN + MESH_NEW - 1
+    want = overlap_launches(cfg, rows, fused)
+    halves = ref["overlap halves"]
+    for p in procs:
+        expect_counts(p["counts"], {k: v * steps for k, v in want.items()},
+                      f"mesh-dp process {p['process']} ({steps} steps)")
+        st = p["stats"]
+        if (p["mesh"] != plan.shorthand() or st["ranks"] != (p["rank"],)
+                or p["rank"] != p["process"] % TP
+                or not st["file_bytes_loaded"] < st["file_bytes_total"]):
+            raise AssertionError(f"mesh-dp process {p['process']}: "
+                                 f"{p['mesh']} read {st}")
+        lo, hi = p["rows"]
+        if not (torch.equal(p["ids"], halves["ids"][lo:hi])
+                and torch.equal(p["logits"], halves["logits"][lo:hi])):
+            raise AssertionError(
+                f"mesh-dp process {p['process']}: rows {lo}-{hi - 1} differ "
+                f"from the dp1xtp2 engine's on the same rows: ids "
+                f"{p['ids'].tolist()} against "
+                f"{halves['ids'][lo:hi].tolist()}")
+    mine = [p for p in procs if p["rank"] == 0]
+    whole = _batch_agreement(
+        torch.cat([p["ids"] for p in mine]),
+        torch.cat([p["logits"] for p in mine]), ref["overlap"]["ids"],
+        ref["overlap"]["logits"])
+    tok_s = [p["ids"].numel() / p["run_s"] for p in procs]
+    out = {"mesh": plan.shorthand(), "transport": procs[0]["transport"],
+           "launches_per_step": want, "steps": steps,
+           "counts": [p["counts"] for p in procs],
+           "load_stats": [p["stats"] for p in procs],
+           "load_s": [p["load_s"] for p in procs],
+           "run_s": [p["run_s"] for p in procs], "wall_s": wall_s,
+           "tok_s": tok_s,
+           "batch_tok_s": MESH_BATCH * MESH_NEW / max(
+               p["run_s"] for p in procs),
+           "peak_bytes": [p["peak_bytes"] for p in procs],
+           "whole_batch": whole, "sync_m2_vs_m4": sync_m}
+    line("mesh-dp", "{} ({}) from phase 27's tp=2 rank files: each process "
+         "read only its model-axis rank file, resident_artifact_bytes {}; "
+         "loaded in {} s; per process and step K3 {} and K1 {} (M={}); "
+         "greedy ids and logits row for row bit-equal to the dp1xtp2 "
+         "engine's on the same rows; against its whole {}-row batch ids "
+         "{} (logit gap {:.3g} up to {}, max|logit| {:.3g}; the dp1 engine "
+         "without :overlap at M=2 against M=4: gap {:.3g}); {} x {} "
+         "tokens in {} s per process ({} tok/s; the batch {:.1f} "
+         "tok/s)".format(
+             plan.shorthand(), out["transport"],
+             ", ".join(f"{st['file_bytes_loaded']}/{st['file_bytes_total']}"
+                       for st in out["load_stats"]),
+             "/".join(f"{s:.2f}" for s in out["load_s"]),
+             want["dequant_matmul_wire_ordered"],
+             want["dequant_matmul_ordered"], rows, MESH_BATCH,
+             "equal" if whole["ids_agree"] else
+             "apart from {} on a near tie (top-2 margin {:.3g})".format(
+                 whole["first_divergence"], whole["top2_margin"]),
+             whole["max_logit_gap"],
+             "the end" if whole["ids_agree"] else "the divergence",
+             whole["max_logit"], sync_m["max_logit_gap"], rows, MESH_NEW,
+             "/".join(f"{s:.2f}" for s in out["run_s"]),
+             "/".join(f"{t:.1f}" for t in tok_s), out["batch_tok_s"]))
+    return out
+
+
 def _entry(name, source, replaces, launches, max_abs_err, t: dict,
            library_ms=None) -> dict:
     return {"name": name, "route": "cuda", "source": source,
@@ -3572,6 +4276,12 @@ def main() -> int:
     gptq = phase_gptq()
     fold, fold_ref = phase_fold(trace)
     fold_tp = phase_fold_tp(fold_ref)
+    overlap_tp, overlap_dir, dp1_trace = phase_overlap_tp(gen)
+    try:
+        mesh_dp = phase_mesh_dp(overlap_dir, dp1_trace,
+                                overlap_tp["sync_m2_vs_m4"])
+    finally:
+        shutil.rmtree(overlap_dir, ignore_errors=True)
 
     src = "src/repro_torch/csrc/"
     tpu = "src/repro/kernels/"
@@ -3661,7 +4371,8 @@ def main() -> int:
                 timing["archs"][a][layout]["layer"]))
     for a in TP_ARCHS:
         kernels.append(_entry(
-            f"dequant_matmul_wire_ordered ({a}, tp=2)",
+            f"dequant_matmul_wire_ordered ({a}, tp=2, {TP_ARCH_LAYERS} "
+            f"layers)",
             src + "dequant_matmul_wire_ordered.cu",
             tpu + "dequant_matmul.py:229",
             tp_archs[a]["serve_tp"]["launches"],
@@ -3695,6 +4406,37 @@ def main() -> int:
             fold_tp["counts"][0]["dequant_matmul_wire_ordered"],
             checks["dequant_matmul_wire_ordered"]["main_max_abs_err"],
             timing["dequant_matmul_wire_ordered"][f"int{chosen.bits}"]))
+    # the :overlap epilogue (phases 27-28): K3 once per microbatch of the
+    # fused ring, K1's down projection once per microbatch of the unfused
+    # one (the greedy trace of phase 27), both timed at the microbatch
+    k3_mb = timing["dequant_matmul_wire_ordered_mb"]
+    ov_spec = parse_collective(overlap_tp["collective"]).resolve("layers.mlp")
+    kernels += [
+        _entry(f"dequant_matmul_wire_ordered (:overlap, tp=2 tuned "
+               f"{ov_spec.shorthand()}, {overlap_tp['layers']} layers; once "
+               f"per microbatch, M={OVERLAP_MB})",
+               src + "dequant_matmul_wire_ordered.cu",
+               tpu + "dequant_matmul.py:229",
+               overlap_tp["counts"][0]["dequant_matmul_wire_ordered"],
+               checks["dequant_matmul_wire_ordered"]["main_max_abs_err"],
+               k3_mb[OVERLAP_MB][f"int{ov_spec.bits}"]),
+        _entry(f"dequant_matmul_ordered (:overlap unfused ring, tp=2, "
+               f"{overlap_tp['layers']} layers; the down projection once "
+               f"per microbatch, M={OVERLAP_MB})",
+               src + "dequant_matmul_ordered.cu",
+               tpu + "dequant_matmul.py:104",
+               overlap_tp["k1_down_launches_greedy"]["overlap unfused"],
+               checks["dequant_matmul_ordered"]["main_max_abs_err"],
+               timing["dequant_matmul_ordered_mb"]),
+        _entry(f"dequant_matmul_wire_ordered ({mesh_dp['mesh']} grid, "
+               f":overlap, {overlap_tp['layers']} layers; microbatches of "
+               f"M={OVERLAP_MB // 2})",
+               src + "dequant_matmul_wire_ordered.cu",
+               tpu + "dequant_matmul.py:229",
+               mesh_dp["counts"][0]["dequant_matmul_wire_ordered"],
+               checks["dequant_matmul_wire_ordered"]["main_max_abs_err"],
+               k3_mb[OVERLAP_MB // 2][f"int{ov_spec.bits}"]),
+    ]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"nvidia_smi": smi, "build": build, "check": checks,
@@ -3711,6 +4453,7 @@ def main() -> int:
                    "long_forward": long_forward,
                    "serve_paged": serve_paged, "http": http,
                    "gptq": gptq, "fold": fold, "fold_tp": fold_tp,
+                   "overlap_tp": overlap_tp, "mesh_dp": mesh_dp,
                    "kernels": kernels, "phase_seconds": phase_seconds(),
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(json.dumps({"kernels": kernels}))

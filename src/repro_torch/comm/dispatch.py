@@ -23,6 +23,14 @@ Strategies: ``psum`` (f32 all-reduce), ``psum_scatter`` (reduce-scatter),
 ``all_to_all``, dequantize and sum ranks 0..tp-1 in order in float32,
 requantize the owned chunk, ``all_gather``), and ``none``.
 
+The quantized ring runs in two halves: ``ring_start`` quantizes and posts
+phase 1's all-to-alls without waiting (a ``PendingRing``),
+``ring_finish`` waits for them and runs the rest.  Their ``apply`` calls
+the two back to back; an ``:overlap`` spec changes nothing here, and the
+down projection's epilogue (``dist/overlap.py``) holds one microbatch's
+started ring across the next microbatch's GEMM.  The arithmetic is the
+same either way.
+
 Transport: on the CPU and under NCCL a tensor goes to the collective as
 it is.  Under gloo with tensors on the card (several ranks sharing one
 card, ``launch/mesh.py``), each payload is copied to host memory before
@@ -40,7 +48,9 @@ an all-gather of a B-byte shard B (tp-1).
 
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Any
 
 import torch
 import torch.distributed as dist
@@ -197,15 +207,23 @@ def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
     return buf
 
 
-def _all_to_all(t: torch.Tensor, group) -> torch.Tensor:
-    """Dim 0 (of size tp) split across ranks: rank j receives every rank's
-    slice j, stacked in rank order (the reference's tiled ``all_to_all``
-    with split and concat axis 0)."""
+def _all_to_all_post(t: torch.Tensor, group) -> tuple:
+    """Post ``_all_to_all`` of ``t`` without waiting: (its work, the send
+    and the receive buffer, both on the wire's side)."""
     tp = axis_size(group)
     wire_bytes.add(_nbytes(t) * (tp - 1) / tp)
     buf = _to_wire(t, group)
     out = torch.empty_like(buf)
-    dist.all_to_all_single(out, buf, group=group)
+    return dist.all_to_all_single(out, buf, group=group,
+                                  async_op=True), buf, out
+
+
+def _all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    """Dim 0 (of size tp) split across ranks: rank j receives every rank's
+    slice j, stacked in rank order (the reference's tiled ``all_to_all``
+    with split and concat axis 0)."""
+    work, _, out = _all_to_all_post(t, group)
+    work.wait()
     return _from_wire(out, t)
 
 
@@ -426,35 +444,121 @@ class _NoCollective(CollectiveStrategy):
         return 0.0
 
 
-@register("quant-int8")
-class _QuantInt8(CollectiveStrategy):
-    """Blockwise-int8 two-phase ring: int8 payloads plus float16 scales on
-    both phases.  A width that does not tile ``tp`` is zero-padded on the
-    wire and sliced after."""
+@dataclasses.dataclass
+class PendingRing:
+    """A quantized ring whose phase 1 (one all-to-all per payload part) is
+    posted and not yet waited for (``ring_start``; ``ring_finish`` closes
+    it)."""
 
-    @staticmethod
-    def _exchange(q, s, group, bs):
-        q = _all_to_all(q, group)
-        s = _all_to_all(s, group)
-        red = _sum_ranks(_blockwise_dequantize(q, s, bs))
-        q2, s2 = _blockwise_quantize(red, bs)
-        return _blockwise_dequantize(_all_gather_last(q2, group),
-                                     _all_gather_last(s2, group), bs)
+    strategy: "_QuantRing"
+    group: Any
+    works: tuple            # the posted all-to-alls
+    sends: tuple            # their buffers, held until they complete
+    recvs: tuple
+    device: torch.device    # where the payload was made and is summed
+    bs: int
+    n: int                  # logical output width (before padding)
+    out_dtype: Any
+
+    def in_flight(self) -> bool:
+        """True while a part of phase 1 has not completed."""
+        return not all(w.is_completed() for w in self.works)
+
+    def wait(self) -> None:
+        """Block until phase 1 has landed (a no-op once it has)."""
+        for w in self.works:
+            w.wait()
+
+
+class _QuantRing(CollectiveStrategy):
+    """The two-phase quantized ring.  A width that does not tile
+    ``tp * pack`` is zero-padded on the wire and sliced after."""
+
+    bits: int
+    pack: int               # elements of one wire word
+
+    def _quantize(self, v: torch.Tensor, bs: int) -> tuple:
+        raise NotImplementedError
+
+    def _dequantize(self, parts: tuple, bs: int) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _post(self, parts, group, *, bs, n, out_dtype, device):
+        posted = [_all_to_all_post(t, group) for t in parts]
+        return PendingRing(self, group, *map(tuple, zip(*posted)),
+                           device=device, bs=bs, n=n, out_dtype=out_dtype)
+
+    def start(self, y, group, spec) -> PendingRing:
+        """Quantize this rank's partial ``y`` and post phase 1."""
+        yc, bs = _chunked(y, axis_size(group), axis_size(group) * self.pack,
+                          spec.block_size)
+        return self._post(self._quantize(yc, bs), group, bs=bs,
+                          n=y.shape[-1], out_dtype=y.dtype, device=y.device)
+
+    def start_wire(self, wp, group, spec) -> PendingRing:
+        """Post phase 1 of a kernel-emitted ``WirePayload``."""
+        tp = _check_wire(wp, group, spec, self.bits)
+        parts = (wp.payload, wp.scales) + (
+            (wp.zeros,) if self.bits == 4 else ())
+        return self._post(tuple(_wire_chunks(t, tp) for t in parts), group,
+                          bs=wp.block, n=wp.n, out_dtype=wp.out_dtype,
+                          device=wp.payload.device)
+
+    def finish(self, pend: PendingRing) -> torch.Tensor:
+        """Wait for phase 1, dequantize and sum the ranks' chunks in rank
+        order, requantize the owned chunk, all-gather and dequantize."""
+        pend.wait()
+        got = tuple(b.to(pend.device) for b in pend.recvs)
+        red = _sum_ranks(self._dequantize(got, pend.bs))
+        gathered = tuple(_all_gather_last(t, pend.group)
+                         for t in self._quantize(red, pend.bs))
+        out = self._dequantize(gathered, pend.bs)
+        return _unpad(out, pend.n).to(pend.out_dtype)
 
     def apply(self, y, group, spec, policy):
-        tp = axis_size(group)
-        if tp == 1:
+        if axis_size(group) == 1:
             return y
-        yc, bs = _chunked(y, tp, tp, spec.block_size)
-        q, s = _blockwise_quantize(yc, bs)
-        out = self._exchange(q, s, group, bs)
-        return _unpad(out, y.shape[-1]).to(y.dtype)
+        return self.finish(self.start(y, group, spec))
 
     def apply_wire(self, wp, group, spec, policy):
-        tp = _check_wire(wp, group, spec, 8)
-        out = self._exchange(_wire_chunks(wp.payload, tp),
-                             _wire_chunks(wp.scales, tp), group, wp.block)
-        return _unpad(out, wp.n).to(wp.out_dtype)
+        return self.finish(self.start_wire(wp, group, spec))
+
+
+def _quant_ring(spec: CollectiveSpec) -> _QuantRing:
+    strategy = resolve(spec.name)
+    if not isinstance(strategy, _QuantRing):
+        raise ValueError(f"{spec.name!r} is not a quantized ring")
+    return strategy
+
+
+def ring_start(y: torch.Tensor, group, spec: CollectiveSpec) -> PendingRing:
+    """Quantize ``y`` and post the ring's phase 1 (``spec`` names
+    ``quant-int8`` or ``quant-int4``)."""
+    return _quant_ring(spec).start(y, group, spec)
+
+
+def ring_start_wire(wp, group, spec: CollectiveSpec) -> PendingRing:
+    """Post the ring's phase 1 of a kernel-emitted ``WirePayload``."""
+    return _quant_ring(spec).start_wire(wp, group, spec)
+
+
+def ring_finish(pend: PendingRing) -> torch.Tensor:
+    """Close a started ring; the result is ``apply``'s."""
+    return pend.strategy.finish(pend)
+
+
+@register("quant-int8")
+class _QuantInt8(_QuantRing):
+    """Blockwise-int8 two-phase ring: int8 payloads plus float16 scales on
+    both phases."""
+
+    bits, pack = 8, 1
+
+    def _quantize(self, v, bs):
+        return _blockwise_quantize(v, bs)
+
+    def _dequantize(self, parts, bs):
+        return _blockwise_dequantize(*parts, bs)
 
     def bytes_on_wire(self, shape, tp, spec):
         if tp <= 1:
@@ -467,39 +571,19 @@ class _QuantInt8(CollectiveStrategy):
 
 
 @register("quant-int4")
-class _QuantInt4(CollectiveStrategy):
+class _QuantInt4(_QuantRing):
     """Blockwise-int4 two-phase ring: the payload nibble-packed as the
-    weights are, plus a float16 (scale, zero) pair per block.  A width
-    that does not tile ``tp * 8`` is zero-padded on the wire."""
+    weights are, plus a float16 (scale, zero) pair per block."""
 
-    @staticmethod
-    def _exchange(qp, s, z, group, bs):
-        qp = _all_to_all(qp, group)
-        s = _all_to_all(s, group)
-        z = _all_to_all(z, group)
-        red = _sum_ranks(_blockwise_dequantize_int4(_unpack4_last(qp), s, z,
-                                                    bs))
-        q2, s2, z2 = _blockwise_quantize_int4(red, bs)
-        qg = _all_gather_last(_pack4_last(q2), group)
-        sg = _all_gather_last(s2, group)
-        zg = _all_gather_last(z2, group)
-        return _blockwise_dequantize_int4(_unpack4_last(qg), sg, zg, bs)
+    bits, pack = 4, PACK
 
-    def apply(self, y, group, spec, policy):
-        tp = axis_size(group)
-        if tp == 1:
-            return y
-        yc, bs = _chunked(y, tp, tp * PACK, spec.block_size)
-        q, s, z = _blockwise_quantize_int4(yc, bs)
-        out = self._exchange(_pack4_last(q), s, z, group, bs)
-        return _unpad(out, y.shape[-1]).to(y.dtype)
+    def _quantize(self, v, bs):
+        q, s, z = _blockwise_quantize_int4(v, bs)
+        return _pack4_last(q), s, z
 
-    def apply_wire(self, wp, group, spec, policy):
-        tp = _check_wire(wp, group, spec, 4)
-        out = self._exchange(_wire_chunks(wp.payload, tp),
-                             _wire_chunks(wp.scales, tp),
-                             _wire_chunks(wp.zeros, tp), group, wp.block)
-        return _unpad(out, wp.n).to(wp.out_dtype)
+    def _dequantize(self, parts, bs):
+        qp, s, z = parts
+        return _blockwise_dequantize_int4(_unpack4_last(qp), s, z, bs)
 
     def bytes_on_wire(self, shape, tp, spec):
         if tp <= 1:

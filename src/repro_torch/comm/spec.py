@@ -5,13 +5,15 @@ the deployment plan; port of ``repro/comm/spec.py``.
 
 * ``"psum"`` / ``"psum_scatter"`` / ``"none"``;
 * ``"cast"`` or ``"cast:<dtype>"`` (default bfloat16);
-* ``"quant-int8[:<block>][:fused]"`` (block default 128) and
-  ``"quant-int4[:<block>][:fused]"`` (block default 32).  ``:fused`` means
-  the down projection's dequant-GEMM emits ring phase 1's payload itself
-  (``kernels/dispatch.qmatmul_wire``).
+* ``"quant-int8[:<block>][:fused][:overlap]"`` (block default 128) and
+  ``"quant-int4[:<block>][:fused][:overlap]"`` (block default 32).
+  ``:fused`` means the down projection's dequant-GEMM emits ring phase
+  1's payload itself (``kernels/dispatch.qmatmul_wire``); ``:overlap``
+  the same ring pipelined against the down GEMM one row microbatch at a
+  time (``dist/overlap.py``).  The flags parse in either order and print
+  ``:fused`` first.
 
-``:overlap`` (the decomposed ring pipelined against the GEMM) is not
-ported yet and raises.  ``CollectivePlan`` is the per-layer form,
+``CollectivePlan`` is the per-layer form,
 ``"per-layer:<glob>=<spec>[,...][,*=<default>]"``, resolved per pair path
 by ordered glob match.  Wire dtypes are torch dtypes.
 """
@@ -32,11 +34,6 @@ _WIRE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                 "f32": torch.float32, "fp32": torch.float32,
                 "bf16": torch.bfloat16,
                 "f16": torch.float16, "fp16": torch.float16}
-
-#: where the overlapped ring is still to be ported
-OVERLAP_NOT_PORTED = ("the ':overlap' epilogue (dist/overlap.py) is not "
-                      "ported yet (ROADMAP.md queue 1, item 9)")
-
 
 def _canon_wire_dtype(dt):
     """A torch dtype from a dtype or its name (None passes)."""
@@ -66,7 +63,7 @@ class CollectiveSpec:
     block_size: int = 128
     bits: Optional[int] = None   # None -> the strategy's payload width
     fused: bool = False          # wire payload produced by the GEMM kernel
-    overlap: bool = False        # decomposed ring (not ported)
+    overlap: bool = False        # ring pipelined with the down GEMM
 
     def __post_init__(self):
         from repro_torch.comm import dispatch  # dispatch imports spec
@@ -96,8 +93,10 @@ class CollectiveSpec:
             raise ValueError(
                 f"fused wire epilogue only applies to quant-int8/quant-int4 "
                 f"collectives, not {self.name!r}")
-        if self.overlap:
-            raise ValueError(OVERLAP_NOT_PORTED)
+        if self.overlap and self.name not in ("quant-int8", "quant-int4"):
+            raise ValueError(
+                f"overlapped epilogue only applies to quant-int8/quant-int4 "
+                f"collectives, not {self.name!r}")
 
     @classmethod
     def parse(cls, value) -> "CollectiveSpec":
@@ -145,7 +144,8 @@ class CollectiveSpec:
             return f"cast:{dtype_name(self.wire_dtype)}"
         if self.name in ("quant-int8", "quant-int4"):
             return f"{self.name}:{self.block_size}" + (
-                ":fused" if self.fused else "")
+                ":fused" if self.fused else "") + (
+                ":overlap" if self.overlap else "")
         return self.name
 
     def resolve(self, pair_path: Optional[str] = None) -> "CollectiveSpec":

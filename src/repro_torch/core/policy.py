@@ -6,9 +6,8 @@
 (or a shorthand of either) that ``comm/dispatch.py`` runs at each row-TP
 epilogue; ``kv`` is a ``PageSpec`` (the decode cache's layout:
 ``dense`` or ``paged:N[:int8|:int4]``); ``mesh`` is a ``MeshPlan``
-(``dp1xtpN``).  What is not ported yet raises ``ValueError`` naming the
-slice of ``ROADMAP.md`` that ports it: ``dp > 1`` and ``:overlap``
-collectives.
+(``dpNxtpM[xepK]``): the grid the plan is served on, of which an
+engine checks the TP degree against its ranks.
 """
 
 from __future__ import annotations

@@ -17,6 +17,7 @@ processes of a ``torch.distributed`` group.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
 import torch
@@ -116,24 +117,38 @@ def _pair_local_forward(
     ``pair_path``.  A ``:fused`` quantized spec has the down projection
     emit ring phase 1's payload itself (``kernels/dispatch.qmatmul_wire``)
     where ``wire_support`` allows, else the dense GEMM and the plain
-    collective run, with a warning."""
+    collective run, with a warning.  An ``:overlap`` quantized spec runs
+    the down GEMM per row microbatch with the ring of one microbatch in
+    flight across the next one's GEMM
+    (``dist/overlap.pipelined_epilogue``): bit-equal either way."""
     y1 = _column_step(x, pp, policy, activation)
     if pp.scheme == "exllama":
         # Algorithm 2: gather Y1 (l.2), then the local P2 chunk both
         # permutes and chunks it (l.3 + l.4)
         y1 = comm.all_gather_cols(y1, group).index_select(-1, pp.p2)
 
+    from repro_torch.kernels import dispatch as kdispatch
+
     spec = policy.collective.resolve(pair_path)
     tp = comm.axis_size(group)
+    use_wire = False
     if spec.fused:
-        from repro_torch.kernels import dispatch as kdispatch
-
         use_wire, reason = kdispatch.wire_support(pp.down, spec, tp)
-        if use_wire:
-            wp = kdispatch.qmatmul_wire(y1, pp.down, policy, spec=spec,
-                                        tp=tp)
-            return comm.apply_wire(wp, group, spec, policy)
-        _warn_unfusable(pair_path, pp, reason)
+        if not use_wire:
+            _warn_unfusable(pair_path, pp, reason)
+    if spec.overlap:
+        from repro_torch.dist import overlap
+
+        gemm_wire = (functools.partial(
+            kdispatch.qmatmul_wire, ql=pp.down, policy=policy, spec=spec,
+            tp=tp) if use_wire else None)
+        return overlap.pipelined_epilogue(
+            y1, group, spec, gemm=lambda y: qmatmul(y, pp.down, policy),
+            gemm_wire=gemm_wire,
+            loop=kdispatch.main_loop(pp.down, policy, y1.device))
+    if use_wire:
+        wp = kdispatch.qmatmul_wire(y1, pp.down, policy, spec=spec, tp=tp)
+        return comm.apply_wire(wp, group, spec, policy)
     y2 = qmatmul(y1, pp.down, policy)
     return comm.apply(y2, group, spec, policy)
 

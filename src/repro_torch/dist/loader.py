@@ -4,11 +4,14 @@
 
 In the reference one process may own several devices of a mesh, so
 ``load_per_rank`` reads the files of the ranks it owns and assembles
-global sharded arrays from them.  In the port every TP rank is a process
-of its own (``launch/mesh.py``) and runs on its slices of the params
-(``runtime/serve.py``), so there is no global array to assemble: a rank
-reads ``rank_NN.npz`` for its own ``NN`` and nothing else.  The other
-ranks' files are only ``os.path.getsize``d, for the byte ledger.
+global sharded arrays from them.  In the port every rank of the
+``(dp, tp)`` grid is a process of its own (``launch/mesh.py``) and runs
+on its slices of the params (``runtime/serve.py``), so there is no
+global array to assemble: a process reads ``rank_NN.npz`` for its
+model-axis rank ``NN`` (``dist.topology.local_model_ranks``: the same
+file in every row of the grid, since the artifact pins only the TP
+degree) and nothing else.  The other ranks' files are only
+``os.path.getsize``d, for the byte ledger.
 
 ``RankLoadStats`` is the proof: ``file_bytes_loaded`` (the bytes of the
 file this rank read) against ``file_bytes_total`` (all rank files); at
@@ -37,7 +40,7 @@ AUX = "aux.npz"
 class RankLoadStats:
     """What this rank read off disk."""
 
-    ranks: tuple                 # the ranks whose files were read
+    ranks: tuple                 # the model-axis ranks whose files were read
     bytes_loaded: int            # sum of leaf nbytes across those files
     file_bytes_loaded: int       # on-disk bytes of the files read
     file_bytes_total: int        # on-disk bytes of all rank files

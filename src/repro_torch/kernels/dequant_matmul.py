@@ -277,6 +277,14 @@ def tensor_core_min_m() -> int:
     return build.load(ORDERED).dequant_matmul_tensor_core_min_m()
 
 
+def takes_tensor_cores(m: int, group_size: int, compute_dtype) -> bool:
+    """Whether a call of K1 (or K3) with ``m`` rows takes the tensor-core
+    loop, which sums each row in another order than the decode loop;
+    asked of the kernel's source, so it builds K1."""
+    return bool(build.load(ORDERED).dequant_matmul_tensor_cores(
+        m, group_size, _KERNEL_DTYPES[compute_dtype]))
+
+
 def dequant_matmul_gidx(
     x: torch.Tensor,            # (M, K)
     qweight: torch.Tensor,      # (K // 8, N) int32 words, original row order

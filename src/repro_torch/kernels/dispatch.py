@@ -112,6 +112,23 @@ def qmatmul_wire(x: torch.Tensor, ql: QuantizedLinear,
                        out_dtype=policy.compute_dtype)
 
 
+def main_loop(ql: QuantizedLinear, policy: ExecutionPolicy,
+              device: torch.device) -> Optional[Callable[[int], bool]]:
+    """For a GEMM on ``ql`` whose rows' sums depend on the call's M: a map
+    from M to the main loop the kernel takes (True: K1's and K3's
+    tensor-core loop), else None.  Only the ``cuda`` kernels of the
+    ordered layout on the card have two loops; the ``g_idx`` kernel's rows
+    do not depend on M.  ``dist/overlap.py`` splits a GEMM into row
+    microbatches only where both halves take the whole call's loop."""
+    if (policy.backend != "cuda" or ql.kind != "ordered"
+            or torch.device(device).type != "cuda"):
+        return None
+    from repro_torch.kernels.dequant_matmul import takes_tensor_cores
+
+    return lambda m: takes_tensor_cores(m, ql.group_size,
+                                        policy.compute_dtype)
+
+
 def wire_support(ql: QuantizedLinear, spec, tp: int) -> tuple[bool, str]:
     """Whether the fused wire epilogue can serve this GEMM site, with the
     reason when it cannot: ``(True, "")`` for a quantized full-output

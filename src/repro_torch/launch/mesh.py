@@ -1,10 +1,18 @@
-"""One process per tensor-parallel rank; counterpart of
+"""One process per rank of a ``(dp, tp)`` grid; counterpart of
 ``repro/launch/mesh.py`` (which joins JAX processes into one mesh).
 
-The backend rule:
+Process ``p`` sits at data rank ``p // tp`` and model rank ``p % tp``
+(``dist.topology.local_model_ranks``), row-major as the reference's
+``build_mesh`` orders its devices.  Each row of ``tp`` processes is one
+tensor-parallel group (``RankContext.group``): its row-TP epilogues
+reduce over it, and it serves on its own, as a data-parallel replica.
+Each column of ``dp`` processes is a data group
+(``RankContext.data_group``), for collectives over the data axis.
 
-* on the card, NCCL with one card per rank when at least ``tp`` cards
-  are visible;
+The backend rule, over all ``dp * tp`` ranks:
+
+* on the card, NCCL with one card per rank when at least ``dp * tp``
+  cards are visible;
 * on the card with fewer cards than ranks, gloo: every rank sits on
   ``cuda:0`` and ``comm/dispatch.py`` copies each payload to host memory
   before the gloo call and back after it ("gloo via host");
@@ -13,7 +21,7 @@ The backend rule:
 A failure to set up the group raises; nothing switches backend.  The
 group meets through a file under a temporary directory, never a TCP
 port, so runs side by side do not collide.  A rank on the CPU runs one
-intra-op thread, so ``tp`` ranks take ``tp`` cores.
+intra-op thread, so ``dp * tp`` ranks take as many cores.
 """
 
 from __future__ import annotations
@@ -28,85 +36,117 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from repro_torch.dist.topology import MeshPlan, local_model_ranks
 
-def backend_for(tp: int, device_type: str) -> str:
-    """``"nccl"`` when each of ``tp`` ranks can have its own card, else
+
+def backend_for(ranks: int, device_type: str) -> str:
+    """``"nccl"`` when each of ``ranks`` ranks can have its own card, else
     ``"gloo"``."""
-    if device_type == "cuda" and torch.cuda.device_count() >= tp:
+    if device_type == "cuda" and torch.cuda.device_count() >= ranks:
         return "nccl"
     return "gloo"
 
 
-def transport(tp: int, device_type: str) -> str:
-    """What carries the collectives of ``tp`` ranks, as every TP report
-    names it."""
-    if backend_for(tp, device_type) == "nccl":
-        return f"nccl, {tp} cards"
+def transport(tp: int, device_type: str, dp: int = 1) -> str:
+    """What carries the collectives of a ``dp x tp`` grid, as every TP
+    report names it."""
+    n = dp * tp
+    grid = "" if dp == 1 else f" (dp{dp} x tp{tp})"
+    if backend_for(n, device_type) == "nccl":
+        return f"nccl, {n} cards{grid}"
     if device_type == "cuda":
-        return f"gloo via host, {tp} ranks on 1 card"
-    return f"gloo, {tp} ranks on the CPU"
+        return f"gloo via host, {n} ranks{grid} on 1 card"
+    return f"gloo, {n} ranks{grid} on the CPU"
 
 
 @dataclasses.dataclass(frozen=True)
 class RankContext:
-    """This process's place in the ring."""
+    """This process's place in the grid."""
 
-    rank: int
+    rank: int                     # model-axis rank: its place in the ring
     tp: int
-    group: Optional[Any]          # the ranks' process group
+    group: Optional[Any]          # its row's tp ranks (None at tp=1)
     device: torch.device
+    dp: int = 1
+    dp_rank: int = 0              # data-axis rank: its row
+    data_group: Optional[Any] = None   # its column's dp ranks (None at dp=1)
+
+    @property
+    def process(self) -> int:
+        """Its index in the grid, row-major."""
+        return self.dp_rank * self.tp + self.rank
 
     @property
     def transport(self) -> str:
-        return transport(self.tp, self.device.type)
+        return transport(self.tp, self.device.type, self.dp)
 
 
-def init_rank(rank: int, tp: int, init_file: str,
-              device_type: str = "cuda") -> RankContext:
-    """Join the ``tp``-rank group that meets at ``init_file`` and pick this
-    rank's device by the backend rule."""
-    backend = backend_for(tp, device_type)
+def init_rank(process: int, tp: int, init_file: str,
+              device_type: str = "cuda", dp: int = 1) -> RankContext:
+    """Join the ``dp * tp``-rank group that meets at ``init_file``, pick
+    this process's device by the backend rule, and make the row and
+    column groups (every process makes every group, in the same order,
+    as ``dist.new_group`` requires)."""
+    plan = MeshPlan(dp=dp, tp=tp)
+    backend = backend_for(plan.size, device_type)
     if device_type == "cuda":
-        device = torch.device("cuda", rank if backend == "nccl" else 0)
+        device = torch.device("cuda", process if backend == "nccl" else 0)
         torch.cuda.set_device(device)
     else:
         device = torch.device(device_type)
     dist.init_process_group(backend, init_method=f"file://{init_file}",
-                            world_size=tp, rank=rank)
-    return RankContext(rank=rank, tp=tp, group=dist.group.WORLD,
-                       device=device)
+                            world_size=plan.size, rank=process)
+    (rank,) = local_model_ranks(plan, process)
+    dp_rank = process // tp
+    if dp == 1:
+        group, data_group = dist.group.WORLD, None
+    else:
+        rows = [dist.new_group([d * tp + t for t in range(tp)])
+                for d in range(dp)]
+        cols = [dist.new_group([d * tp + t for d in range(dp)])
+                for t in range(tp)]
+        group, data_group = rows[dp_rank], cols[rank]
+    if tp == 1:
+        group = None
+    elif dist.get_rank(group) != rank:
+        raise RuntimeError(f"process {process}: rank {dist.get_rank(group)} "
+                           f"of its row, expected {rank}")
+    return RankContext(rank=rank, tp=tp, group=group, device=device, dp=dp,
+                       dp_rank=dp_rank, data_group=data_group)
 
 
-def _rank_main(rank: int, fn: Callable, tp: int, init_file: str,
+def _rank_main(process: int, fn: Callable, tp: int, dp: int, init_file: str,
                device_type: str, out_dir: str, args: tuple):
     if device_type == "cpu":
         torch.set_num_threads(1)
-    ctx = init_rank(rank, tp, init_file, device_type)
+    ctx = init_rank(process, tp, init_file, device_type, dp)
     try:
         result = fn(ctx, *args)
     finally:
         dist.destroy_process_group()
-    torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+    torch.save(result, os.path.join(out_dir, f"rank{process}.pt"))
 
 
 def run(fn: Callable, tp: int, *args, device_type: str = "cuda",
-        timeout: float = 600.0) -> list:
-    """Run ``fn(ctx, *args)`` in ``tp`` spawned rank processes and return
-    each rank's result, in rank order.  ``fn`` must be a module-level
-    function and its arguments and result picklable.  A rank that raises
-    makes this raise (the others are stopped); so does a run that
-    outlasts ``timeout`` seconds."""
+        timeout: float = 600.0, dp: int = 1) -> list:
+    """Run ``fn(ctx, *args)`` in ``dp * tp`` spawned processes and return
+    each one's result, in process order (row-major: data rank, then
+    model rank).  ``fn`` must be a module-level function and its
+    arguments and result picklable.  A process that raises makes this
+    raise (the others are stopped); so does a run that outlasts
+    ``timeout`` seconds."""
+    n = dp * tp
     with tempfile.TemporaryDirectory(prefix="tp-ranks-") as tmp:
         init_file = os.path.join(tmp, "group")
         procs = mp.start_processes(
-            _rank_main, args=(fn, tp, init_file, device_type, tmp, args),
-            nprocs=tp, join=False, start_method="spawn")
+            _rank_main, args=(fn, tp, dp, init_file, device_type, tmp, args),
+            nprocs=n, join=False, start_method="spawn")
         deadline = time.monotonic() + timeout
         try:
             while not procs.join(timeout=max(0.0, deadline
                                              - time.monotonic())):
                 if time.monotonic() >= deadline:
-                    raise TimeoutError(f"{tp} ranks did not finish within "
+                    raise TimeoutError(f"{n} ranks did not finish within "
                                        f"{timeout:.0f} s")
         finally:
             for p in procs.processes:
@@ -115,4 +155,4 @@ def run(fn: Callable, tp: int, *args, device_type: str = "cuda",
                     p.join()
         # the ranks' own files, written by this program
         return [torch.load(os.path.join(tmp, f"rank{r}.pt"),
-                           weights_only=False) for r in range(tp)]
+                           weights_only=False) for r in range(n)]

@@ -15,19 +15,28 @@ one-shot lifecycle, and prepare-once / serve-many).
     PYTHONPATH=src python -m repro_torch.launch.serve prepare \
         --arch qwen3-4b --smoke --scheme tp-aware --tp 2 --out DIR \
         [--collective quant-int8:fused --seed 0] [--device cpu] \
-        [--autotune-collectives [--tune-budget 0.05]]
+        [--autotune-collectives [--tune-budget 0.05] \
+         [--overlap-collectives]]
     PYTHONPATH=src python -m repro_torch.launch.serve --artifact DIR \
         [--tp 2] [--backend auto] [--requests 8 ...] [--device cpu]
+
+* a grid of data-parallel replicas of a TP plan (the reference's
+  multi-process launch):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --artifact DIR \
+        --mesh dp2xtp2 [--max-batch 4 --max-new 16 --seed 0] [--device cpu]
 
   ``prepare`` runs the plan compiler from the seed (quantize, lay out,
   pre-shard for ``--tp`` ranks) and writes a ``DeploymentArtifact`` in
   the reference's format; ``--autotune-collectives`` chooses a per-layer
-  collective plan (``plan/tuner.py``) and prints each site's choice.  A
+  collective plan (``plan/tuner.py``) and prints each site's choice;
+  ``--overlap-collectives`` (which needs it) marks the quantized pair
+  choices ``:overlap``, the ring pipelined against the down GEMM
+  (``dist/overlap.py``).  A
   config with ``quant.attn_tp_aware`` (no flag, as in the reference:
   ``compiler.prepare`` of ``cfg.with_quant(attn_tp_aware=True)``) also
   writes the attention V->O folds, which ``--artifact`` serves (the
-  banner says ``attn V->O fold: N layers``).  ``--overlap-collectives``
-  is ROADMAP.md queue 1, item 9, and exits 1.  Serving from an artifact
+  banner says ``attn V->O fold: N layers``).  Serving from an artifact
   quantizes nothing: the manifest is the plan (``--arch``, ``--smoke``,
   ``--scheme`` and ``--collective`` are ignored), ``--tp`` defaults to
   the artifact's, and the manifest is validated against the config, the
@@ -42,7 +51,19 @@ one-shot lifecycle, and prepare-once / serve-many).
 (the cache layout is runtime-only).  ``--http [HOST]:PORT`` serves the
 same engine over HTTP/SSE (``serving/``: ``POST /v1/generate``,
 ``GET /v1/health``, ``GET /v1/stats``; ``:0`` binds a free port) instead
-of the synthetic requests; it needs one rank (``--tp 1``).
+of the synthetic requests; it needs one rank (``--tp 1``, no ``--mesh``).
+
+``--mesh dpNxtpM`` spawns ``N * M`` processes in a ``(dp, tp)`` grid
+(``launch/mesh.py``); ``M`` must be the plan's TP degree (an artifact's
+rank files are split for it; ``dp`` needs no new prepare).  Each row of
+``M`` processes is one TP engine, a data-parallel replica; each process
+reads only its model-axis rank file.  As the reference's multi-process
+launch does, the grid serves one lockstep synthetic batch instead of the
+scheduler's requests: ``--max-batch`` prompts of ``--prompt-budget // 2``
+tokens drawn from ``--seed``, split over the data axis (``max_batch % N
+== 0``), each row generating ``--max-new`` tokens for its share.  Each
+process prints its ``mesh=... process=i/n resident_artifact_bytes=...``
+line and its ``first=`` ids.
 
 Runs on the CUDA card unless ``--device cpu`` is given; without a card it
 exits with an error naming the missing card.  ``--tp N`` spawns N rank
@@ -62,7 +83,7 @@ import numpy as np
 import torch
 
 from repro_torch.cache.spec import PageSpec
-from repro_torch.comm.spec import OVERLAP_NOT_PORTED, parse_collective
+from repro_torch.comm.spec import parse_collective
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core.policy import ExecutionPolicy
 from repro_torch.core.reorder import SCHEMES
@@ -84,6 +105,13 @@ def _build_cfg(args, backend: str = "auto"):
                           kv_bits=args.kv_bits)
 
 
+def _mesh_plan(value: str) -> MeshPlan:
+    try:
+        return MeshPlan.parse(value)
+    except ValueError as e:
+        raise argparse.ArgumentTypeError(str(e)) from None
+
+
 def _collective(value: str) -> str:
     try:
         parse_collective(value)
@@ -98,8 +126,8 @@ def _plan_args(ap: argparse.ArgumentParser):
     ap.add_argument("--scheme", default="tp-aware", choices=SCHEMES)
     ap.add_argument("--collective", default="psum", type=_collective,
                     help="row-TP epilogue: psum, psum_scatter, cast[:dtype], "
-                         "quant-int8[:block][:fused], "
-                         "quant-int4[:block][:fused], none, or a "
+                         "quant-int8[:block][:fused][:overlap], "
+                         "quant-int4[:block][:fused][:overlap], none, or a "
                          "'per-layer:<glob>=<spec>,...' plan")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kv-page-size", type=int, default=None,
@@ -140,12 +168,13 @@ def prepare(argv=None) -> str:
                          "collective may introduce (default: the tuner's "
                          "DEFAULT_BUDGET, 0.05)")
     ap.add_argument("--overlap-collectives", action="store_true",
-                    help="mark tuned quantized epilogues ':overlap' (not "
-                         "ported: ROADMAP.md queue 1, item 9)")
+                    help="mark tuned quantized pair epilogues ':overlap': "
+                         "the ring pipelined against the down GEMM one row "
+                         "microbatch at a time (bit-identical; requires "
+                         "--autotune-collectives)")
     args = ap.parse_args(argv)
-    if args.overlap_collectives:
-        raise SystemExit(f"error: --overlap-collectives: "
-                         f"{OVERLAP_NOT_PORTED}")
+    if args.overlap_collectives and not args.autotune_collectives:
+        ap.error("--overlap-collectives requires --autotune-collectives")
     device = _device(args)
     cfg = _build_cfg(args)
     policy = ExecutionPolicy.from_config(cfg, device=device).with_(
@@ -155,7 +184,8 @@ def prepare(argv=None) -> str:
                            extra_manifest={"smoke": bool(args.smoke)},
                            device=device,
                            autotune=args.autotune_collectives,
-                           tune_budget=args.tune_budget)
+                           tune_budget=args.tune_budget,
+                           tune_overlap=args.overlap_collectives)
     path = art.save(args.out)
     print(f"prepared {args.arch} (scheme={args.scheme} "
           f"collective={art.manifest['policy']['collective']} "
@@ -182,7 +212,7 @@ def _artifact_plan(args, device):
            else get_config(man["arch_id"]))
     cfg = cfg.with_quant(**man["quant"])
     policy = art.policy(backend=args.backend, device=device).with_(
-        mesh=MeshPlan(tp=args.tp))
+        mesh=getattr(args, "mesh", None) or MeshPlan(tp=args.tp))
     if args.kv_page_size is not None or args.kv_bits is not None:
         # the cache layout is runtime-only: the flags override the
         # manifest's on the policy, never on cfg (its hash is the plan's)
@@ -192,11 +222,17 @@ def _artifact_plan(args, device):
 
 
 def _engine(args, device, group=None):
-    """(cfg, the engine: this rank's slices under TP)."""
+    """(cfg, the engine: this rank's slices under TP).  Under ``--mesh``
+    the policy names the grid, and a process reads only its own rank
+    file of an artifact."""
+    grid = getattr(args, "mesh", None)
     if args.artifact:
         cfg, policy = _artifact_plan(args, device)
     else:
         cfg, policy = _build_cfg(args, args.backend), None
+        if grid is not None:
+            policy = ExecutionPolicy.from_config(cfg, device=device).with_(
+                mesh=grid)
     max_seq = args.prompt_budget + args.max_new + 1
     return cfg, make_engine(cfg, args.seed, device=device, max_seq=max_seq,
                             policy=policy, group=group,
@@ -284,12 +320,81 @@ def _serve_rank(ctx, args):
     return _serve(args, ctx.device, ctx.group, ctx.transport)
 
 
-def main(argv=None):
-    import sys
+def _serve_mesh(ctx, args) -> dict:
+    """One process of ``--mesh``: its row's engine generates the data
+    rank's share of the lockstep synthetic batch (the reference's
+    ``_run_multiprocess``)."""
+    cfg, engine = _engine(args, ctx.device, ctx.group)
+    b, dp = args.max_batch, ctx.dp
+    plen = min(max(4, args.prompt_budget // 2), args.prompt_budget)
+    tokens = np.random.default_rng(args.seed).integers(
+        0, cfg.vocab_size, size=(b, plen))
+    lo, hi = ctx.dp_rank * b // dp, (ctx.dp_rank + 1) * b // dp
+    gen = torch.Generator(ctx.device).manual_seed(args.seed)
+    t0 = time.perf_counter()
+    ids = engine.generate(
+        gen, torch.from_numpy(tokens[lo:hi]), [plen] * (hi - lo),
+        max_new_tokens=args.max_new,
+        scfg=SamplingConfig(temperature=args.temperature, top_k=40))
+    if ctx.device.type == "cuda":
+        torch.cuda.synchronize(ctx.device)
+    st = engine.load_stats
+    return {"process": ctx.process, "dp_rank": ctx.dp_rank,
+            "rank": ctx.rank, "rows": (lo, hi),
+            "ids": ids.cpu().tolist(), "seconds": time.perf_counter() - t0,
+            "policy": engine.policy, "decode_mode": engine.decode_mode,
+            "resident": None if st is None else (
+                f"resident_artifact_bytes={st.file_bytes_loaded}/"
+                f"{st.file_bytes_total} ranks={list(st.ranks)}")}
 
-    argv = list(sys.argv[1:] if argv is None else argv)
-    if argv and argv[0] == "prepare":
-        return prepare(argv[1:])
+
+def _run_mesh(args, device) -> list:
+    """Serve the lockstep batch on the ``--mesh`` grid; print the banner
+    and each process's lines, and return the ids row by row of the whole
+    batch (the rows of each data rank's TP rank 0; the other ranks of a
+    row must agree with it)."""
+    plan = args.mesh
+    if args.max_batch % plan.dp:
+        raise SystemExit(f"error: --max-batch {args.max_batch} does not "
+                         f"split over the {plan.dp} data ranks of --mesh "
+                         f"{plan.shorthand()}")
+    if plan.size == 1:
+        results = [_serve_mesh(mesh.RankContext(rank=0, tp=1, group=None,
+                                                device=device), args)]
+    else:
+        results = mesh.run(_serve_mesh, plan.tp, args, dp=plan.dp,
+                           device_type=device.type)
+    pol = results[0]["policy"]
+    source = f"artifact={args.artifact}" if args.artifact else \
+        "in-memory plan"
+    carrier = mesh.transport(plan.tp, device.type, plan.dp)
+    print(f"mesh={plan.shorthand()} ({carrier}) "
+          f"[scheme={pol.scheme} backend={pol.backend} "
+          f"collective={pol.collective.shorthand()} kv={pol.kv.shorthand()} "
+          f"device={device} {source}]; decode step: "
+          f"{results[0]['decode_mode']}")
+    rows = []
+    for r in results:
+        resident = r["resident"] or \
+            "resident_artifact_bytes=n/a (in-memory plan)"
+        n = len(r["ids"]) * args.max_new
+        print(f"mesh={plan.shorthand()} process={r['process']}/{plan.size} "
+              f"{resident}")
+        print(f"process {r['process']}/{plan.size}: data rank "
+              f"{r['dp_rank']} rows {r['rows'][0]}-{r['rows'][1] - 1}: "
+              f"generated {len(r['ids'])}x{args.max_new} tokens in "
+              f"{r['seconds']:.1f}s ({n / r['seconds']:.1f} tok/s) "
+              f"first={r['ids'][0][:8]}", flush=True)
+        if r["rank"] == 0:
+            rows += r["ids"]
+        elif r["ids"] != results[r["process"] - r["rank"]]["ids"]:
+            raise SystemExit(f"error: process {r['process']} emitted other "
+                             f"tokens than its row's rank 0")
+    return rows
+
+
+def serve_parser() -> argparse.ArgumentParser:
+    """The serve command's arguments."""
     ap = argparse.ArgumentParser(prog="repro_torch.launch.serve")
     _plan_args(ap)
     ap.add_argument("--backend", default="auto",
@@ -310,6 +415,11 @@ def main(argv=None):
     ap.add_argument("--tp", type=int, default=None,
                     help="tensor-parallel ranks, one process each "
                          "(default: the artifact's, else 1)")
+    ap.add_argument("--mesh", type=_mesh_plan, default=None,
+                    help="serve a dpNxtpM grid of processes (M the plan's "
+                         "TP degree): N data-parallel replicas of the TP "
+                         "plan, each process reading only its own rank "
+                         "file, over one lockstep synthetic batch")
     ap.add_argument("--http", default=None, metavar="[HOST]:PORT",
                     help="serve over HTTP/SSE instead of the synthetic "
                          "requests: POST /v1/generate streams token events, "
@@ -318,19 +428,40 @@ def main(argv=None):
     ap.add_argument("--queue-capacity", type=int, default=64,
                     help="admission queue bound; a full wait line answers "
                          "429 + Retry-After (HTTP mode)")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None):
+    import sys
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] == "prepare":
+        return prepare(argv[1:])
+    args = serve_parser().parse_args(argv)
 
     device = _device(args)
-    if args.tp is None:
-        args.tp = (DeploymentArtifact.load_manifest(args.artifact)["tp"]
-                   if args.artifact else 1)
-    if args.http is not None:
-        if args.tp > 1:
+    plan_tp = (DeploymentArtifact.load_manifest(args.artifact)["tp"]
+               if args.artifact else args.tp)
+    if args.mesh is not None:
+        tp = plan_tp or args.mesh.tp
+        if args.mesh.tp != tp:
             raise SystemExit(
-                f"error: --http serves one rank; at --tp {args.tp} the ranks "
-                "are separate processes, and a front end over them is "
-                "ROADMAP.md queue 1, item 9")
+                f"error: --mesh {args.mesh.shorthand()} (tp={args.mesh.tp}) "
+                f"disagrees with the plan's TP degree {tp}")
+        args.tp = tp
+    elif args.tp is None:
+        args.tp = plan_tp or 1
+    if args.http is not None:
+        if args.tp > 1 or (args.mesh is not None and args.mesh.size > 1):
+            raise SystemExit(
+                f"error: --http serves one process; at --tp {args.tp}"
+                + (f" --mesh {args.mesh.shorthand()}" if args.mesh else "")
+                + " the ranks are separate processes, and a front end over "
+                "them needs a controller that sends each admission to "
+                "every rank (ROADMAP.md queue 1, item 9)")
         return _serve_http(args, device)
+    if args.mesh is not None:
+        return _run_mesh(args, device)
     if args.tp > 1:
         results = mesh.run(_serve_rank, args.tp, args,
                            device_type=device.type)

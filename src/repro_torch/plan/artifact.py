@@ -24,8 +24,9 @@ the split dim of a ``layers||...`` leaf is the per-layer dim + 1.
 Backends.  The manifest names the reference's backends: the port's
 ``torch`` is ``jnp``, ``cuda`` is ``pallas`` and ``ref`` is ``ref``.
 ``validate`` compares the scheme, the dtypes and the collective; like the
-reference it leaves out ``kv`` and ``mesh``, and unlike it, the backend
-too.  The reference serves with the manifest's backend; the port decides
+reference it leaves out ``kv`` and ``mesh`` (it pins the TP degree
+alone, so a grid may widen ``dp`` at serve time without a new
+prepare), and unlike it, the backend too.  The reference serves with the manifest's backend; the port decides
 at load by its own rule (``policy(backend="auto")``: the CUDA kernels on
 the card for ordered layouts), because a JAX artifact prepared on a CPU
 says ``jnp`` and on the card must still run the kernels.  Every backend

@@ -288,7 +288,7 @@ def compile_plan(cfg: ModelConfig, raw_params: Any, *, tp: int,
     ``cfg.quant.mode`` is ``"mlp"``, as ``Model.init``), fold attention
     (``cfg.quant.attn_tp_aware``), tune the collectives (``autotune``: max
     relative error ``tune_budget``, the tuner's default when None;
-    ``tune_overlap`` is ROADMAP.md queue 1, item 9, and raises), then
+    ``tune_overlap`` marks the quantized pair choices ``:overlap``), then
     pre-shard for ``tp`` ranks, and freeze with the manifest.  ``policy``
     is recorded (with the tuned plan), its scheme laid out;
     ``generator`` draws the MLP processing orders (``compile_params``),
@@ -297,8 +297,6 @@ def compile_plan(cfg: ModelConfig, raw_params: Any, *, tp: int,
     from repro_torch.plan import tuner
     from repro_torch.plan.artifact import DeploymentArtifact
 
-    if tune_overlap:
-        raise ValueError(f"tune_overlap: {tuner.OVERLAP_NOT_PORTED}")
     dev = generator.device if generator is not None else None
     base = 0 if seed is None else seed
     meta = pair_meta(cfg, raw_params, policy.scheme)
@@ -311,6 +309,7 @@ def compile_plan(cfg: ModelConfig, raw_params: Any, *, tp: int,
     report = ()
     if autotune:
         kw = {} if tune_budget is None else {"budget": tune_budget}
+        kw["overlap"] = tune_overlap
         policy, report = tuner.autotune_collectives(
             cfg, planned, meta, policy, tp, attn_plans=attn_plans,
             generator=tune_generator(base, dev), **kw)

@@ -14,7 +14,10 @@ full-output collective with
 
 then picks the cheapest collective whose relative error stays within
 ``budget``, and marks a quantized choice ``:fused`` where the wire
-kernel can serve the site's down GEMM (``kernels.dispatch.wire_support``).
+kernel can serve the site's down GEMM (``kernels.dispatch.wire_support``),
+and, with ``overlap=True``, a quantized pair choice ``:overlap`` (the
+ring pipelined against the down GEMM, ``dist/overlap.py``: the same
+numerics and wire bytes, so the scores carry over).
 The report records every candidate's score, the choice and why a site
 may or may not be fused; the artifact's manifest keeps it as
 ``collective_tuner``.
@@ -27,8 +30,7 @@ their entry is recorded and not applied.
 
 The reference draws each site's calibration rows with ``jax.random``;
 the port draws them from a ``torch.Generator``, or takes them by site
-path (tests pass the reference's).  ``overlap`` (the ``:overlap`` ring)
-is ROADMAP.md queue 1, item 9, and raises.
+path (tests pass the reference's).
 """
 
 from __future__ import annotations
@@ -39,8 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.comm import dispatch as comm_dispatch
-from repro_torch.comm.spec import (OVERLAP_NOT_PORTED, CollectivePlan,
-                                   CollectiveSpec)
+from repro_torch.comm.spec import CollectivePlan, CollectiveSpec
 from repro_torch.core import reorder, schemes
 from repro_torch.core.quantization import choose_group_size
 from repro_torch.device import new_generator
@@ -161,9 +162,9 @@ def autotune_collectives(cfg, params: Any, pair_meta, policy, tp: int, *,
     attention folds (stacked over layers or a per-layer list).  Each
     site's calibration rows are ``calib_rows[path]`` when given, else
     ``calib_batch`` standard-normal rows drawn from ``generator``.
-    Returns ``(policy with the tuned plan, report)``."""
-    if overlap:
-        raise ValueError(f"tune_overlap: {OVERLAP_NOT_PORTED}")
+    ``overlap`` marks quantized pair choices ``:overlap``, never an
+    ``attn_vo`` site (its epilogue is the all-reduce that closes
+    attention).  Returns ``(policy with the tuned plan, report)``."""
     if not tp:
         raise ValueError("autotune_collectives needs a target TP degree")
     tp = int(tp)
@@ -204,6 +205,8 @@ def autotune_collectives(cfg, params: Any, pair_meta, policy, tp: int, *,
                 if win is not None and win.get("fusable"):
                     chosen = chosen.with_(fused=True)
                     scores[chosen.shorthand()] = {**win, "spec": chosen}
+                if overlap and chosen.name in ("quant-int8", "quant-int4"):
+                    chosen = chosen.with_(overlap=True)
         entries.append((path, chosen))
         if tp == 1:
             elig = {"fusable": False, "reason": status}
@@ -212,7 +215,7 @@ def autotune_collectives(cfg, params: Any, pair_meta, policy, tp: int, *,
                     "reason": "attn_vo epilogue closes through GSPMD"}
         else:
             base = scores.get(chosen.shorthand()) or scores.get(
-                chosen.with_(fused=False).shorthand())
+                chosen.with_(fused=False, overlap=False).shorthand())
             elig = ({"fusable": base["fusable"],
                      "reason": base["fuse_reason"]}
                     if base is not None

@@ -22,10 +22,12 @@ from the scheduler's table, as it fills tokens and positions.
 what tp > 1 runs.
 
 Under tensor parallelism every rank runs its own ``Engine`` over its
-slices of the params with the ranks' process group (``group``); the
-logits are gathered whole on every rank, so every rank samples the same
-tokens from identically seeded generators.  The policy's ``mesh`` names
-the TP degree the plan was made for, and it must be the group's.  With a
+slices of the params with its row's process group (``group``: the ``tp``
+ranks of one row of a ``dp x tp`` grid, ``launch/mesh.py``, so each row
+is an engine of its own, a data-parallel replica); the logits are
+gathered whole on every rank, so every rank samples the same tokens from
+identically seeded generators.  The policy's ``mesh`` names the grid the
+plan is served on; its TP degree must be the group's.  With a
 group the step stays eager: the collectives go through gloo and host
 memory (``launch/mesh.py``), which a CUDA graph cannot hold.
 
@@ -348,7 +350,8 @@ def default_policy(cfg, device: torch.device, tp: int) -> ExecutionPolicy:
 
 
 def check_mesh(policy: ExecutionPolicy, tp: int) -> None:
-    """Raise unless ``policy.mesh`` plans the ``tp`` ranks that run it."""
+    """Raise unless ``policy.mesh`` plans the ``tp`` ranks that run it (the
+    TP degree only: a ``dp2xtp2`` policy runs on each row's 2 ranks)."""
     if policy.mesh.tp != tp:
         raise ValueError(
             f"policy mesh {policy.mesh.shorthand()} plans tp="
@@ -360,14 +363,15 @@ def make_engine(cfg, seed: int = 0, *, device: DeviceLike = None,
                 policy: Optional[ExecutionPolicy] = None,
                 group=None, artifact=None) -> Engine:
     """Build an engine on ``device`` (default: the CUDA card); with the TP
-    ranks' ``group``, over this rank's slices of the params.  A
-    ``policy`` whose mesh does not match the group raises before any
-    weight is made.
+    ranks' ``group`` (a row of the grid), over this rank's slices of the
+    params.  A ``policy`` whose mesh's TP degree does not match the group
+    raises before any weight is made.
 
     Without ``artifact``, ``Model.init`` makes the params from ``seed``.
     With one (a ``DeploymentArtifact`` or its directory), the engine
     serves its plan: no quantize and no layout at load.  From a
-    directory, a rank of a group reads only its own ``rank_NN.npz``
+    directory, a rank of a group (and a process of a grid whose policy
+    mesh has ``dp > 1``, at tp=1 too) reads only its own ``rank_NN.npz``
     (``dist.loader.load_per_rank``; ``Engine.load_stats`` keeps the
     ledger), one device all of them (``DeploymentArtifact.load``); either
     way onto the host first, with the artifact's aux plans (the attention
@@ -394,7 +398,8 @@ def make_engine(cfg, seed: int = 0, *, device: DeviceLike = None,
                 artifact)).validate(**plan)
             artifact = (
                 DeploymentArtifact.load_rank(artifact, rank, device="cpu")
-                if group is not None
+                if group is not None or (policy is not None
+                                         and policy.mesh.dp > 1)
                 else DeploymentArtifact.load(artifact, device="cpu"))
         artifact.validate(**plan)
         params = map_tensors(artifact.rank_tree(rank),

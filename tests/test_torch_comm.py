@@ -151,25 +151,39 @@ def test_bad_shorthands_raise_like_jax(bad):
 
 
 def test_overlap_is_not_ported_yet():
-    for short in ("quant-int8:overlap", "quant-int4:32:fused:overlap"):
-        jspec.CollectiveSpec.parse(short)           # valid in the reference
-        with pytest.raises(ValueError, match="queue 1, item 9"):
-            CollectiveSpec.parse(short)
+    """Once a refusal, now the ported flag: ``:overlap`` parses and prints
+    as the reference's (``:fused`` first), and both refuse it on a
+    collective that is not a quantized ring."""
+    for short in ("quant-int8:overlap", "quant-int4:32:fused:overlap",
+                  "quant-int4:32:overlap:fused"):
+        spec, jsp = CollectiveSpec.parse(short), jspec.CollectiveSpec.parse(
+            short)
+        assert spec.shorthand() == jsp.shorthand(), short
+        assert (spec.fused, spec.overlap) == (jsp.fused, jsp.overlap)
+        assert spec.overlap and CollectiveSpec.parse(spec.shorthand()) == spec
+    for bad in ("cast", "psum"):
+        with pytest.raises(ValueError, match="only applies to quant"):
+            jspec.CollectiveSpec(name=bad, overlap=True)
+        with pytest.raises(ValueError, match="only applies to quant"):
+            CollectiveSpec(name=bad, overlap=True)
 
 
 def test_mesh_plan_matches_jax_and_refuses_dp():
-    for short in ("dp1xtp1", "dp1xtp2", "tp4xdp1", "dp1xtp8"):
+    """Once a refusal of ``dp > 1``, now the ported grid: every shorthand
+    parses and prints as the reference's, ``dp`` and ``ep`` included; an
+    ``ep`` that does not divide ``dp`` is refused by both."""
+    for short in ("dp1xtp1", "dp1xtp2", "tp4xdp1", "dp1xtp8", "dp2xtp4",
+                  "dp2xtp1xep2", "ep2xtp2xdp4"):
         plan, jplan = MeshPlan.parse(short), JMeshPlan.parse(short)
         assert plan.shorthand() == jplan.shorthand()
-        assert (plan.dp, plan.tp, plan.size) == (jplan.dp, jplan.tp,
-                                                 jplan.size)
+        assert (plan.dp, plan.tp, plan.ep, plan.size) == \
+            (jplan.dp, jplan.tp, jplan.ep, jplan.size)
     assert MeshPlan.parse(None) == MeshPlan()
-    for short in ("dp2xtp4", "dp2xtp1xep2"):
-        JMeshPlan.parse(short)
-        with pytest.raises(ValueError, match="queue 1, item 9"):
-            MeshPlan.parse(short)
-    with pytest.raises(ValueError):
-        MeshPlan.parse("dp1xtp2xtp2")
+    for bad in ("dp2xtp4xep3", "dp1xtp2xtp2"):
+        with pytest.raises(ValueError):
+            JMeshPlan.parse(bad)
+        with pytest.raises(ValueError):
+            MeshPlan.parse(bad)
 
 
 def test_single_rank_strategies_are_the_identity():

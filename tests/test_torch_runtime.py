@@ -184,8 +184,12 @@ def test_cli_tp_on_cpu_names_transport_and_matches_tp1():
     assert len(ids) == 2
     assert ids == [ln for ln in one.stdout.splitlines()
                    if ln.startswith("req ")]
-    bad = _run(base + ["--collective", "quant-int8:overlap"])
-    assert bad.returncode != 0 and "item 9" in bad.stderr
+    # the :overlap ring, once refused, serves (at one rank it is the GEMM)
+    ov = _run(base + ["--collective", "quant-int8:overlap"])
+    assert ov.returncode == 0, ov.stderr
+    assert "collective=quant-int8:128:overlap" in ov.stdout
+    assert ids == [ln for ln in ov.stdout.splitlines()
+                   if ln.startswith("req ")]
 
 
 def test_cli_without_card_names_it():

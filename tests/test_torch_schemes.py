@@ -50,8 +50,10 @@ def test_policy_auto_and_unported_options():
     assert pol.collective.shorthand() == "quant-int8:64:fused"
     assert pol.mesh.tp == 2
     assert ExecutionPolicy(kv="paged:16").kv.shorthand() == "paged:16"
-    for kw, slice_name in ((dict(collective="quant-int8:overlap"),
-                            "item 9"),
-                           (dict(mesh="dp2xtp2"), "distributed-runtime")):
-        with pytest.raises(ValueError, match=slice_name):
-            ExecutionPolicy(**kw)
+    # the options an earlier slice refused are ported: the :overlap ring
+    # and dp > 1 grids; a grid whose ep does not divide dp still raises
+    pol = ExecutionPolicy(collective="quant-int8:overlap", mesh="dp2xtp2")
+    assert pol.collective.overlap and pol.collective.name == "quant-int8"
+    assert (pol.mesh.dp, pol.mesh.tp) == (2, 2)
+    with pytest.raises(ValueError, match="must divide"):
+        ExecutionPolicy(mesh="dp2xtp2xep3")

@@ -177,13 +177,20 @@ def test_port_prepare_autotune_writes_the_references_keys():
 
 
 def test_overlap_is_item_9():
+    """Item 9's ``:overlap`` marks, once refused, as the reference makes
+    them: the quantized pair site marked, the attn_vo site never, and
+    nothing to mark without sites."""
     cfg = _fold_cfg()
-    with pytest.raises(ValueError, match="item 9"):
-        compiler.prepare(cfg, tp=2, seed=0, device="cpu", autotune=True,
-                         tune_overlap=True)
-    with pytest.raises(ValueError, match="item 9"):
-        tuner.autotune_collectives(cfg, {}, [], ExecutionPolicy(), 2,
-                                   overlap=True)
+    art = compiler.prepare(cfg, tp=2, seed=0, device="cpu", autotune=True,
+                           tune_overlap=True)
+    sites = {s["path"]: s for s in art.manifest["collective_tuner"]}
+    assert sites["layers.mlp"]["overlap"]
+    assert sites["layers.mlp"]["chosen"].endswith(":overlap")
+    assert not sites["layers.attn"]["overlap"]
+    assert ":overlap" not in sites["layers.attn"]["chosen"]
+    pol, report = tuner.autotune_collectives(cfg, {}, [], ExecutionPolicy(),
+                                             2, overlap=True)
+    assert report == [] and pol.collective.shorthand() == "per-layer:*=psum"
 
 
 def _cli(*args):
@@ -194,23 +201,28 @@ def _cli(*args):
 
 
 def test_cli_prepare_autotune_and_overlap(tmp_path):
-    """``prepare --autotune-collectives --tune-budget 10`` prints the
-    reference's ``tuned <path> [<kind>]: <chosen> (<status>)`` lines and
-    writes the plan; ``--overlap-collectives`` exits 1 naming item 9."""
+    """``prepare --autotune-collectives --tune-budget 10
+    --overlap-collectives`` prints the reference's ``tuned <path>
+    [<kind>]: <chosen> (<status>)`` lines and writes the plan, its
+    quantized choice marked ``:overlap``; ``--overlap-collectives``
+    without ``--autotune-collectives`` exits 2."""
     out = str(tmp_path / "tuned")
     done = _cli("prepare", "--smoke", "--tp", "2", "--out", out,
                 "--device", "cpu", "--autotune-collectives",
-                "--tune-budget", "10")
+                "--tune-budget", "10", "--overlap-collectives")
     assert done.returncode == 0, done.stderr
     with open(os.path.join(out, "manifest.json")) as f:
         man = json.load(f)
     (site,) = man["collective_tuner"]
     assert f"  tuned layers.mlp [pair]: {site['chosen']} (tuned)" in \
         done.stdout.splitlines()
-    assert site["chosen"] == "quant-int4:32:fused"
+    assert site["chosen"] == "quant-int4:32:fused:overlap"
+    assert site["overlap"] and site["fused"]
     refused = _cli("prepare", "--smoke", "--tp", "2", "--out",
                    str(tmp_path / "x"), "--device", "cpu",
-                   "--autotune-collectives", "--overlap-collectives")
-    assert refused.returncode == 1
-    assert "item 9" in refused.stderr
+                   "--overlap-collectives")
+    assert refused.returncode == 2
+    assert "requires --autotune-collectives" in refused.stderr
     assert not os.path.exists(str(tmp_path / "x"))
+
+
