@@ -214,12 +214,43 @@ Phases, one line each:
      greedy ids and logits row for row bit-equal to phase 27's
      ``dp1xtp2`` engine on the same rows, and against its whole 4-row
      batch ids equal or apart only after a near tie; tokens/s
+ 29. batch-solo: qwen3-4b at full width, tp=1, captured: phase 22's
+     eight requests served greedy four slots at a time (an engine whose
+     library products run in blocks of 4 rows, ``row_stable``) and
+     seeded eight slots at a time (blocks of 8), then each alone
+     through the same engine's ``Engine.generate`` (batch 1, one padded
+     block): ids equal and every emitted logits row bit-equal; the
+     head's time a step as one plain product and through ``row_stable``
+     at blocks of 4 and 8, at M 1, 4 and 8
+ 30. serve-moe: qwen3-moe-235b-a22b and arctic-480b at full width, depth
+     cut to 4 and 2 layers (printed), from seed 0 (experts quantized one
+     at a time; the init's peak memory): the four requests through the
+     captured step, K1 once per GEMM of every expert (and arctic's dense
+     MLP) a step, counted and seen on the device (torch.profiler); the
+     captured step against ``decode_eager`` bit for bit; greedy ids on
+     backend=cuda against torch; qwen3-moe under naive-actorder (K4)
+ 31. artifact-moe: qwen3-moe at 2 layers prepared on the card (peak
+     memory), saved, served from the directory: the manifest's experts
+     stacked [2, 128], greedy ids and logits bit-equal to the in-memory
+     engine of that depth
+ 32. moe-ep: ``--mesh dp2xtp1``'s lockstep batch from phase 31's rank
+     file, two processes over gloo via host, each keeping 64 of 128
+     experts a layer (resident expert bytes 0.50 of the file's), tokens
+     to their experts by all-to-all: ids equal the dp1 engine's over the
+     same rows, logits bit-equal reported
+ 33. moe-tp: qwen3-moe at 2 layers, tp=2 within-expert over gloo via
+     host: ``psum`` layer by layer within 1e-5 of max|.| + 1e-4 of the
+     tp=1 engine on the same carries, ``quant-int8:128:fused`` bit-equal
+     to its unfused ring, one stacked expert collective per MoE layer a
+     step, K1 once per expert GEMM slice
 
 then the per-kernel JSON line (after the first six: K2 on the long
 forward, the paged and HTTP serves' K1, K4 and K3 rows, the other
 archs' K1, K4 and K3 rows, then K1 on the GPTQ pair and on the fold's V
-and O, K3 where phase 26's tuner fused the MLP, then K3 and K1 on the
-``:overlap`` paths of phases 27 and 28), the total seconds
+and O, K3 where phase 26's tuner fused the MLP, K3 and K1 on the
+``:overlap`` paths of phases 27 and 28, then K1 on phase 29's serves
+and K1 and K4 on the MoE paths of phases 30-33, per expert), the total
+seconds
 and each phase's, the
 card's nvidia-smi line
 and, as the last line, ``{"ok": true, "device": {...}}``.  Every path
@@ -350,6 +381,17 @@ TP = 2
 DOWN_TP = ("down tp=2", 9728 // TP, 2560, 76)
 
 
+#: phases 30-33, the MoE family at full width: its depth on one card (int4
+#: experts take about 1.2 GB a layer for qwen3-moe, 6.7 GB for arctic);
+#: the depth of the artifact, EP and tp=2 phases (the 5 GB of qwen3-moe's
+#: float32 embedding and head dominate its files); the tp=2 plans
+MOE_ARCHS = ("qwen3-moe-235b-a22b", "arctic-480b")
+MOE_LAYERS = {"qwen3-moe-235b-a22b": 4, "arctic-480b": 2}
+MOE_DIST_LAYERS = 2
+MOE_TP_PLANS = ("psum", "quant-int8:128:fused")
+MOE_TP_UNFUSED = "quant-int8:128"
+
+
 def arch_config(arch: str):
     """The full config served for ``arch``; mistral-large at
     ``MISTRAL_LAYERS`` layers."""
@@ -375,8 +417,13 @@ def mlp_shapes(cfg, tp: int = 1) -> list:
 
 def mlp_launches(cfg) -> int:
     """Dequant-GEMM launches of one decode step or forward: one for each
-    MLP weight (up, gate where the MLP is gated, down) of every layer."""
-    return (3 if cfg.mlp_gated else 2) * cfg.num_layers
+    MLP weight (up, gate where the MLP is gated, down) of every layer; in
+    an MoE layer, of every expert (each runs over its capacity rows) and
+    of arctic's dense residual MLP."""
+    pair = 3 if cfg.mlp_gated else 2
+    if not cfg.num_experts:
+        return pair * cfg.num_layers
+    return pair * (cfg.num_experts + cfg.dense_residual) * cfg.num_layers
 
 
 def describe(cfg) -> str:
@@ -403,7 +450,25 @@ def fold_launches(cfg) -> int:
     return mlp_launches(cfg) + 2 * cfg.num_layers
 
 
+def moe_config(arch: str, layers: int | None = None):
+    """The MoE ``arch`` at full width, depth cut to ``layers`` (default
+    ``MOE_LAYERS``: what one card holds with room for the phases)."""
+    return get_config(arch).with_(num_layers=layers or MOE_LAYERS[arch])
+
+
+def expert_shapes(cfg, tp: int = 1) -> list:
+    """(name, K, N, gs) of one expert's GEMMs at full width (arctic's
+    dense residual MLP has the same shapes), or of one TP rank's slice of
+    them (the inner dim split over ``tp`` ranks)."""
+    up, down = mlp_shapes(cfg.with_(d_ff=cfg.moe_dff,
+                                    arch_id=f"{cfg.arch_id} expert"), tp)
+    if tp == 1:
+        return [up, down]
+    return [(up[0] + f" tp={tp}", up[1], up[2] // tp, up[3]), down]
+
+
 ARCH_SHAPES = {a: mlp_shapes(arch_config(a)) for a in ARCHS}
+MOE_SHAPES = {a: expert_shapes(get_config(a)) for a in MOE_ARCHS}
 ARCH_TP_DOWN = {a: mlp_shapes(arch_config(a), TP)[1] for a in TP_ARCHS}
 QWEN_KN = {(UP[1], UP[2]), (DOWN[1], DOWN[2])}
 #: qwen3-4b's fold GEMMs (V: K 2560, N 1024; O: K 4096, N 2560; gs 128)
@@ -766,12 +831,14 @@ def _check_wire(gen) -> dict:
 def _kernel_launches(fn) -> dict:
     """Device kernels (and copies) one call of ``fn`` launches, by name.
     A profiler session that records no device event at all is run again,
-    up to five times: a call of a kernel's wrapper launches something,
-    so then the profiler missed it (three empty sessions in a row have
-    been seen on the card)."""
+    up to ten times, a second apart: a call of a kernel's wrapper
+    launches something, so then the profiler missed it (five empty
+    sessions in a row have been seen on the card)."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(5):
+    for attempt in range(10):
+        if attempt:
+            time.sleep(1.0)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
@@ -779,6 +846,50 @@ def _kernel_launches(fn) -> dict:
                if str(e.device_type).endswith("CUDA")}
         if out:
             break
+    return out
+
+
+#: ``CUgraphNodeType`` (cuda.h): the kinds of work a captured call holds
+_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
+               4: "graph", 5: "empty", 6: "wait_event", 7: "event_record",
+               10: "mem_alloc", 11: "mem_free"}
+
+
+def _graph_work(fn) -> dict:
+    """The device work one call of ``fn`` enqueues, by kind (``"kernel"``,
+    ``"memcpy"``, ``"memset"``, ...): the call captured in a CUDA graph
+    (after one call on the capture's stream outside it), the graph's
+    nodes read with ``cuGraphGetNodes`` and ``cuGraphNodeGetType`` from
+    libcuda.  A capture holds every launch and copy the call makes,
+    where a ``torch.profiler`` session on the card has recorded no
+    device event at all ten times in a row."""
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(rc, what):
+        if rc != 0:
+            raise RuntimeError(f"{what} failed with CUresult {rc}")
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    raw = ctypes.c_void_p(int(graph.raw_cuda_graph()))
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    out = {}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                    ctypes.byref(kind)), "cuGraphNodeGetType")
+        name = _NODE_TYPES.get(kind.value, f"type {kind.value}")
+        out[name] = out.get(name, 0) + 1
+    del graph
     return out
 
 
@@ -791,8 +902,8 @@ def _check_wire_repeat(gen) -> list:
     """K3's counters reset and a call is one launch: at the rank shape and
     the edges (M 4 and 64; also above K1's tensor-core threshold in
     float32, its other loop), the same call twice and once more after a
-    call of another shape give the same bits, and one call launches
-    exactly one device kernel (torch.profiler)."""
+    call of another shape give the same bits, and one call enqueues
+    exactly one kernel and no other device work (``_graph_work``)."""
     m_tc = dk.tensor_core_min_m() + 3
     other = _quantized(gen, 64, 128, 8).ordered
     rows = []
@@ -817,13 +928,13 @@ def _check_wire_repeat(gen) -> list:
             same = all(a is None or (torch.equal(_bits(a), _bits(b))
                                      and torch.equal(_bits(a), _bits(c)))
                        for a, b, c in zip(first, second, third))
-            kernels = _kernel_launches(call)
+            work = _graph_work(call)
             row = {"m": m, "k": k, "n": n, "tp": tp, "bits": bits,
                    "dtype": str(dtype), "repeats_bit_equal": same,
-                   "device_kernels_per_call": sum(kernels.values()),
-                   "kernels": sorted(kernels)}
+                   "device_kernels_per_call": work.get("kernel", 0),
+                   "device_work_per_call": work}
             rows.append(row)
-            if not same or row["device_kernels_per_call"] != 1:
+            if not same or work != {"kernel": 1}:
                 raise AssertionError(f"dequant_matmul_wire_ordered: repeated "
                                      f"calls differ or a call is not one "
                                      f"kernel: {row}")
@@ -831,9 +942,8 @@ def _check_wire_repeat(gen) -> list:
                   f"down shard and the edges, M 4/64 f32 and bf16, M={m_tc} "
                   f"f32): the same call twice and after a call of another "
                   f"shape bit-equal (the counters reset), and one call = "
-                  f"one device kernel (torch.profiler): "
-                  + ", ".join(sorted({k[:72] for r in rows
-                                      for k in r["kernels"]})))
+                  f"one kernel and no other device work (the nodes of its "
+                  f"CUDA graph)")
     return rows
 
 
@@ -890,11 +1000,13 @@ def _check_gidx_invariance(gen) -> list:
 
 def _arch_errs(rows: list) -> dict:
     """The largest float32 error at M=4 at each of the other archs' MLP
-    shapes, by shape name."""
+    shapes and the MoE experts' (M 4 and 8), by shape name."""
+    shapes = {**ARCH_SHAPES, **MOE_SHAPES}
     return {name: max(r["max_abs_err"] for r in rows
-                      if (r["m"], r["k"], r["n"], r["gs"], r["dtype"])
-                      == (4, k, n, gs, str(torch.float32)))
-            for a in ARCHS for name, k, n, gs in ARCH_SHAPES[a]}
+                      if r["m"] in (4, 8) and (r["k"], r["n"], r["gs"],
+                                               r["dtype"])
+                      == (k, n, gs, str(torch.float32)))
+            for a in shapes for name, k, n, gs in shapes[a]}
 
 
 def phase_check(gen) -> dict:
@@ -902,6 +1014,10 @@ def phase_check(gen) -> dict:
     # the other archs' full-width shapes at decode M
     archs = [(m, k, n, gs) for a in ARCHS for _, k, n, gs in ARCH_SHAPES[a]
              for m in (1, 4)]
+    # the MoE experts' shapes at an expert's decode capacity (4) and a
+    # data rank's share under expert parallelism at dp=2 (8)
+    archs += [(m, k, n, gs) for a in MOE_ARCHS
+              for _, k, n, gs in MOE_SHAPES[a] for m in (4, 8)]
     t = dk.tensor_core_min_m()
     large = _large_m_cases(t)
     # the attention fold's V and O at decode M and the forward's
@@ -1420,6 +1536,7 @@ def phase_timing(gen) -> dict:
                  r["bound_by"], r["bytes"] / 1e6, r["plain_ms"],
                  r["matmul_dequantized_ms"], r["eager_ms"]))
     archs = _time_archs(gen)
+    moe_timing = _time_moe(gen)
     # the :overlap paths' microbatches (phases 27-28): K3 at the tp=2 down
     # shard at M=2 (half of a 4-slot step) and M=1 (half of a dp2 row's
     # 2 slots), K1 at M=2
@@ -1445,7 +1562,8 @@ def phase_timing(gen) -> dict:
             "gidx_naive_over_ordered_layout_per_layer": in_kernel,
             "dequantize_ordered": deq, "flash_attention": flash,
             "flash_attention_long": flash_long,
-            "dequant_matmul_wire_ordered": wire, "archs": archs}
+            "dequant_matmul_wire_ordered": wire, "archs": archs,
+            "moe": moe_timing}
 
 
 def _time_archs(gen) -> dict:
@@ -1490,6 +1608,43 @@ def _time_archs(gen) -> dict:
     return out
 
 
+def _time_moe(gen) -> dict:
+    """K1 and K4 at M=4 (an expert's decode capacity) at each MoE arch's
+    full-width expert shapes, K1 at M=8 (a data rank's share under
+    expert parallelism at dp=2) and at one tp=2 rank's slice, per shape
+    and per expert (up, gate, down) against their bytes bounds."""
+    out = {}
+    for a in MOE_ARCHS:
+        shapes = MOE_SHAPES[a]
+        tp2 = expert_shapes(get_config(a), TP)
+        res = {"ordered": _time_gemm(gen, "ordered", shapes=shapes),
+               "naive": _time_gemm(gen, "naive", shapes=shapes),
+               "ordered_m8": _time_gemm(gen, "ordered", m=8, shapes=shapes),
+               "ordered_tp2": _time_gemm(gen, "ordered", shapes=tp2)}
+        for key, kernel in (("ordered", "K1"), ("naive", "K4"),
+                            ("ordered_m8", "K1"), ("ordered_tp2", "K1")):
+            shapes = tp2 if key == "ordered_tp2" else MOE_SHAPES[a]
+            r = res[key]
+            r["expert"] = _layer(r, shapes)
+            line("timing", f"{kernel} f32 M={r[shapes[0][0]]['m']} {a} "
+                 "experts, CUDA-graph replay: " + "; ".join(
+                     "{} (K {} N {} gs {}) {:.4f} ms (bound {:.4f} by {}: "
+                     "{:.2f} MB; plain {:.4f})".format(
+                         name.split(" ", 2)[2], k, n, gs, r[name]["ms"],
+                         r[name]["bound_ms"], r[name]["bound_by"],
+                         r[name]["bytes"] / 1e6, r[name]["plain_ms"])
+                     for name, k, n, gs in shapes)
+                 + "; per expert {:.4f} ms (bound {:.4f}), x {} experts = "
+                 "{:.3f} ms a layer (bound {:.3f})".format(
+                     r["expert"]["ms"], r["expert"]["bound_ms"],
+                     get_config(a).num_experts,
+                     r["expert"]["ms"] * get_config(a).num_experts,
+                     r["expert"]["bound_ms"] * get_config(a).num_experts))
+        out[a] = res
+        torch.cuda.empty_cache()
+    return out
+
+
 def _submit_requests(sched, cfg):
     rng = np.random.default_rng(0)
     for i in range(4):
@@ -1524,6 +1679,9 @@ def phase_serve(cfg, kernel: str, phase: str = "serve"):
     engine = make_engine(cfg, 0, device="cuda", max_seq=32 + 16 + 1)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    params_bytes = sum(t.nbytes for t in checkpoint.flatten_keys(
+        engine.params).values())
     if engine.policy.backend != "cuda":
         raise AssertionError(f"policy picked {engine.policy.backend!r}")
     sched = Scheduler(engine, max_batch=4, prompt_budget=32,
@@ -1559,6 +1717,7 @@ def phase_serve(cfg, kernel: str, phase: str = "serve"):
            "steady_ms_per_step": statistics.median(step_ms[1:]),
            "step_ms": step_ms,
            "peak_bytes": peak, "allocated_before_bytes": before,
+           "init_peak_bytes": init_peak, "params_bytes": params_bytes,
            "outputs": {k: r.output for k, r in sorted(done.items())},
            "first_ids": {k: r.output[:4] for k, r in sorted(done.items())}}
     line(phase, f"{describe(cfg)} on cuda, "
@@ -1571,7 +1730,9 @@ def phase_serve(cfg, kernel: str, phase: str = "serve"):
                 f"{graph.seconds:.3f}s after its eager step, graph pool "
                 f"{graph.pool_bytes / 2**20:.1f} MiB), "
                 f"{kernel} launches {counts[kernel]} = {per} x {steps} (other "
-                f"kernels 0), init {init_s:.1f}s, max_memory_allocated "
+                f"kernels 0), init {init_s:.1f}s (params "
+                f"{params_bytes / 2**30:.2f} GiB, peak during the init "
+                f"{init_peak / 2**30:.2f} GiB), max_memory_allocated "
                 f"{peak / 2**30:.2f} GiB ({before / 2**30:.2f} GiB of it "
                 f"allocated before this engine), first ids "
                 f"{out['first_ids']}")
@@ -2820,12 +2981,14 @@ def _paged_requests(cfg) -> list:
     return reqs
 
 
-def _sibling(engine, kv: str = "dense", max_seq: int = PAGED_MAX_SEQ):
+def _sibling(engine, kv: str = "dense", max_seq: int = PAGED_MAX_SEQ,
+             row_block: int = cm.ROW_BLOCK):
     """A fresh engine (no captured step yet) on ``engine``'s params under
-    the cache layout ``kv``."""
+    the cache layout ``kv``, its library products in blocks of
+    ``row_block`` rows."""
     return Engine(model=engine.model, params=engine.params,
                   device=engine.device, max_seq=max_seq,
-                  policy=engine.policy.with_(kv=kv))
+                  policy=engine.policy.with_(kv=kv), row_block=row_block)
 
 
 def _recorded_serve(engine, cfg, scfg, kernel: str, what: str,
@@ -4188,6 +4351,477 @@ def phase_mesh_dp(path: str, ref: dict, sync_m: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 29: decode rows independent of the batch (batched against solo)
+# ---------------------------------------------------------------------------
+
+def _solo_rows(engine, req, scfg) -> tuple[list, torch.Tensor]:
+    """``req`` alone through ``Engine.generate`` (its own generator from
+    its seed, as the scheduler draws it): its ids and the logits row of
+    every step that emits (the last prompt step's, then each decode's)."""
+    calls = []
+    step = engine.decode
+
+    def decode(cache, tokens, pos, pages=None):
+        logits, cache = step(cache, tokens, pos, pages)
+        calls.append(logits[0])
+        return logits, cache
+
+    engine.decode = decode
+    try:
+        ids = engine.generate(
+            torch.Generator(device="cuda").manual_seed(req.seed),
+            torch.from_numpy(req.prompt.astype(np.int64))[None].cuda(),
+            [req.prompt.size], max_new_tokens=req.max_new_tokens,
+            scfg=scfg)[0]
+    finally:
+        del engine.decode
+    return ids.tolist(), torch.stack(calls[req.prompt.size - 1:])
+
+
+def phase_batch_solo(engine, cfg) -> dict:
+    """Phase 29: qwen3-4b at full width, tp=1, captured: phase 22's eight
+    requests served greedy four slots at a time on an engine of row
+    block 4, and seeded eight slots at a time on one of row block 8
+    (``_recorded_serve``; ``Engine.row_block``, ``cm.row_stable``), then
+    each alone through that engine's ``Engine.generate`` (batch 1):
+    every request's ids equal and its logits rows bit-equal; the head's
+    time a step as one plain product and through ``row_stable`` at
+    blocks of 4 and 8, at M 1, 4 and 8."""
+    out = {}
+    for label, scfg, slots in (("greedy", GREEDY, 4), ("seeded", SEEDED, 8)):
+        what = f"batch-solo {label} ({slots} slots)"
+        eng = _sibling(engine, row_block=slots)
+        sched = Scheduler(eng, max_batch=slots, prompt_budget=40, scfg=scfg,
+                          seed=0)
+        run = _recorded_serve(eng, cfg, scfg, "dequant_matmul_ordered", what,
+                              sched=sched)
+        solo_steps = 0
+        reset_counts()
+        for req in _paged_requests(cfg):
+            ids, rows = _solo_rows(eng, req, scfg)
+            solo_steps += req.prompt.size + req.max_new_tokens - 1
+            if ids != run["ids"][req.rid] or not torch.equal(
+                    rows, run["logits"][req.rid]):
+                gap = (rows - run["logits"][req.rid]).abs().max().item()
+                raise AssertionError(
+                    f"{what}: request {req.rid} alone gave ids {ids[:8]} "
+                    f"against {run['ids'][req.rid][:8]} batched (max "
+                    f"logit gap {gap:.3g})")
+        counts = read_counts()
+        expect_counts(counts, {"dequant_matmul_ordered":
+                               mlp_launches(cfg) * solo_steps},
+                      f"{what}, solo ({solo_steps} decode steps)")
+        out[label] = {"slots": slots, "row_block": eng.row_block,
+                      "requests": len(run["ids"]), "batched_steps":
+                      run["steps"], "batched_launches": run["launches"],
+                      "steady_ms_per_step": run["steady_ms_per_step"],
+                      "solo_steps": solo_steps,
+                      "solo_launches": counts["dequant_matmul_ordered"],
+                      "ids": run["ids"], "bit_equal": True}
+        del eng, sched, run
+        torch.cuda.empty_cache()
+    embed = engine.params["embed"]
+    x = torch.randn(8, 1, cfg.d_model, device="cuda")
+    out["head_ms"] = {f"plain M={m}": _time(
+        lambda t: t @ embed["lm_head"], [(x[:m],)], reps=20)
+        for m in (1, 4, 8)}
+    for blk in (4, 8):
+        with cm.row_blocks(blk):
+            for m in (1, 4, 8):
+                out["head_ms"][f"row_stable({blk}) M={m}"] = _time(
+                    lambda t: cm.lm_head(cfg, embed, t), [(x[:m],)],
+                    reps=20)
+    line("batch-solo", "qwen3-4b full width, captured: 8 requests x 16 "
+         "tokens, greedy 4 slots at a time (row block 4) and seeded 8 at a "
+         "time (row block 8), and each alone (Engine.generate, batch 1): "
+         "ids equal and every emitted logits row bit-equal (greedy {} "
+         "batched steps, {:.2f} ms a step; seeded {}, {:.2f} ms; {} solo "
+         "steps each; K1 {} + {} launches greedy); head ms a step: ".format(
+             out["greedy"]["batched_steps"],
+             out["greedy"]["steady_ms_per_step"],
+             out["seeded"]["batched_steps"],
+             out["seeded"]["steady_ms_per_step"],
+             out["greedy"]["solo_steps"], out["greedy"]["batched_launches"],
+             out["greedy"]["solo_launches"])
+         + ", ".join(f"{k} {v:.4f}" for k, v in out["head_ms"].items()))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 30-33: the MoE family at full width
+# ---------------------------------------------------------------------------
+
+def _moe_cfg(arch: str, scheme: str = "tp-aware", layers=None):
+    backend = "auto" if scheme == "tp-aware" else "cuda"
+    return moe_config(arch, layers).with_quant(mode="mlp", scheme=scheme,
+                                               backend=backend)
+
+
+def _first_layers(engine, cfg):
+    """An engine of ``cfg`` (a cut depth) over ``engine``'s first layers:
+    a depth-L model from seed 0 is the full one's first L layers (the
+    init draws them in order)."""
+    layers = engine.params["layers"][:cfg.num_layers]
+    return Engine(model=build_model(cfg),
+                  params=dict(engine.params, layers=layers),
+                  device=engine.device, max_seq=engine.max_seq,
+                  policy=engine.policy)
+
+
+def phase_serve_moe() -> tuple[dict, object]:
+    """Phase 30: each of ``MOE_ARCHS`` at full width, depth cut to
+    ``MOE_LAYERS`` (printed), from seed 0 (the experts quantized one at a
+    time; the init's peak memory printed): the four requests through the
+    captured step (K1 once per GEMM of every expert of every layer, and
+    of arctic's dense MLP, ``mlp_launches``), the launches per step on
+    the device (torch.profiler), the captured step against
+    ``decode_eager`` bit for bit, and greedy ids on backend=cuda against
+    backend=torch; for qwen3-moe the same requests under naive-actorder
+    (K4 only).  Returns the results and qwen3-moe's tp-aware engine."""
+    out, keep = {}, None
+    for arch in MOE_ARCHS:
+        cfg = _moe_cfg(arch)
+        full = get_config(arch).num_layers
+        line(f"serve {arch}", f"full width, depth cut from {full} to "
+             f"{cfg.num_layers} layers ({cfg.num_experts} experts of d_ff "
+             f"{cfg.moe_dff}, top-{cfg.top_k}"
+             + (", a dense residual MLP" if cfg.dense_residual else "")
+             + "; the full depth does not fit one card)")
+        engine, serve = phase_serve(cfg, "dequant_matmul_ordered",
+                                    f"serve {arch}")
+        per = mlp_launches(cfg)
+        res = {"layers": cfg.num_layers, "full_layers": full, "serve": serve,
+               "launches_per_step": per}
+        res["trace"] = tr = phase_trace(engine, {"K1": _is_k1},
+                                        f"trace {arch}", expect={"K1": per},
+                                        steps=1)
+        k1 = tr["kernels"]["K1"]["launches_per_step"]
+        if k1 != per:
+            raise AssertionError(f"{arch}: {k1} K1 kernels per captured "
+                                 f"step on the device, expected {per}")
+        steps = 4
+        captures, offsets, _ = _captured_vs_eager(engine, cfg, steps,
+                                                  f"capture {arch}")
+        res["capture"] = {"steps_each": steps, "captures": captures,
+                          "offsets": offsets, "bit_equal": True}
+        plain = Engine(model=engine.model, params=engine.params,
+                       device=engine.device, max_seq=engine.max_seq,
+                       policy=engine.policy.with_(backend="torch"))
+        text, res["crosscheck"] = _greedy_compare(
+            engine, plain, cfg, "greedy 2 prompts x 8 tokens, cuda vs torch "
+            "backend")
+        del plain
+        line(f"capture {arch}", f"B=4: {steps} lockstep steps and {steps} "
+             f"on per-slot positions (offsets {offsets}) through the "
+             f"captured step bit-equal to decode_eager (logits and the whole "
+             f"KV cache after each step; the combine adds each token's "
+             f"slots in order); captures {captures}; {text}")
+        if arch == MOE_ARCHS[0]:
+            naive, res["serve_naive"] = phase_serve(
+                _moe_cfg(arch, "naive-actorder"), "dequant_matmul_gidx",
+                f"serve-naive {arch}")
+            del naive
+            keep = engine
+        else:
+            del engine
+        torch.cuda.empty_cache()
+        out[arch] = res
+    return out, keep
+
+
+def phase_artifact_moe(engine) -> tuple[dict, str, dict]:
+    """Phase 31: qwen3-moe at full width and ``MOE_DIST_LAYERS`` layers,
+    prepared from seed 0 on the card at tp=1 (one expert's raw weights
+    at a time; the card's peak memory while preparing), saved, and
+    served from the directory: the manifest's experts entry stacked
+    ``[L, 128]``, and greedy ids and logits bit-equal to the in-memory
+    engine of that depth (phase 30's engine's first layers).  Returns
+    the record, the directory (phases 32-33 read it; the caller removes
+    it) and the in-memory engine's greedy trace over the lockstep batch
+    (phase 32's dp1 reference)."""
+    arch = MOE_ARCHS[0]
+    cfg = _moe_cfg(arch, layers=MOE_DIST_LAYERS)
+    mem = _first_layers(engine, cfg)
+    path, nbytes, files, prep_s, save_s, peak = _prepare_and_save(
+        cfg, 1, "artifact-moe")
+    try:
+        pairs = {m["path"]: m["stacked"] for m in
+                 DeploymentArtifact.load_manifest(path)["pairs"]}
+        if pairs != {"layers.moe.experts": [cfg.num_layers,
+                                            cfg.num_experts]}:
+            raise AssertionError(f"artifact-moe: manifest pairs {pairs}")
+        t0 = time.perf_counter()
+        served = make_engine(cfg, device="cuda", max_seq=mem.max_seq,
+                             artifact=path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        toks, plen = (torch.from_numpy(a).cuda() for a in
+                      _greedy_inputs(cfg))
+        reset_counts()
+        ids_a, lg_a = _greedy_trace(served, toks, plen, 8)
+        counts = read_counts()
+        ids_m, lg_m = _greedy_trace(mem, toks, plen, 8)
+        if not (torch.equal(ids_a, ids_m) and torch.equal(lg_a, lg_m)):
+            raise AssertionError(
+                "artifact-moe: the served files' greedy trace differs from "
+                "the in-memory engine's (max logit gap "
+                f"{(lg_a - lg_m).abs().max().item():.3g})")
+        steps = int(plen.max()) + 8 - 1
+        expect_counts(counts, {"dequant_matmul_ordered":
+                               mlp_launches(cfg) * steps},
+                      f"artifact-moe ({steps} steps)")
+        tokens, mplen = _mesh_batch(cfg)
+        ref_ids, ref_logits = _greedy_trace(
+            mem, torch.from_numpy(tokens).cuda(),
+            torch.from_numpy(mplen).cuda(), MESH_NEW)
+        dp1 = {"ids": ref_ids.cpu(), "logits": ref_logits.cpu()}
+        decode_mode = served.decode_mode
+        del served, mem
+        torch.cuda.empty_cache()
+    except BaseException:
+        shutil.rmtree(path, ignore_errors=True)
+        raise
+    out = {"layers": cfg.num_layers, "bytes": nbytes, "files": files,
+           "prepare_s": prep_s, "save_s": save_s, "load_s": load_s,
+           "prepare_peak_bytes": peak, "pairs": pairs,
+           "launches": counts["dequant_matmul_ordered"],
+           "decode_mode": decode_mode, "bit_equal": True}
+    line("artifact-moe", f"{arch} full width, {cfg.num_layers} layers: "
+         f"prepared on the card in {prep_s:.1f}s (one expert's raw weights "
+         f"at a time; peak allocated {peak / 2**30:.2f} GiB, phase 30's "
+         f"engine included), saved {nbytes / 1e9:.2f} GB in {save_s:.1f}s, "
+         f"served from the directory (loaded in {load_s:.1f}s; decode step: "
+         f"{decode_mode}): manifest experts stacked "
+         f"{pairs['layers.moe.experts']}; greedy 2 prompts x 8 tokens, ids "
+         f"and logits bit-equal to the in-memory engine; K1 "
+         f"{out['launches']} = {mlp_launches(cfg)} x {steps}")
+    return out, path, dp1
+
+
+def _moe_ep_rank(ctx, cfg, path, tokens, plen) -> dict:
+    """One process of phase 32: its engine from the tp=1 rank file, its
+    data rank's half of the experts resident; its rows of the lockstep
+    batch, greedy, the counts set to 0 just before and read just after."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    plan = DeploymentArtifact(manifest=DeploymentArtifact.load_manifest(
+        path)).policy(backend="auto", device=ctx.device).with_(
+            mesh=MeshPlan(dp=ctx.dp, tp=ctx.tp))
+    t0 = time.perf_counter()
+    engine = make_engine(cfg, device=ctx.device, max_seq=32 + 16 + 1,
+                         policy=plan, artifact=path,
+                         ep_group=ctx.data_group)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    lo = ctx.dp_rank * MESH_BATCH // ctx.dp
+    hi = (ctx.dp_rank + 1) * MESH_BATCH // ctx.dp
+    reset_counts()
+    t0 = time.perf_counter()
+    ids, logits = _greedy_trace(engine,
+                                torch.from_numpy(tokens[lo:hi]).cuda(),
+                                torch.from_numpy(plen[lo:hi]).cuda(),
+                                MESH_NEW)
+    torch.cuda.synchronize()
+    return {"process": ctx.process, "dp_rank": ctx.dp_rank,
+            "rows": (lo, hi), "ids": ids.cpu(), "logits": logits.cpu(),
+            "counts": read_counts(), "run_s": time.perf_counter() - t0,
+            "load_s": load_s, "stats": dataclasses.asdict(engine.load_stats),
+            "experts": engine.params["layers"][0]["moe"]["experts"]
+            .up.qweight.shape[0],
+            "decode_mode": engine.decode_mode, "transport": ctx.transport,
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def phase_moe_ep(path: str, dp1: dict) -> dict:
+    """Phase 32: ``serve --mesh dp2xtp1``'s lockstep batch for qwen3-moe
+    at ``MOE_DIST_LAYERS`` layers, two processes on the card over gloo
+    via host, from phase 31's rank file (cut by the model axis only):
+    each process keeps its data rank's 64 of 128 experts a layer
+    (resident expert bytes 0.50 of the file's), its two rows' tokens go
+    to the experts' owners by all-to-all (capacity 4 each: no drop), K1
+    once per GEMM of its own experts a step; the greedy ids equal the
+    dp1 engine's over the same 4 rows, and whether the logits are
+    bit-equal is reported."""
+    cfg = _moe_cfg(MOE_ARCHS[0], layers=MOE_DIST_LAYERS)
+    tokens, plen = _mesh_batch(cfg)
+    t0 = time.perf_counter()
+    procs = mesh.run(_moe_ep_rank, 1, cfg, path, tokens, plen, dp=2,
+                     device_type="cuda", timeout=600)
+    wall_s = time.perf_counter() - t0
+    steps = MESH_PLEN + MESH_NEW - 1
+    per = mlp_launches(cfg) // 2
+    for p in procs:
+        st = p["stats"]
+        expect_counts(p["counts"], {"dequant_matmul_ordered": per * steps},
+                      f"moe-ep process {p['process']} ({steps} steps)")
+        if (p["experts"] != cfg.num_experts // 2
+                or 2 * st["expert_bytes_resident"]
+                != st["expert_bytes_loaded"]):
+            raise AssertionError(f"moe-ep process {p['process']}: "
+                                 f"{p['experts']} experts resident, {st}")
+        lo, hi = p["rows"]
+        if not torch.equal(p["ids"], dp1["ids"][lo:hi]):
+            raise AssertionError(
+                f"moe-ep process {p['process']}: rows {lo}-{hi - 1} ids "
+                f"{p['ids'].tolist()} against the dp1 engine's "
+                f"{dp1['ids'][lo:hi].tolist()}")
+    logits = torch.cat([p["logits"] for p in procs])
+    out = {"mesh": "dp2xtp1", "transport": procs[0]["transport"],
+           "decode_mode": procs[0]["decode_mode"], "steps": steps,
+           "launches_per_step": per,
+           "counts": [p["counts"] for p in procs],
+           "load_stats": [p["stats"] for p in procs],
+           "resident_expert_fraction": [
+               p["stats"]["expert_bytes_resident"]
+               / p["stats"]["expert_bytes_loaded"] for p in procs],
+           "load_s": [p["load_s"] for p in procs],
+           "run_s": [p["run_s"] for p in procs], "wall_s": wall_s,
+           "ids_equal_dp1": True,
+           "logits_bit_equal_dp1": bool(torch.equal(logits, dp1["logits"])),
+           "max_logit_gap_dp1": (logits - dp1["logits"]).abs().max().item(),
+           "peak_bytes": [p["peak_bytes"] for p in procs]}
+    line("moe-ep", "dp2xtp1 ({}; decode step: {}) from phase 31's rank "
+         "file: each process {} of {} experts a layer, resident expert bytes "
+         "{} ({} of the file's), loaded in {} s; per process and step K1 {} "
+         "(M=8: two rows' slots from both ranks); greedy ids of the {} "
+         "rows equal the dp1 engine's; logits bit-equal: {} (max gap "
+         "{:.3g}); {} x {} tokens in {} s per process".format(
+             out["transport"], out["decode_mode"], cfg.num_experts // 2,
+             cfg.num_experts,
+             ", ".join(f"{st['expert_bytes_resident']}/"
+                       f"{st['expert_bytes_loaded']}"
+                       for st in out["load_stats"]),
+             "/".join(f"{f:.3f}" for f in out["resident_expert_fraction"]),
+             "/".join(f"{s:.1f}" for s in out["load_s"]), per, MESH_BATCH,
+             out["logits_bit_equal_dp1"], out["max_logit_gap_dp1"],
+             MESH_BATCH // 2, MESH_NEW,
+             "/".join(f"{s:.2f}" for s in out["run_s"])))
+    return out
+
+
+def _count_expert_collectives(calls: list):
+    """Record the spec of every collective over stacked expert partials
+    (3-dim, ``(E, C, d)``) in ``calls``."""
+    from repro_torch.models import moe
+
+    real = moe.comm.apply
+
+    def apply(y, group, spec, policy=None):
+        if y.dim() == 3:
+            calls.append(spec.shorthand())
+        return real(y, group, spec, policy)
+
+    moe.comm.apply = apply
+
+
+def _moe_tp_rank(ctx, cfg, carries) -> dict:
+    """One rank of phase 33: its slices of the plan from seed 0; under
+    each of ``MOE_TP_PLANS`` (and the fused plan's unfused ring) each
+    layer's float32 output on the tp=1 engine's input carries, and two
+    eager decode steps with the stacked expert collectives and the
+    kernel launches counted."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    calls: list = []
+    _count_expert_collectives(calls)
+    t0 = time.perf_counter()
+    base = make_engine(cfg, 0, device=ctx.device, max_seq=32 + 16 + 1,
+                       group=ctx.group)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    out = {"init_s": init_s, "plans": {}}
+    for spec in MOE_TP_PLANS + (MOE_TP_UNFUSED,):
+        eng = Engine(model=base.model, params=base.params,
+                     device=base.device, max_seq=base.max_seq,
+                     group=ctx.group,
+                     policy=base.policy.with_(collective=spec))
+        layers = [o.cpu() for o in layer_outputs(eng, carries)]
+        cache = eng.init_cache(4)
+        tokens = torch.arange(4, device=ctx.device)
+        calls.clear()
+        reset_counts()
+        t0 = time.perf_counter()
+        for i in range(2):
+            eng.decode(cache, tokens, 24 + i)
+        torch.cuda.synchronize()
+        out["plans"][spec] = {
+            "layers": layers, "collectives": list(calls),
+            "counts": read_counts(),
+            "ms_per_step": (time.perf_counter() - t0) * 1e3 / 2,
+            "decode_mode": eng.decode_mode}
+    return out
+
+
+def phase_moe_tp(engine) -> dict:
+    """Phase 33: qwen3-moe at full width and ``MOE_DIST_LAYERS`` layers at
+    tp=2 over gloo via host, two rank processes each holding its half of
+    every expert's inner dims: under ``psum`` each layer's float32 output
+    within 1e-5 of max|.| + 1e-4 of phase 30's tp=1 engine's on the same
+    input carries (``layerwise``); the ``quant-int8:128:fused`` plan's
+    layers bit-equal to its unfused ring (the experts run K1 and then the
+    stacked ring either way) and their gap to tp=1 reported; one
+    collective closes each MoE layer's stacked experts a step; K1 once
+    per GEMM of every expert a step per rank."""
+    cfg = _moe_cfg(MOE_ARCHS[0], layers=MOE_DIST_LAYERS)
+    ref = _first_layers(engine, cfg)
+    carries, outputs = layer_trace(
+        ref, torch.from_numpy(_greedy_inputs(cfg)[0]).cuda())
+    carries = [c.cpu() for c in carries]
+    outputs = [o.cpu() for o in outputs]
+    del ref
+    t0 = time.perf_counter()
+    ranks = mesh.run(_moe_tp_rank, TP, cfg, carries, device_type="cuda",
+                     timeout=600)
+    wall_s = time.perf_counter() - t0
+    fused, plain = MOE_TP_PLANS[-1], MOE_TP_UNFUSED
+    per = mlp_launches(cfg)
+    out = {"layers": cfg.num_layers, "wall_s": wall_s,
+           "init_s": [r["init_s"] for r in ranks], "plans": {}}
+    for spec in MOE_TP_PLANS:
+        rec = {"collectives_per_step": [], "counts": [],
+               "ms_per_step": [r["plans"][spec]["ms_per_step"]
+                               for r in ranks],
+               "decode_mode": ranks[0]["plans"][spec]["decode_mode"]}
+        for k, r in enumerate(ranks):
+            p = r["plans"][spec]
+            want = parse_collective(spec).resolve("layers.moe.experts")
+            if p["collectives"] != [want.shorthand()] * (2 * cfg.num_layers):
+                raise AssertionError(f"moe-tp rank {k} {spec}: stacked "
+                                     f"expert collectives {p['collectives']}")
+            expect_counts(p["counts"], {"dequant_matmul_ordered": 2 * per},
+                          f"moe-tp rank {k} {spec} (2 steps)")
+            rec["collectives_per_step"].append(len(p["collectives"]) // 2)
+            rec["counts"].append(p["counts"])
+            if spec == fused and not all(
+                    torch.equal(a, b) for a, b in zip(
+                        p["layers"], r["plans"][plain]["layers"])):
+                raise AssertionError(f"moe-tp rank {k}: {fused} layers "
+                                     f"differ from {plain}'s")
+        layers = ranks[0]["plans"][spec]["layers"]
+        if spec == "psum":
+            rec["layerwise"] = layerwise(layers, outputs,
+                                         "moe-tp psum at tp=2 vs tp=1")
+        else:
+            rec["gap_to_tp1"] = max(
+                ((a - b).abs().max() / b.abs().max()).item()
+                for a, b in zip(layers, outputs))
+        out["plans"][spec] = rec
+    ps, q = out["plans"]["psum"], out["plans"][fused]
+    line("moe-tp", "qwen3-moe full width, {} layers, tp=2 ({}; decode "
+         "step: {}): psum layer by layer on the tp=1 engine's input "
+         "carries within 1e-5 of max|.| + 1e-4 (worst {:.3g}, {:.3g} of "
+         "max|.|); {} layers bit-equal to its unfused ring, {:.3g} of "
+         "max|.| from tp=1 (reported); {} stacked expert collective(s) a "
+         "MoE layer a step; K1 {} a step per rank; eager step {} ms "
+         "(psum) / {} ms ({})".format(
+             cfg.num_layers, mesh.transport(TP, "cuda"), ps["decode_mode"],
+             ps["layerwise"]["max_abs_err"], ps["layerwise"]["max_rel_err"],
+             fused, q["gap_to_tp1"],
+             ps["collectives_per_step"][0] // cfg.num_layers, per,
+             "/".join(f"{m:.1f}" for m in ps["ms_per_step"]),
+             "/".join(f"{m:.1f}" for m in q["ms_per_step"]), fused))
+    return out
+
+
 def _entry(name, source, replaces, launches, max_abs_err, t: dict,
            library_ms=None) -> dict:
     return {"name": name, "route": "cuda", "source": source,
@@ -4220,8 +4854,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     checks = phase_check(gen)
     timing = phase_timing(gen)
-    # after the timing phase, so that no torch.profiler session runs
-    # before the kernels are timed (PERF.md section 6)
+    # after the timing phase, so that no CUDA graph of K3's calls is
+    # captured before the kernels are timed
     checks["dequant_matmul_wire_ordered"]["repeats"] = _check_wire_repeat(gen)
     base = QWEN
     cfg = base.with_quant(mode="mlp", scheme="tp-aware", backend="auto")
@@ -4267,6 +4901,7 @@ def main() -> int:
     serve_paged["naive"] = paged_naive
     serve_paged["tp2"] = serve_tp.pop("paged")
     http = phase_http(engine, cfg)
+    batch_solo = phase_batch_solo(engine, cfg)
     del engine
     torch.cuda.empty_cache()
     archs, refs = phase_serve_archs()
@@ -4282,6 +4917,15 @@ def main() -> int:
                                 overlap_tp["sync_m2_vs_m4"])
     finally:
         shutil.rmtree(overlap_dir, ignore_errors=True)
+    moe_serve, moe_engine = phase_serve_moe()
+    moe_art, moe_dir, moe_dp1 = phase_artifact_moe(moe_engine)
+    try:
+        moe_ep = phase_moe_ep(moe_dir, moe_dp1)
+    finally:
+        shutil.rmtree(moe_dir, ignore_errors=True)
+    moe_tp = phase_moe_tp(moe_engine)
+    del moe_engine
+    torch.cuda.empty_cache()
 
     src = "src/repro_torch/csrc/"
     tpu = "src/repro/kernels/"
@@ -4437,6 +5081,55 @@ def main() -> int:
                checks["dequant_matmul_wire_ordered"]["main_max_abs_err"],
                k3_mb[OVERLAP_MB // 2][f"int{ov_spec.bits}"]),
     ]
+    # decode rows independent of the batch (phase 29): K1 on the batched
+    # and the solo serves
+    kernels.append(_entry(
+        "dequant_matmul_ordered (batched against solo serves)",
+        src + "dequant_matmul_ordered.cu", tpu + "dequant_matmul.py:104",
+        sum(batch_solo[k]["batched_launches"] + batch_solo[k]["solo_launches"]
+            for k in ("greedy", "seeded")),
+        checks["dequant_matmul_ordered"]["main_max_abs_err"],
+        _layer(timing["dequant_matmul_ordered"])))
+    # the MoE family (phases 30-33): K1 (K4 under naive) once per GEMM of
+    # every expert, per expert (up, gate, down) at its shapes
+    errs = {name: max(checks[k]["arch_max_abs_err"][shape[0]]
+                      for shape in MOE_SHAPES[a])
+            for k, name in (("dequant_matmul_ordered", "K1"),
+                            ("dequant_matmul_gidx", "K4"))
+            for a in MOE_ARCHS[:1]}
+    mt = timing["moe"]
+    q = MOE_ARCHS[0]
+    for a in MOE_ARCHS:
+        kernels.append(_entry(
+            f"dequant_matmul_ordered ({a} experts, "
+            f"{moe_serve[a]['layers']} layers; per expert: up, gate, down, "
+            "M=4)", src + "dequant_matmul_ordered.cu",
+            tpu + "dequant_matmul.py:104", moe_serve[a]["serve"]["launches"],
+            max(checks["dequant_matmul_ordered"]["arch_max_abs_err"][s[0]]
+                for s in MOE_SHAPES[a]), mt[a]["ordered"]["expert"]))
+    kernels += [
+        _entry(f"dequant_matmul_gidx ({q} experts, naive-actorder; per "
+               "expert, M=4)", src + "dequant_matmul_gidx.cu",
+               tpu + "dequant_matmul.py:333",
+               moe_serve[q]["serve_naive"]["launches"], errs["K4"],
+               mt[q]["naive"]["expert"]),
+        _entry(f"dequant_matmul_ordered ({q} artifact, {moe_art['layers']} "
+               "layers; per expert, M=4)", src + "dequant_matmul_ordered.cu",
+               tpu + "dequant_matmul.py:104", moe_art["launches"],
+               errs["K1"], mt[q]["ordered"]["expert"]),
+        _entry(f"dequant_matmul_ordered ({q} dp2xtp1 expert parallelism, "
+               f"process 0; per expert, M=8)",
+               src + "dequant_matmul_ordered.cu",
+               tpu + "dequant_matmul.py:104",
+               moe_ep["counts"][0]["dequant_matmul_ordered"], errs["K1"],
+               mt[q]["ordered_m8"]["expert"]),
+        _entry(f"dequant_matmul_ordered ({q} tp=2 within-expert, rank 0; "
+               "per expert slice, M=4)", src + "dequant_matmul_ordered.cu",
+               tpu + "dequant_matmul.py:104",
+               sum(moe_tp["plans"][p]["counts"][0]["dequant_matmul_ordered"]
+                   for p in MOE_TP_PLANS), errs["K1"],
+               mt[q]["ordered_tp2"]["expert"]),
+    ]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"nvidia_smi": smi, "build": build, "check": checks,
@@ -4454,7 +5147,10 @@ def main() -> int:
                    "serve_paged": serve_paged, "http": http,
                    "gptq": gptq, "fold": fold, "fold_tp": fold_tp,
                    "overlap_tp": overlap_tp, "mesh_dp": mesh_dp,
-                   "kernels": kernels, "phase_seconds": phase_seconds(),
+                   "batch_solo": batch_solo, "serve_moe": moe_serve,
+                   "artifact_moe": moe_art, "moe_ep": moe_ep,
+                   "moe_tp": moe_tp, "kernels": kernels,
+                   "phase_seconds": phase_seconds(),
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     line("done", f"chip_smoke.py in {time.perf_counter() - t_start:.1f}s; "

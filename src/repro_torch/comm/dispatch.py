@@ -39,6 +39,9 @@ all-reduce and the reduce-scatter become an all-gather and an
 all-to-all whose results the card adds in rank order, so no arithmetic
 moves to the host.
 
+``all_to_all`` is the reference's tiled all-to-all over any group (the
+MoE token shuffle over the data ranks), built on ``_all_to_all``.
+
 ``wire_bytes`` counts what each collective of this module hands to the
 wire under the ring model, whatever carries it (the reference reads the same bytes out of
 the compiled HLO): an all-reduce of B bytes over tp ranks moves
@@ -270,6 +273,25 @@ def all_gather_cols(y: torch.Tensor, group) -> torch.Tensor:
     """Gather last-dim shards into the full tensor (the exllama scheme's
     Algorithm-2 gather, the column-sharded logits)."""
     return y if axis_size(group) == 1 else _all_gather_last(y, group)
+
+
+def all_to_all(x: torch.Tensor, group, *, split_axis: int,
+               concat_axis: int) -> torch.Tensor:
+    """The reference's tiled ``all_to_all`` (the MoE token shuffle over
+    the data ranks): ``x`` is cut into ``D`` equal parts along
+    ``split_axis``, part ``j`` goes to rank ``j``, and the parts received
+    are joined along ``concat_axis`` in rank order."""
+    d = axis_size(group)
+    if d == 1:
+        return x
+    n = x.shape[split_axis]
+    if n % d:
+        raise ValueError(f"dim {split_axis} of size {n} does not split "
+                         f"over {d} ranks")
+    parts = x.unflatten(split_axis, (d, n // d)).movedim(split_axis, 0)
+    got = _all_to_all(parts.contiguous(), group)
+    got = got.movedim(0, concat_axis)
+    return got.flatten(concat_axis, concat_axis + 1)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Config registry; port of ``repro/configs/__init__.py``.
 
-The dense decoders are registered, in the reference's order; the other
-families follow the order in ``ROADMAP.md``.
+The dense decoders and the MoE family are registered, in the
+reference's order; the other families follow the order in
+``ROADMAP.md``.
 """
 
 from __future__ import annotations
@@ -12,16 +13,20 @@ from repro_torch.configs.base import (  # noqa: F401
     ModelConfig, QuantConfig, smoke_reduce)
 
 ARCH_IDS = (
+    "qwen3-moe-235b-a22b",
     "qwen3-4b",
     "mistral-large-123b",
     "starcoder2-3b",
+    "arctic-480b",
     "granite-3-8b",
 )
 
 _MODULES = {
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "qwen3-4b": "qwen3_4b",
     "mistral-large-123b": "mistral_large_123b",
     "starcoder2-3b": "starcoder2_3b",
+    "arctic-480b": "arctic_480b",
     "granite-3-8b": "granite_3_8b",
 }
 

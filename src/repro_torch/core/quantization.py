@@ -62,11 +62,11 @@ class QuantizedLinear:
 
     @property
     def k(self) -> int:
-        return self.qweight.shape[0] * PACK
+        return self.qweight.shape[-2] * PACK
 
     @property
     def n(self) -> int:
-        return self.qweight.shape[1]
+        return self.qweight.shape[-1]
 
 
 # ---------------------------------------------------------------------------

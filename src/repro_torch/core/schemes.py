@@ -50,7 +50,7 @@ def qmatmul(x: torch.Tensor, ql: QuantizedLinear,
     return dispatch.qmatmul(x, ql, resolve_policy(policy))
 
 
-def _column_step(x, pp: PlannedPair, policy, activation):
+def column_step(x, pp: PlannedPair, policy, activation):
     """Y1 of the column-TP layers: up (and the gated product), after the
     P1 gather of the sorted schemes.  Under TP ``pp`` holds this rank's
     column shards and Y1 is this rank's chunk."""
@@ -77,7 +77,7 @@ def pair_forward_reference(
 ) -> torch.Tensor:
     """Single-device forward of a planned pair."""
     policy = resolve_policy(policy)
-    y1 = _column_step(x, pp, policy, activation)
+    y1 = column_step(x, pp, policy, activation)
     if pp.scheme == "exllama":
         y1 = y1.index_select(-1, pp.p2)   # runtime P2 permute
     return qmatmul(y1, pp.down, policy)
@@ -121,7 +121,7 @@ def _pair_local_forward(
     the down GEMM per row microbatch with the ring of one microbatch in
     flight across the next one's GEMM
     (``dist/overlap.pipelined_epilogue``): bit-equal either way."""
-    y1 = _column_step(x, pp, policy, activation)
+    y1 = column_step(x, pp, policy, activation)
     if pp.scheme == "exllama":
         # Algorithm 2: gather Y1 (l.2), then the local P2 chunk both
         # permutes and chunks it (l.3 + l.4)

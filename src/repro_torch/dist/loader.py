@@ -13,6 +13,12 @@ file in every row of the grid, since the artifact pins only the TP
 degree) and nothing else.  The other ranks' files are only
 ``os.path.getsize``d, for the byte ledger.
 
+Rank files are cut by the model axis only, so under expert parallelism
+a process reads its whole rank file and keeps its data rank's share of
+each layer's experts (``runtime/serve.make_engine``);
+``expert_bytes_resident`` against ``expert_bytes_loaded`` is that
+share.
+
 ``RankLoadStats`` is the proof: ``file_bytes_loaded`` (the bytes of the
 file this rank read) against ``file_bytes_total`` (all rank files); at
 tp > 1 the first is less.  The serve banner prints both.  An artifact's
@@ -45,6 +51,10 @@ class RankLoadStats:
     file_bytes_loaded: int       # on-disk bytes of the files read
     file_bytes_total: int        # on-disk bytes of all rank files
     aux_bytes_loaded: int = 0    # on-disk bytes of the aux.npz read
+    # an MoE model under expert parallelism: the experts' leaf bytes in
+    # the file read, and those this process keeps (its data rank's share)
+    expert_bytes_loaded: int = 0
+    expert_bytes_resident: int = 0
 
     @property
     def resident_fraction(self) -> float:

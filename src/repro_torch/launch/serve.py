@@ -121,7 +121,8 @@ def _collective(value: str) -> str:
 
 
 def _plan_args(ap: argparse.ArgumentParser):
-    ap.add_argument("--arch", default="qwen3-4b", choices=ARCH_IDS)
+    ap.add_argument("--arch", default="qwen3-4b", choices=ARCH_IDS,
+                    help="model config: " + ", ".join(ARCH_IDS))
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--scheme", default="tp-aware", choices=SCHEMES)
     ap.add_argument("--collective", default="psum", type=_collective,
@@ -221,10 +222,11 @@ def _artifact_plan(args, device):
     return cfg, policy
 
 
-def _engine(args, device, group=None):
+def _engine(args, device, group=None, ep_group=None):
     """(cfg, the engine: this rank's slices under TP).  Under ``--mesh``
     the policy names the grid, and a process reads only its own rank
-    file of an artifact."""
+    file of an artifact; an MoE model keeps its data rank's share of the
+    experts (``ep_group``, expert parallelism)."""
     grid = getattr(args, "mesh", None)
     if args.artifact:
         cfg, policy = _artifact_plan(args, device)
@@ -236,7 +238,8 @@ def _engine(args, device, group=None):
     max_seq = args.prompt_budget + args.max_new + 1
     return cfg, make_engine(cfg, args.seed, device=device, max_seq=max_seq,
                             policy=policy, group=group,
-                            artifact=args.artifact)
+                            artifact=args.artifact, ep_group=ep_group,
+                            row_block=args.max_batch)
 
 
 def _serve(args, device, group=None, transport="1 device"):
@@ -323,8 +326,10 @@ def _serve_rank(ctx, args):
 def _serve_mesh(ctx, args) -> dict:
     """One process of ``--mesh``: its row's engine generates the data
     rank's share of the lockstep synthetic batch (the reference's
-    ``_run_multiprocess``)."""
-    cfg, engine = _engine(args, ctx.device, ctx.group)
+    ``_run_multiprocess``).  An MoE model spreads its experts over the
+    process's data group (expert parallelism): every process steps in
+    lockstep, as the all-to-alls need."""
+    cfg, engine = _engine(args, ctx.device, ctx.group, ctx.data_group)
     b, dp = args.max_batch, ctx.dp
     plen = min(max(4, args.prompt_budget // 2), args.prompt_budget)
     tokens = np.random.default_rng(args.seed).integers(
@@ -345,7 +350,10 @@ def _serve_mesh(ctx, args) -> dict:
             "policy": engine.policy, "decode_mode": engine.decode_mode,
             "resident": None if st is None else (
                 f"resident_artifact_bytes={st.file_bytes_loaded}/"
-                f"{st.file_bytes_total} ranks={list(st.ranks)}")}
+                f"{st.file_bytes_total} ranks={list(st.ranks)}" + (
+                    f" resident_expert_bytes={st.expert_bytes_resident}/"
+                    f"{st.expert_bytes_loaded}"
+                    if engine.ep_group is not None else ""))}
 
 
 def _run_mesh(args, device) -> list:

@@ -36,6 +36,8 @@ all-reduce that closes ``wo``.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Optional
 
 import torch
@@ -56,10 +58,65 @@ def promoted(*ts: torch.Tensor) -> tuple[torch.Tensor, ...]:
     return tuple(t.to(dt) for t in ts)
 
 
+#: row counts up to ``ROW_STABLE_MAX`` (decode batches) run ``row_stable``
+#: ops in blocks of exactly ``row_block()`` rows: ``ROW_BLOCK`` unless a
+#: caller sets another (``row_blocks``; an engine steps in blocks of its
+#: scheduler's ``max_batch``, so a full batch runs each op once, unpadded)
+ROW_BLOCK = 4
+ROW_STABLE_MAX = 64
+_ROW_BLOCK = contextvars.ContextVar("row_block", default=ROW_BLOCK)
+
+
+def row_block() -> int:
+    """The block ``row_stable`` runs its rows in here."""
+    return _ROW_BLOCK.get()
+
+
+@contextlib.contextmanager
+def row_blocks(n: int):
+    """Run ``row_stable`` ops in blocks of ``n`` rows within the block."""
+    token = _ROW_BLOCK.set(int(n))
+    try:
+        yield
+    finally:
+        _ROW_BLOCK.reset(token)
+
+
+def row_stable(fn, *xs: torch.Tensor) -> torch.Tensor:
+    """``fn(*xs)`` for a ``fn`` that maps each row (dim 0) of its inputs
+    on its own, with each row's bits independent of how many rows come
+    with it.
+
+    A library GEMM picks its kernel, and so its sum order, by the row
+    count (a strided-batched one by its batch count), so a request's
+    logits would depend on its company in the batch.  Up to
+    ``ROW_STABLE_MAX`` rows ``fn`` runs on blocks of exactly
+    ``row_block()`` rows (the last one zero-padded): one shape, hence one
+    kernel, whatever the batch.  Longer inputs (a full forward) run as
+    one call."""
+    blk = row_block()
+    m = xs[0].shape[0]
+    if m == 0 or m == blk or m > ROW_STABLE_MAX:
+        return fn(*xs)
+    outs = []
+    for i in range(0, m, blk):
+        n = min(blk, m - i)
+        part = [x[i:i + n] if n == blk else torch.cat(
+            [x[i:i + n], x.new_zeros((blk - n,) + x.shape[1:])])
+            for x in xs]
+        outs.append(fn(*part)[:n])
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` under JAX's type promotion (bf16 @ f32 -> f32)."""
+    """``a @ b`` under JAX's type promotion (bf16 @ f32 -> f32), with
+    rows that do not depend on how many come along (``row_stable``)."""
     a, b = promoted(a, b)
-    return a @ b
+    if b.dim() != 2:
+        return a @ b
+    lead = a.shape[:-1]
+    y = row_stable(lambda t: t @ b, a.reshape(-1, a.shape[-1]))
+    return y.reshape(*lead, b.shape[-1])
 
 
 # ---------------------------------------------------------------------------
@@ -86,6 +143,15 @@ def norm_params(cfg: ModelConfig, device) -> dict:
 # ---------------------------------------------------------------------------
 
 def apply_norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    """RMS norm or LayerNorm over the last dim, its reduction run on
+    row-stable blocks (``row_stable``: the reduction's split of a row
+    follows the row count)."""
+    lead = x.shape[:-1]
+    return row_stable(lambda t: _norm(cfg, p, t),
+                      x.reshape(-1, x.shape[-1])).reshape(*lead, -1)
+
+
+def _norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     x32 = x.to(torch.float32)
     if cfg.norm_type == "layernorm":
         mu = x32.mean(dim=-1, keepdim=True)
@@ -205,6 +271,22 @@ def _sdpa(q, k, v, mask):
     w = torch.softmax(scores, dim=-1).to(q_dtype)
     w, v = promoted(w, v)
     return torch.einsum("bhst,bthd->bshd", w, v).reshape(b, s, h * d)
+
+
+def _sdpa_decode(q, k, v, mask):
+    """Decode attention, one query per row, each query head against its
+    KV head's group (the GQA repeat written as a grouped product, no
+    repeated KV heads): q (B, 1, H, D); k/v (B, T, KV, D); mask (B, 1, T)
+    -> (B, 1, H * D).  Rows are independent (``row_stable`` pads them)."""
+    b, _, h, d = q.shape
+    kvh = k.shape[2]
+    q_dtype = q.dtype
+    qg, k = promoted(q.reshape(b, kvh, h // kvh, d), k)
+    scores = torch.einsum("bkgd,btkd->bkgt", qg, k) / (d ** 0.5)
+    scores = torch.where(mask[:, :, None], scores.to(torch.float32), -1e30)
+    w = torch.softmax(scores, dim=-1).to(q_dtype)
+    w, v = promoted(w, v)
+    return torch.einsum("bkgt,btkd->bkgd", w, v).reshape(b, 1, h * d)
 
 
 def _flash_sdpa(q, k, v, *, causal: bool, window):
@@ -388,7 +470,8 @@ def attention_decode(cfg: ModelConfig, p, x, cache, pos, *, window=None,
         kk, vv = paged_pool.gather(cache, pages, cap)   # (B, cap, KV, D)
         valid = torch.arange(cap, device=x.device)[None, :] <= pos[:, None]
         mask = valid[:, None, :].expand(b, 1, cap)
-        out = _sdpa(q, kk.to(x.dtype), vv.to(x.dtype), mask)
+        out = row_stable(_sdpa_decode, q, kk.to(x.dtype), vv.to(x.dtype),
+                         mask)
         return _out_proj(p, out, group, vo, policy, x.dtype), cache
 
     ck, cv = cache["k"], cache["v"]
@@ -410,7 +493,7 @@ def attention_decode(cfg: ModelConfig, p, x, cache, pos, *, window=None,
         # ring buffer: once pos >= cap every slot holds a live position
         valid = valid | (pb >= cap)
     mask = valid[:, None, :].expand(b, 1, cap)
-    out = _sdpa(q, ck.to(x.dtype), cv.to(x.dtype), mask)
+    out = row_stable(_sdpa_decode, q, ck.to(x.dtype), cv.to(x.dtype), mask)
     return _out_proj(p, out, group, vo, policy, x.dtype), cache
 
 
@@ -444,9 +527,11 @@ def init_paged_kv_cache(cfg: ModelConfig, num_layers: int, n_pages: int,
 # MLP (the paper's subject)
 # ---------------------------------------------------------------------------
 
-def mlp_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
-    """One layer's raw fp MLP weights (the plan compiler quantizes them)."""
-    d, ff = cfg.d_model, cfg.d_ff
+def mlp_params(cfg: ModelConfig, gen: torch.Generator, *,
+               d_ff: Optional[int] = None) -> dict:
+    """One layer's raw fp MLP weights (the plan compiler quantizes them);
+    ``d_ff`` (default ``cfg.d_ff``): an MoE expert's width."""
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
     p = {"w_up": dense_init(gen, (d, ff)), "w_down": dense_init(gen, (ff, d))}
     if cfg.mlp_gated:
         p["w_gate"] = dense_init(gen, (d, ff))
@@ -524,9 +609,10 @@ def lm_head(cfg: ModelConfig, p, x: torch.Tensor, *,
     if head.shape[0] != cfg.d_model:                # d_model rows split
         rows = head.shape[0]
         r = comm.axis_index(group)
-        logits = comm.raw_psum(x[..., r * rows:(r + 1) * rows] @ head, group)
+        logits = comm.raw_psum(matmul(x[..., r * rows:(r + 1) * rows],
+                                      head), group)
     else:
-        logits = comm.all_gather_cols(x @ head, group)
+        logits = comm.all_gather_cols(matmul(x, head), group)
     v, vp = cfg.vocab_size, cfg.padded_vocab()
     if vp != v:
         # padded vocab columns: exp(-1e30) == 0, softmax stays exact
@@ -563,28 +649,33 @@ def embed_specs(cfg: ModelConfig, tp: int) -> dict:
     return {"embedding": 1, "lm_head": 0}
 
 
-def _pair_specs(pp: PlannedPair) -> PlannedPair:
+def _pair_specs(pp: PlannedPair, lead: int = 0) -> PlannedPair:
     """Column-TP up/gate (dim 1), row-TP down (dim 0; the naive layout's
     metadata replicated, its ``g_idx`` split), ``p1`` replicated, ``p2``
-    split: the slices ``reorder.shard_pair`` takes."""
+    split: the slices ``reorder.shard_pair`` takes; each dim after
+    ``lead`` stacking dims."""
     def col(ql):
-        return QuantizedLinear(qweight=1, scales=1, zeros=1, g_idx=None,
+        return QuantizedLinear(qweight=lead + 1, scales=lead + 1,
+                               zeros=lead + 1, g_idx=None,
                                group_size=ql.group_size, kind=ql.kind)
 
     def row(ql):
         naive = ql.kind == "naive"
-        return QuantizedLinear(qweight=0, scales=None if naive else 0,
-                               zeros=None if naive else 0,
-                               g_idx=0 if naive else None,
+        return QuantizedLinear(qweight=lead, scales=None if naive else lead,
+                               zeros=None if naive else lead,
+                               g_idx=lead if naive else None,
                                group_size=ql.group_size, kind=ql.kind)
 
     return PlannedPair(up=col(pp.up),
                        gate=col(pp.gate) if pp.gate is not None else None,
-                       down=row(pp.down), p1_up=None, p1_gate=None, p2=0,
+                       down=row(pp.down), p1_up=None, p1_gate=None, p2=lead,
                        scheme=pp.scheme)
 
 
-def mlp_specs(p) -> object:
+def mlp_specs(p, lead: int = 0) -> object:
+    """TP specs of one MLP (a pair or raw weights), or, with ``lead``
+    stacking dims kept whole (an MoE layer's experts, ``(E, ...)``), of
+    a stack of them: the reference's ``mlp_specs(..., lead=)``."""
     if isinstance(p, PlannedPair):
-        return _pair_specs(p)
-    return {k: (0 if k == "w_down" else 1) for k in p}
+        return _pair_specs(p, lead)
+    return {k: lead + (0 if k == "w_down" else 1) for k in p}

@@ -1,4 +1,5 @@
-"""Model registry (dense family); port of ``repro/models/registry.py``.
+"""Model registry (the dense and MoE families); port of
+``repro/models/registry.py``.
 
 The other families follow in the order of ``ROADMAP.md``.
 """
@@ -13,9 +14,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.policy import ExecutionPolicy
 from repro_torch.device import DeviceLike, new_generator, resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import moe, transformer
 
-_FAMILY_MODULES = {"dense": transformer}
+_FAMILY_MODULES = {"dense": transformer, "moe": moe}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,12 +27,16 @@ class Model:
     module: Any
 
     def init(self, seed: int = 0, *, device: DeviceLike = None,
-             tp: int = 1, rank: int = 0) -> Any:
+             tp: int = 1, rank: int = 0, ep: int = 1,
+             ep_rank: int = 0) -> Any:
         """Raw init from ``seed``, then, for quantized configs, the plan
-        compiler (RTN quantize + layout), one layer at a time; with
-        ``tp > 1`` only rank ``rank``'s slices of each piece are kept
-        (every rank draws the same whole weights from ``seed``).  Runs on
-        the CUDA card unless ``device`` says otherwise."""
+        compiler (RTN quantize + layout), one layer (and one MoE expert)
+        at a time; with ``tp > 1`` only rank ``rank``'s slices of each
+        piece are kept (every rank draws the same whole weights from
+        ``seed``), and with ``ep > 1`` (``supports_experts``) only data
+        rank ``ep_rank``'s ``1 / ep`` of each layer's experts, as
+        ``keep_experts`` cuts them.  Runs on the CUDA card unless
+        ``device`` says otherwise."""
         from repro_torch.plan import compiler
 
         dev = resolve_device(device)
@@ -40,7 +45,7 @@ class Model:
         quantized = self.cfg.quant.mode == "mlp"
 
         def stage(key, node):
-            if key == "layers" and quantized:
+            if quantized and key not in ("embed", "final_norm"):
                 node = compiler.compile_params(self.cfg, node,
                                                generator=plan_gen)
             if tp > 1:
@@ -48,7 +53,8 @@ class Model:
                 node = compiler.stage_shard(node, specs, tp, rank)
             return node
 
-        return self.module.init_params(self.cfg, gen, stage=stage)
+        kw = {} if ep == 1 else {"ep": ep, "ep_rank": ep_rank}
+        return self.module.init_params(self.cfg, gen, stage=stage, **kw)
 
     def init_raw(self, seed: int = 0, *, device: DeviceLike = None) -> Any:
         """The raw fp params (no quantization): the compiler's input."""
@@ -69,6 +75,24 @@ class Model:
         """Where the family's folds sit in the aux tree's ``attn_plans``."""
         return getattr(self.module, "ATTN_VO_PATH", None)
 
+    @property
+    def supports_experts(self) -> bool:
+        """The family's layers hold MoE experts, which a data group can
+        spread over its processes (expert parallelism, ``ep_group``)."""
+        return hasattr(self.module, "keep_experts")
+
+    def keep_experts(self, params, ep: int, ep_rank: int):
+        """``params`` with data rank ``ep_rank``'s ``1 / ep`` of each
+        layer's experts only."""
+        return self.module.keep_experts(self.cfg, params, ep, ep_rank)
+
+    def expert_bytes(self, params) -> int:
+        return self.module.expert_bytes(params)
+
+    @staticmethod
+    def _ep(ep_group) -> dict:
+        return {} if ep_group is None else {"ep_group": ep_group}
+
     def _aux(self, aux) -> dict:
         if aux is None:
             return {}
@@ -78,12 +102,15 @@ class Model:
         return {"aux": aux}
 
     def forward(self, params, batch, policy: ExecutionPolicy, *,
-                window=None, attn_backend="xla", group=None, aux=None):
+                window=None, attn_backend="xla", group=None, aux=None,
+                ep_group=None):
         """``aux``: an artifact's aux plans (attention V->O folds), for
-        families that declare ``SUPPORTS_ATTN_VO``."""
+        families that declare ``SUPPORTS_ATTN_VO``; ``ep_group``: the data
+        ranks the experts are spread over (``supports_experts``)."""
         return self.module.forward(self.cfg, params, batch, policy,
                                    window=window, attn_backend=attn_backend,
-                                   group=group, **self._aux(aux))
+                                   group=group, **self._aux(aux),
+                                   **self._ep(ep_group))
 
     def init_cache(self, batch: int, seq_len: int, *, window=None,
                    dtype=torch.bfloat16, device: DeviceLike = None,
@@ -111,11 +138,12 @@ class Model:
 
     def decode_step(self, params, cache, tokens, pos,
                     policy: ExecutionPolicy, *, window=None, group=None,
-                    pages=None, kv_len=None, aux=None):
+                    pages=None, kv_len=None, aux=None, ep_group=None):
         return self.module.decode_step(self.cfg, params, cache, tokens, pos,
                                        policy, window=window, group=group,
                                        pages=pages, kv_len=kv_len,
-                                       **self._aux(aux))
+                                       **self._aux(aux),
+                                       **self._ep(ep_group))
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -15,12 +15,13 @@ folds and writes its per-layer ``CollectivePlan`` into the policy.
 ``stage_shard`` then keeps one TP rank's slices, as the model's
 ``param_specs`` name them; the aux tree stays whole (each rank takes its
 heads of it at load, ``runtime/serve.py``).  ``Model.init`` runs the
-stages one layer at a time, so neither the raw f32 MLP weights nor the
-unsharded plan of all layers ever sit in memory together.
-``compile_plan`` runs them over a whole raw tree, shards it for every
-rank and freezes the result as a ``DeploymentArtifact``; ``prepare`` does
-so from a seed, and its rank ``r`` is ``Model.init(seed, tp=tp, rank=r)``
-bit for bit.
+quantize and layout stages one layer (and one MoE expert) at a time, so
+neither the raw f32 MLP weights nor the unsharded plan of all layers
+ever sit in memory together.  ``compile_plan`` takes that plan, folds
+attention from its (unquantized) attention weights, shards it for every
+rank and freezes the result as a ``DeploymentArtifact``; ``prepare``
+does so from a seed, and its rank ``r`` is ``Model.init(seed, tp=tp,
+rank=r)`` bit for bit.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from repro_torch.core.reorder import PairBundle, PlannedPair
 from repro_torch.device import (DeviceLike, derive_seed, new_generator,
                                 resolve_device)
 from repro_torch.dist.topology import MeshPlan
+from repro_torch.train.checkpoint import flatten_keys
 
 #: seed part separating the quantization stream from the init stream
 PLAN_RNG_STREAM = 0x504C414E  # "PLAN"
@@ -138,7 +140,7 @@ def _is_attn_dict(node: Any) -> bool:
 def stage_fold_attention(cfg: ModelConfig, params: Any,
                          generator: torch.Generator) -> Optional[dict]:
     """The head-block-constrained V->O folds of every attention dict
-    (``{"wv", "wo", ...}``) of the raw tree, when
+    (``{"wv", "wo", ...}``, unquantized in a raw tree and in a plan), when
     ``cfg.quant.attn_tp_aware`` is set (else None): ``{dotted path:
     PlannedPair}``, a list of layers' pairs stacked along a leading dim
     (``{"layers.attn": pair of (L, ...) leaves}``, the reference's aux
@@ -251,69 +253,64 @@ def shard_params(cfg: ModelConfig, params: Any,
 # the whole offline compile
 # ---------------------------------------------------------------------------
 
-def pair_meta(cfg: ModelConfig, raw_params: Any, scheme: str) -> list:
-    """The manifest's record of every MLP pair, as the reference writes
-    it: one entry per pair path, the layer list counted as its stack."""
+def pair_meta(params: Any) -> list:
+    """The manifest's record of every MLP pair of a plan (unsharded), as
+    the reference writes it: one entry per pair path, the layer list and
+    an MoE layer's experts (``(E, ...)`` leaves) counted as its stack
+    (``[L, E]``)."""
     meta = []
 
     def walk(node, path, stacked):
-        if _is_mlp_dict(node):
-            w_up, w_down = node["w_up"], node["w_down"]
-            gs_up, gs_down = _pair_group_sizes(cfg, w_up, w_down)
+        if isinstance(node, PlannedPair):
             meta.append({
-                "path": ".".join(path), "stacked": stacked,
-                "k1": int(w_up.shape[-2]), "n1": int(w_up.shape[-1]),
-                "n2": int(w_down.shape[-1]), "gate": "w_gate" in node,
-                "group_size_up": gs_up, "group_size_down": gs_down,
-                "scheme": scheme})
+                "path": ".".join(path),
+                "stacked": stacked + list(node.up.qweight.shape[:-2]),
+                "k1": node.k1, "n1": node.n1, "n2": node.n2,
+                "gate": node.gate is not None,
+                "group_size_up": node.up.group_size,
+                "group_size_down": node.down.group_size,
+                "scheme": node.scheme})
         elif isinstance(node, dict):
             for k, v in node.items():
                 walk(v, path + (k,), stacked)
         elif isinstance(node, list) and node:
             walk(node[0], path, stacked + [len(node)])
 
-    walk(raw_params, (), [])
+    walk(params, (), [])
     return meta
 
 
-def compile_plan(cfg: ModelConfig, raw_params: Any, *, tp: int,
+def compile_plan(cfg: ModelConfig, params: Any, *, tp: int,
                  policy: ExecutionPolicy,
-                 generator: Optional[torch.Generator] = None,
                  seed: Optional[int] = None,
                  extra_manifest: Optional[dict] = None,
                  autotune: bool = False,
                  tune_budget: Optional[float] = None,
                  tune_overlap: bool = False):
-    """Raw fp params -> ``DeploymentArtifact``: quantize and lay out (when
-    ``cfg.quant.mode`` is ``"mlp"``, as ``Model.init``), fold attention
-    (``cfg.quant.attn_tp_aware``), tune the collectives (``autotune``: max
-    relative error ``tune_budget``, the tuner's default when None;
-    ``tune_overlap`` marks the quantized pair choices ``:overlap``), then
-    pre-shard for ``tp`` ranks, and freeze with the manifest.  ``policy``
-    is recorded (with the tuned plan), its scheme laid out;
-    ``generator`` draws the MLP processing orders (``compile_params``),
-    and the fold and tuner streams come from ``seed`` (0 when None), which
-    is also recorded as provenance."""
+    """A plan (``Model.init``'s unsharded tree, in ``policy``'s scheme)
+    -> ``DeploymentArtifact``: fold attention (``cfg.quant.attn_tp_aware``),
+    tune the collectives (``autotune``: max relative error
+    ``tune_budget``, the tuner's default when None; ``tune_overlap``
+    marks the quantized pair choices ``:overlap``), then pre-shard for
+    ``tp`` ranks, and freeze with the manifest.  ``policy`` is recorded
+    (with the tuned plan); the fold and tuner streams come from ``seed``
+    (0 when None) on the params' device, and ``seed`` is also recorded
+    as provenance."""
     from repro_torch.plan import tuner
     from repro_torch.plan.artifact import DeploymentArtifact
 
-    dev = generator.device if generator is not None else None
+    dev = next(iter(flatten_keys(params).values())).device
     base = 0 if seed is None else seed
-    meta = pair_meta(cfg, raw_params, policy.scheme)
-    planned = raw_params
-    if cfg.quant.mode == "mlp":
-        planned = compile_params(cfg, raw_params, generator=generator,
-                                 scheme=policy.scheme)
-    attn_plans = stage_fold_attention(cfg, raw_params,
-                                      fold_generator(base, dev))
+    meta = pair_meta(params)
+    attn_plans = stage_fold_attention(cfg, params, fold_generator(base, dev))
     report = ()
     if autotune:
         kw = {} if tune_budget is None else {"budget": tune_budget}
         kw["overlap"] = tune_overlap
         policy, report = tuner.autotune_collectives(
-            cfg, planned, meta, policy, tp, attn_plans=attn_plans,
+            cfg, params, meta, policy, tp, attn_plans=attn_plans,
             generator=tune_generator(base, dev), **kw)
-    trees, leaf_shards = shard_params(cfg, planned, tp)
+    trees, leaf_shards = shard_params(cfg, params, tp)
     return DeploymentArtifact.from_state(
         cfg=cfg, policy=policy, tp=tp, rank_params=trees,
         leaf_shards=leaf_shards, pair_meta=meta, seed=seed,
@@ -328,9 +325,9 @@ def prepare(cfg: ModelConfig, *, tp: int, seed: int = 0,
             autotune: bool = False,
             tune_budget: Optional[float] = None,
             tune_overlap: bool = False):
-    """Seed -> artifact, on ``device`` (default: the CUDA card).  The raw
-    init and the plan generator come from ``seed`` exactly as
-    ``Model.init`` draws them, so rank ``r`` of the result equals
+    """Seed -> artifact, on ``device`` (default: the CUDA card).  The plan
+    is ``Model.init``'s (one layer, and one MoE expert, of raw weights
+    alive at a time), so rank ``r`` of the result equals
     ``Model.init(seed, tp=tp, rank=r)`` on the same device bit for bit.
     ``policy`` defaults to the config's for ``device`` and ``tp`` ranks;
     ``autotune``, ``tune_budget`` and ``tune_overlap`` as in
@@ -341,8 +338,8 @@ def prepare(cfg: ModelConfig, *, tp: int, seed: int = 0,
     if policy is None:
         policy = ExecutionPolicy.from_config(cfg, device=dev).with_(
             mesh=MeshPlan(tp=tp))
-    raw = build_model(cfg).init_raw(seed, device=dev)
-    return compile_plan(cfg, raw, tp=tp, generator=plan_generator(seed, dev),
-                        policy=policy, seed=seed,
+    params = build_model(cfg.with_quant(scheme=policy.scheme)).init(
+        seed, device=dev)
+    return compile_plan(cfg, params, tp=tp, policy=policy, seed=seed,
                         extra_manifest=extra_manifest, autotune=autotune,
                         tune_budget=tune_budget, tune_overlap=tune_overlap)

@@ -31,11 +31,24 @@ plan is served on; its TP degree must be the group's.  With a
 group the step stays eager: the collectives go through gloo and host
 memory (``launch/mesh.py``), which a CUDA graph cannot hold.
 
+An MoE engine of a grid with ``dp > 1`` also takes its data group
+(``ep_group``): it keeps only its ``1 / dp`` of each layer's experts
+(``Model.keep_experts``) and every MoE layer sends its tokens to the
+experts' owners by an all-to-all over that group, so the data ranks
+step in lockstep and the step stays eager.
+
 An artifact's aux plans (attention V->O folds, ``Engine.aux``) are kept
 once, at construction, as a list of per-layer folds on the engine's
 device, each rank's heads of them under TP; every forward and decode
 step runs them, and the captured step holds their addresses as it holds
 the params'.
+
+Every forward and decode step runs its library products in blocks of
+``Engine.row_block`` rows (``models/common.row_stable``), so a row's
+bits do not depend on how many rows come with it: a request served in a
+batch gets the logits it gets alone.  ``row_block`` is best the
+scheduler's ``max_batch`` (the serve CLI makes it so): a full batch then
+runs each product once, unpadded, and a lone request pads to it.
 """
 
 from __future__ import annotations
@@ -51,6 +64,7 @@ from repro_torch.core.policy import ExecutionPolicy
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.dist.topology import MeshPlan
 from repro_torch.kernels import ops
+from repro_torch.models import common as cm
 from repro_torch.models.registry import Model, build_model
 from repro_torch.plan.artifact import DeploymentArtifact
 from repro_torch.runtime import sampling
@@ -118,10 +132,16 @@ class Engine:
     #: what this rank read of an artifact (``dist.loader.RankLoadStats``);
     #: None for params made in memory or loaded whole
     load_stats: Any = None
+    #: the data ranks an MoE model's experts are spread over (expert
+    #: parallelism; ``params`` then hold this rank's experts only); None:
+    #: every expert is here
+    ep_group: Any = None
     #: the artifact's aux plans (``{"attn_plans": {path: fold}}``, folds
     #: stacked over the layers or per-layer lists); kept as per-layer
     #: lists of this rank's heads on ``device``
     aux: Any = None
+    #: the row block of every step's library products (``cm.row_blocks``)
+    row_block: int = cm.ROW_BLOCK
     #: the captured decode steps by batch size (``decode`` on the card)
     graphs: dict = dataclasses.field(default_factory=dict, init=False,
                                      repr=False)
@@ -179,8 +199,8 @@ class Engine:
     def supports_continuous(self) -> bool:
         """The scheduler may step this model at token granularity on
         per-slot positions: its whole decode state is the position-masked
-        KV cache (the dense family, the one the port has)."""
-        return self.model.cfg.family == "dense"
+        KV cache (the dense and MoE families)."""
+        return self.model.cfg.family in ("dense", "moe")
 
     @property
     def uses_page_table(self) -> bool:
@@ -207,17 +227,22 @@ class Engine:
     def prefill_logits(self, tokens: torch.Tensor) -> torch.Tensor:
         """The full-sequence forward: tokens (B, S) -> logits (B, S, V)
         (the reference's ``prefill_logits``)."""
-        return self.model.forward(self.params, {"tokens": tokens},
-                                  self.policy, window=self.window,
-                                  attn_backend=self.attn_backend,
-                                  group=self.group, aux=self.aux)
+        with cm.row_blocks(self.row_block):
+            return self.model.forward(self.params, {"tokens": tokens},
+                                      self.policy, window=self.window,
+                                      attn_backend=self.attn_backend,
+                                      group=self.group, aux=self.aux,
+                                      ep_group=self.ep_group)
 
     @property
     def decode_mode(self) -> str:
         """How ``decode`` runs the step, as the serve banner names it."""
-        if self.group is not None:
-            backend = torch.distributed.get_backend(self.group)
-            return f"eager (tp={self.tp} over {backend})"
+        if self.group is not None or self.ep_group is not None:
+            group = self.group if self.group is not None else self.ep_group
+            backend = torch.distributed.get_backend(group)
+            ep = ("" if self.ep_group is None else
+                  f"ep={comm.axis_size(self.ep_group)} ")
+            return f"eager ({ep}tp={self.tp} over {backend})"
         if self.device.type != "cuda":
             return f"eager ({self.device.type})"
         return f"CUDA graph, {self.captures} captures"
@@ -238,9 +263,10 @@ class Engine:
         workspace) and returns that step's logits.  A capture
         or a replay that fails raises.  On the CPU, and with a TP group
         (gloo through host memory, which no graph can hold), this is
-        ``decode_eager``.
+        ``decode_eager``; so it is with an ``ep_group``.
         """
-        if self.device.type != "cuda" or self.group is not None:
+        if (self.device.type != "cuda" or self.group is not None
+                or self.ep_group is not None):
             return self.decode_eager(cache, tokens, pos, pages)
         step = self.graphs.get(tokens.shape[0])
         if step is None or step.cache != _step_key(cache, pages):
@@ -259,9 +285,11 @@ class Engine:
         ``decode``): tokens (B,), pos int or (B,) -> (logits, cache).  A
         paged step's attention reads ``max_seq`` positions, the dense
         cache's capacity."""
-        return self.model.decode_step(
-            self.params, cache, tokens, pos, self.policy, window=self.window,
-            group=self.group, pages=pages, kv_len=self.max_seq, aux=self.aux)
+        with cm.row_blocks(self.row_block):
+            return self.model.decode_step(
+                self.params, cache, tokens, pos, self.policy,
+                window=self.window, group=self.group, pages=pages,
+                kv_len=self.max_seq, aux=self.aux, ep_group=self.ep_group)
 
     def _capture(self, cache, tokens: torch.Tensor, pos, pages=None):
         """Run this call's step eagerly on the capture stream, capture the
@@ -361,7 +389,8 @@ def check_mesh(policy: ExecutionPolicy, tp: int) -> None:
 def make_engine(cfg, seed: int = 0, *, device: DeviceLike = None,
                 max_seq: int = 2048, window=None,
                 policy: Optional[ExecutionPolicy] = None,
-                group=None, artifact=None) -> Engine:
+                group=None, artifact=None, ep_group=None,
+                row_block: int = cm.ROW_BLOCK) -> Engine:
     """Build an engine on ``device`` (default: the CUDA card); with the TP
     ranks' ``group`` (a row of the grid), over this rank's slices of the
     params.  A ``policy`` whose mesh's TP degree does not match the group
@@ -379,7 +408,18 @@ def make_engine(cfg, seed: int = 0, *, device: DeviceLike = None,
     the effective policy and the group's TP degree before any weight
     reaches ``device``: a mismatched plan raises ``PlanMismatchError``.
     The params are in place before the first decode step, so the captured
-    step holds their addresses."""
+    step holds their addresses.
+
+    ``ep_group``: this process's data group (``RankContext.data_group``).
+    For a model with MoE experts it is the engine's expert-parallel
+    group: the process keeps only its data rank's ``1 / dp`` of each
+    layer's experts: made from the seed, it stages every expert but
+    keeps only its own (``Model.init(ep=)``); read from an artifact
+    (rank files are cut by the model axis only), it cuts them from the
+    whole file, and ``load_stats`` records the expert bytes kept against
+    those read.  Other families ignore it.  ``row_block``: the row
+    block of the steps' library products (``Engine.row_block``; best the
+    scheduler's ``max_batch``)."""
     dev = resolve_device(device)
     tp = comm.axis_size(group)
     rank = comm.axis_index(group)
@@ -387,8 +427,12 @@ def make_engine(cfg, seed: int = 0, *, device: DeviceLike = None,
         check_mesh(policy, tp)
     model = build_model(cfg)
     load_stats = aux = None
+    ep = comm.axis_size(ep_group) if model.supports_experts else 1
+    if ep == 1:
+        ep_group = None
     if artifact is None:
-        params = model.init(seed, device=dev, tp=tp, rank=rank)
+        params = model.init(seed, device=dev, tp=tp, rank=rank, ep=ep,
+                            ep_rank=comm.axis_index(ep_group))
     else:
         plan = dict(cfg=cfg, tp=tp, policy=(
             policy if policy is not None else default_policy(cfg, dev, tp)))
@@ -402,9 +446,18 @@ def make_engine(cfg, seed: int = 0, *, device: DeviceLike = None,
                                          and policy.mesh.dp > 1)
                 else DeploymentArtifact.load(artifact, device="cpu"))
         artifact.validate(**plan)
-        params = map_tensors(artifact.rank_tree(rank),
-                             lambda _, t: t.to(dev))
-        load_stats, aux = artifact.load_stats, artifact.aux
+        params, load_stats, aux = (artifact.rank_tree(rank),
+                                   artifact.load_stats, artifact.aux)
+        if ep > 1:
+            read = model.expert_bytes(params)
+            params = model.keep_experts(params, ep,
+                                        comm.axis_index(ep_group))
+            if load_stats is not None:
+                load_stats = dataclasses.replace(
+                    load_stats, expert_bytes_loaded=read,
+                    expert_bytes_resident=model.expert_bytes(params))
+        params = map_tensors(params, lambda _, t: t.to(dev))
     return Engine(model=model, params=params, device=dev, max_seq=max_seq,
                   window=window, policy=policy, group=group,
-                  load_stats=load_stats, aux=aux)
+                  load_stats=load_stats, aux=aux, ep_group=ep_group,
+                  row_block=row_block)

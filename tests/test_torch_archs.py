@@ -45,6 +45,18 @@ CPU = torch.device("cpu")
 MAX_SEQ = 24
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module's tests: the smoke models' ops
+    are tiny, so one thread runs them as fast alone, and it does not
+    spin against the other test processes of a parallel run (as the
+    spawned ranks of ``launch/mesh.py`` do on the CPU)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _carry(tmp_path_factory, jcfg, cfg):
     """(JAX engine, port engine) over the same params."""
     import jax

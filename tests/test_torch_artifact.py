@@ -51,6 +51,18 @@ SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 SMOKE_HASH, FULL_HASH = "37096233ba494f03", "a6da8cf8305ffe04"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module's tests: the smoke models' ops
+    are tiny, so one thread runs them as fast alone, and it does not
+    spin against the other test processes of a parallel run (as the
+    spawned ranks of ``launch/mesh.py`` do on the CPU)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_prepare(tp: int, out: str, collective: str = "psum") -> str:
     """What ``repro.launch.serve prepare --smoke --tp tp --collective
     collective`` writes."""

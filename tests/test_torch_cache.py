@@ -56,6 +56,18 @@ SPECS = [None, "dense", "paged:16", "paged:8:int4", "paged:64:int8",
          "dense:8", "rows", "paged:0", "paged:4:int", "paged:4:8"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module's tests: the smoke models' ops
+    are tiny, so one thread runs them as fast alone, and it does not
+    spin against the other test processes of a parallel run (as the
+    spawned ranks of ``launch/mesh.py`` do on the CPU)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("value", SPECS)
 def test_page_spec_parse_equals_jax(value):
     """Each string parses to the reference's spec (fields, shorthand,

@@ -308,7 +308,7 @@ def _pair_cases(ctx) -> dict:
                 if "fused" in base:
                     continue
                 pol = _policy(scheme, base)
-                y1 = schemes._column_step(x[:3], local, pol, "silu")
+                y1 = schemes.column_step(x[:3], local, pol, "silu")
                 per_mb = torch.cat([comm.apply(
                     schemes.qmatmul(rows, local.down, pol), ctx.group,
                     CollectiveSpec.parse(base)) for rows in (y1[:1], y1[1:])])

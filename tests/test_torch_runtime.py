@@ -20,6 +20,18 @@ from repro_torch.runtime.serve import Engine, make_engine
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module's tests: the smoke models' ops
+    are tiny, so one thread runs them as fast alone, and it does not
+    spin against the other test processes of a parallel run (as the
+    spawned ranks of ``launch/mesh.py`` do on the CPU)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def engine():
     return make_engine(get_smoke_config("qwen3-4b"), 0, device="cpu",
