@@ -243,13 +243,48 @@ Phases, one line each:
      tp=1 engine on the same carries, ``quant-int8:128:fused`` bit-equal
      to its unfused ring, one stacked expert collective per MoE layer a
      step, K1 once per expert GEMM slice
+ 34. serve whisper-large-v3 (and, before it, ``kernels-av``: K1 and K4
+     at whisper's decoder MLP shapes, K1 at the vision model's, at
+     whisper's fold V and O and at its encoder's M = 4 x 1500 (the
+     tensor-core loop), K2 at the vision forward's B1 H64 S2048 D128,
+     each against its plain version, timed against its bound): full
+     depth and width (32 encoder and 32 decoder layers) from seed 0,
+     four requests (prompts padded to 32, frames from seed 0, 16 new
+     tokens, greedy) through ``Engine.generate``: K1 64 a decode step
+     and 64 on the tensor-core loop per encode (counted); the cross
+     prefill, the first step with its capture and the steady step
+     timed; greedy ids equal over two runs; the captured step against
+     ``decode_eager`` bit for bit (the cross K/V of the request batch
+     filled first); ``Scheduler.run()`` in batch-drain mode (zero
+     frames) against ``Engine.generate`` on the same padded rows; a few
+     captured steps traced (K1's device ms, busy share); the encoder and
+     ``precompute_cross`` timed alone; naive-actorder (K4 only, 64 a
+     step and 64 per encode)
+ 35. serve llama-3.2-vision-90b: full width, depth cut to 10 of its 100
+     layers (2 of its 20 superblocks: 8 self and 2 cross layers), the
+     cross layers' gates set to 0.5 (at their initial 0 the cross layers
+     add nothing), patches from seed 0: the serve checks of 34 with K1
+     30 a step; the 2048-token forward with the flash kernel (K2 8 a
+     forward, one per self layer; cross-attention stays on the einsum
+     path) against the einsum one: each layer on the einsum forward's
+     input carries within 5e-3 of max|.| (the whole forward's logit gap
+     and argmax agreement reported: this random model without qk_norm
+     amplifies the two attentions' float32 sum order through its bf16
+     carry)
+ 36. fold-whisper: whisper with the attention V->O fold
+     (``attn_tp_aware``) prepared on the card at full depth, served in
+     memory and from its saved directory: greedy ids and logits
+     bit-equal, K1 128 a decode step (64 MLP, 32 V, 32 O) and the
+     encoder's 64; the aux holds the waived encoder and cross folds,
+     which no step launches
 
 then the per-kernel JSON line (after the first six: K2 on the long
 forward, the paged and HTTP serves' K1, K4 and K3 rows, the other
 archs' K1, K4 and K3 rows, then K1 on the GPTQ pair and on the fold's V
 and O, K3 where phase 26's tuner fused the MLP, K3 and K1 on the
 ``:overlap`` paths of phases 27 and 28, then K1 on phase 29's serves
-and K1 and K4 on the MoE paths of phases 30-33, per expert), the total
+and K1 and K4 on the MoE paths of phases 30-33, per expert, and K1, K4
+and K2 on the audio and vision paths of phases 34-36), the total
 seconds
 and each phase's, the
 card's nvidia-smi line
@@ -509,6 +544,18 @@ OVERLAP_MB = 2
 OVERLAP_TRACE_STEPS = 4
 OVERLAP_WALL_BLOCKS = 8
 MESH_BATCH, MESH_PLEN, MESH_NEW = 4, 8, 8
+#: phases 34-36 (the audio and vision families): whisper at full depth,
+#: the vision model at 10 of its 100 layers (2 of its 20 superblocks: all
+#: 100 would hold ~100 GB), its gates opened; four requests of prompts
+#: padded to 32 and 16 new tokens (max_seq 49, under whisper's 448
+#: positions); the vision model's full-sequence forward's length
+WHISPER = "whisper-large-v3"
+VISION = "llama-3.2-vision-90b"
+VISION_LAYERS = 10
+VISION_GATE = 0.5
+AV_BUDGET, AV_NEW = 32, 16
+AV_MAX_SEQ = AV_BUDGET + AV_NEW + 1
+AV_FORWARD_S = 2048
 #: the collectives of the TP phases
 TP_SERVE = "quant-int8:fused"
 TP_PAIRS = (("quant-int8:fused", "quant-int8"),
@@ -644,7 +691,8 @@ def _within(rows: list, err: float, ref: torch.Tensor, rtol: float,
     return err / max(scale, 1e-30)
 
 
-def _check_gemm(gen, name, shapes, layout, kernel, plain) -> dict:
+def _check_gemm(gen, name, shapes, layout, kernel, plain,
+                phase: str = "check") -> dict:
     """A dequant-GEMM kernel against its plain version; returns the worst
     relative error per dtype, the largest float32 error at qwen3-4b's
     main path's shapes (M=4, full width) and at its forward's (M=2048,
@@ -669,7 +717,7 @@ def _check_gemm(gen, name, shapes, layout, kernel, plain) -> dict:
                     main = max(main, err)
                 if m == 2048:
                     large = max(large or 0.0, err)
-    line("check", f"{name}: {len(rows)} cases within tolerance; max err / "
+    line(phase, f"{name}: {len(rows)} cases within tolerance; max err / "
                   f"max|ref|: f32 {worst['torch.float32']:.3g}, bf16 "
                   f"{worst['torch.bfloat16']:.3g}; f32 max_abs_err at the "
                   f"main path's shapes {main:.3g}"
@@ -1263,12 +1311,13 @@ def _time_sdpa(qkv) -> dict:
     return out
 
 
-def _time_flash(gen) -> dict:
-    """K2 at the full-width forward's shape beside its plain version, the
-    library call, and two bounds: its route's (3xTF32 on the tensor cores:
-    three TF32 operations for each float32 one) and, for comparison with
-    earlier CUDA-core versions, the float32 CUDA-core bound."""
-    b, h, s, d, causal, window = FLASH_FULL
+def _time_flash(gen, shape=FLASH_FULL) -> dict:
+    """K2 at the full-width forward's shape (or ``shape``) beside its plain
+    version, the library call, and two bounds: its route's (3xTF32 on the
+    tensor cores: three TF32 operations for each float32 one) and, for
+    comparison with earlier CUDA-core versions, the float32 CUDA-core
+    bound."""
+    b, h, s, d, causal, window = shape
     qkv = [tuple(torch.randn(b, h, s, d, generator=gen, device="cuda")
                  for _ in range(3)) for _ in range(2)]
     ms = _time(lambda q, k, v: fa.flash_attention(q, k, v, causal=causal,
@@ -1362,16 +1411,17 @@ def _time_flash_long(gen) -> dict:
     return out
 
 
-def _time_k1_large(gen, m: int = 2048) -> dict:
+def _time_k1_large(gen, m: int = 2048, shapes=(UP, DOWN),
+                   cfg=QWEN) -> dict:
     """K1 at the full-sequence forward's M (2048 tokens), up/gate and
     down, CUDA-graph replay: its tensor-core loop against its route's
     bound (three TF32 operations for each float32 one, at the TF32
     tensor-core rate) and the float32 CUDA-core bound, its plain version,
     and, as context, ``torch.matmul`` of the same x with the weight
     pre-dequantized by K5 (default float32 precision; the cuBLAS kernel
-    it launches named)."""
+    it launches named).  ``shapes`` and ``cfg``: another model's MLP."""
     res = {}
-    for name, k, n, gs in (UP, DOWN):
+    for name, k, n, gs in shapes:
         ql = _quantized(gen, k, n, gs).ordered
         meta = [ql.qweight, ql.scales, ql.zeros]
         wbytes = sum(t.numel() * t.element_size() for t in meta)
@@ -1399,8 +1449,9 @@ def _time_k1_large(gen, m: int = 2048) -> dict:
                      "over_matmul": ms / matmul_ms}
     for key in ("ms", "plain_ms", "bound_ms", "f32_cuda_core_bound_ms",
                 "matmul_dequantized_ms"):
-        res[f"per_layer_{key}"] = _per_layer(res, key)
-    res["per_forward_ms"] = QWEN.num_layers * res["per_layer_ms"]
+        res[f"per_layer_{key}"] = _per_layer(res, key, shapes,
+                                             cfg.mlp_gated)
+    res["per_forward_ms"] = cfg.num_layers * res["per_layer_ms"]
     return res
 
 
@@ -2005,7 +2056,8 @@ def _trace_line(phase: str, out: dict) -> None:
                             for k, v in out["top_kernels_ms_per_step"].items()))
 
 
-def _captured_vs_eager(engine, cfg, steps: int, phase: str) -> tuple:
+def _captured_vs_eager(engine, cfg, steps: int, phase: str,
+                       fill=None) -> tuple:
     """The captured step against ``decode_eager`` at full width, 4 slots:
     logits and the whole KV cache bit for bit after each of ``steps``
     steps on lockstep positions (the eager step's int path; the graph's
@@ -2013,21 +2065,27 @@ def _captured_vs_eager(engine, cfg, steps: int, phase: str) -> tuple:
     second pair of caches moves the graph to other addresses (a
     recapture), and so does going back to the first.  Returns the
     captures counted along the way, the per-slot offsets and the
-    recapture's seconds."""
+    recapture's seconds.  ``fill(cache)``: what a fresh cache holds first
+    (the audio and vision families' cross K/V); the whole cache, nested
+    entries included, is compared."""
     b = 4
     toks = torch.from_numpy(np.random.default_rng(3).integers(
         0, cfg.vocab_size, (steps + 1, b))).cuda()
     offsets = torch.tensor([0, 5, 11, 17], device="cuda")
     lock = (engine.init_cache(b), engine.init_cache(b))
     slot = (engine.init_cache(b), engine.init_cache(b))
+    for cache in (*lock, *slot):
+        if fill is not None:
+            fill(cache)
 
     def check(caches, t, pos, what):
         graph_cache, eager_cache = caches
         got, _ = engine.decode(graph_cache, toks[t], pos)
         want, _ = engine.decode_eager(eager_cache, toks[t], pos)
+        leaves = (checkpoint.flatten_keys(c) for c in caches)
         if not (torch.equal(got, want) and all(
-                torch.equal(graph_cache[n], eager_cache[n])
-                for n in ("k", "v"))):
+                torch.equal(g, e) for g, e in zip(
+                    *(list(f.values()) for f in leaves), strict=True))):
             raise AssertionError(
                 f"{phase}, {what}, step {t}: the captured step's logits or "
                 f"cache differ from decode_eager's (max logit gap "
@@ -4822,6 +4880,615 @@ def phase_moe_tp(engine) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the audio and vision families (phases 34-36)
+# ---------------------------------------------------------------------------
+
+def av_config(arch: str, scheme: str = "tp-aware", **quant):
+    """The audio or vision ``arch`` at full width, tp-aware on the
+    kernels' auto backend (naive-actorder on backend=cuda); the vision
+    model's depth cut to ``VISION_LAYERS`` (2 of its 20 superblocks)."""
+    cfg = get_config(arch)
+    if arch == VISION:
+        cfg = cfg.with_(num_layers=VISION_LAYERS)
+    backend = "auto" if scheme == "tp-aware" else "cuda"
+    return cfg.with_quant(mode="mlp", scheme=scheme, backend=backend,
+                          **quant)
+
+
+def _av_key(cfg) -> str:
+    return "frames" if cfg.family == "audio" else "patches"
+
+
+def _av_batch(cfg) -> tuple[list, dict, torch.Tensor]:
+    """Phase 5's four prompts (4-31 tokens from seed 0), right-padded to
+    ``AV_BUDGET``, and frames or patches (B, encoder_seq | vision_tokens,
+    d_model) drawn in bf16 from seed 0 on the card (``make_batch``):
+    (prompts, batch, prompt lengths on the card)."""
+    rng = np.random.default_rng(0)
+    prompts = []
+    for _ in range(4):
+        plen = int(rng.integers(4, AV_BUDGET))
+        prompts.append(rng.integers(0, cfg.vocab_size, size=plen))
+    tokens = np.zeros((4, AV_BUDGET), np.int64)
+    for i, p in enumerate(prompts):
+        tokens[i, :p.size] = p
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    src = build_model(cfg).make_batch(gen, 4, AV_BUDGET)[_av_key(cfg)]
+    batch = {"tokens": torch.from_numpy(tokens).cuda(), _av_key(cfg): src}
+    plen = torch.tensor([p.size for p in prompts], device="cuda")
+    return prompts, batch, plen
+
+
+def _av_greedy(engine, batch: dict, plen, n: int = AV_NEW):
+    """``Engine.generate``'s greedy steps written out, each step's wall
+    (ending in a read of its ids) and logits kept: the cross prefill
+    (``Model.prefill_cross``), the prompt replay through ``decode`` (its
+    first step captures), then ``n - 1`` steps.  Returns (ids (B, n),
+    logits (B, n, V), cross prefill ms, each replay and decode step's
+    ms)."""
+    b = batch["tokens"].shape[0]
+    cache = engine.init_cache(b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with cm.row_blocks(engine.row_block):
+        engine.model.prefill_cross(engine.params, batch, cache,
+                                   engine.policy,
+                                   attn_backend=engine.attn_backend)
+    torch.cuda.synchronize()
+    cross_ms = (time.perf_counter() - t0) * 1e3
+    step_ms = []
+    last = torch.zeros((b, engine.model.cfg.vocab_size), device="cuda")
+    for t in range(batch["tokens"].shape[1]):
+        t0 = time.perf_counter()
+        logits, cache = engine.decode(cache, batch["tokens"][:, t], t)
+        last = torch.where((plen == t + 1)[:, None], logits, last)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    trace, ids = [last], [last.argmax(-1)]
+    pos = int(plen.max())
+    for i in range(n - 1):
+        t0 = time.perf_counter()
+        logits, cache = engine.decode(cache, ids[-1], pos + i)
+        ids.append(logits.argmax(-1))
+        ids[-1].tolist()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        trace.append(logits)
+    return torch.stack(ids, 1), torch.stack(trace, 1), cross_ms, step_ms
+
+
+def _drain(engine, cfg, prompts) -> tuple[dict, dict]:
+    """The scheduler's batch-drain mode (``Scheduler.run``) over the four
+    prompts, greedy, and ``Engine.generate`` of the same padded rows
+    beside zero frames or patches: (drained ids, generate's ids)."""
+    sched = Scheduler(engine, max_batch=4, prompt_budget=AV_BUDGET,
+                      scfg=GREEDY, seed=0)
+    for i, p in enumerate(prompts):
+        sched.submit(Request(rid=i, prompt=p.astype(np.int32),
+                             max_new_tokens=AV_NEW))
+    done = {rid: r.output for rid, r in sched.run().items()}
+    tokens = np.zeros((4, AV_BUDGET), np.int64)
+    for i, p in enumerate(prompts):
+        tokens[i, :p.size] = p
+    t = cfg.encoder_seq if cfg.family == "audio" else cfg.vision_tokens
+    zeros = torch.zeros((4, t, cfg.d_model), dtype=torch.bfloat16,
+                        device="cuda")
+    ids = engine.generate(None, {"tokens": torch.from_numpy(tokens),
+                                 _av_key(cfg): zeros},
+                          [p.size for p in prompts], max_new_tokens=AV_NEW,
+                          scfg=GREEDY)
+    return done, {i: row for i, row in enumerate(ids.tolist())}
+
+
+def _av_make(cfg, phase: str):
+    """The engine of ``cfg`` from seed 0 (the vision model's gates set to
+    ``VISION_GATE``: at their initial 0 the cross layers add nothing):
+    (engine, init seconds, params bytes, peak bytes during the init)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = make_engine(cfg, 0, device="cuda", max_seq=AV_MAX_SEQ,
+                         row_block=4)
+    if cfg.family == "vlm":
+        for sp in engine.params["super"]:
+            for gate in ("gate_attn", "gate_mlp"):
+                sp["cross"][gate].fill_(VISION_GATE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    if engine.policy.backend != "cuda":
+        raise AssertionError(f"{phase}: policy picked "
+                             f"{engine.policy.backend!r}")
+    nbytes = sum(t.nbytes for t in checkpoint.flatten_keys(
+        engine.params).values())
+    return engine, init_s, nbytes, torch.cuda.max_memory_allocated()
+
+
+def _av_serve(engine, cfg, kernel: str, phase: str) -> dict:
+    """Four requests through ``Engine.generate`` (greedy), counted: every
+    decode step (the prompt replay's and generation's) launches
+    ``kernel`` once per MLP weight of the decoder, and whisper's encoder
+    launches K1 once per MLP weight on its tensor-core loop (M = 4 x
+    1500); then the same greedy steps written out and timed, whose ids
+    must be generate's, and a second generate with the same ids."""
+    prompts, batch, plen = _av_batch(cfg)
+    per = mlp_launches(cfg)
+    enc = 2 * cfg.encoder_layers            # whisper's encoder MLPs
+    steps = AV_BUDGET + AV_NEW - 1
+    reset_counts()
+    t0 = time.perf_counter()
+    ids = engine.generate(None, batch, plen, max_new_tokens=AV_NEW,
+                          scfg=GREEDY)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    counts = read_counts()
+    want = {kernel: per * steps + enc}
+    if kernel == "dequant_matmul_ordered" and enc:
+        want[TC] = enc
+    expect_counts(counts, want, f"{phase} generate ({steps} decode steps)")
+    if ids.shape != (4, AV_NEW) or not ((ids >= 0) & (ids < cfg.vocab_size)
+                                        ).all():
+        raise AssertionError(f"{phase}: ids {tuple(ids.shape)} out of range")
+    again, logits, cross_ms, step_ms = _av_greedy(engine, batch, plen)
+    if not torch.equal(again, ids):
+        raise AssertionError(f"{phase}: the timed greedy run's ids differ "
+                             f"from generate's")
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"{phase}: logits not finite")
+    return {"scheme": cfg.quant.scheme, "generate_s": gen_s,
+            "decode_steps": steps, "launches": counts[kernel],
+            "counts": counts, "launches_per_step": per,
+            "encoder_tc_launches": counts[TC], "ids": ids.tolist(),
+            "cross_prefill_ms": cross_ms, "first_step_ms": step_ms[0],
+            "steady_ms_per_step": statistics.median(step_ms[1:]),
+            "step_ms": step_ms, "decode_mode": engine.decode_mode,
+            "tokens_per_s": 4 * AV_NEW / gen_s}, batch, plen, prompts
+
+
+def _av_capture(engine, cfg, batch: dict, steps: int, phase: str):
+    """``_captured_vs_eager`` with every cache's cross K/V filled from
+    ``batch``'s frames or patches first."""
+    def fill(cache):
+        engine.model.prefill_cross(engine.params, batch, cache,
+                                   engine.policy)
+    return _captured_vs_eager(engine, cfg, steps, phase, fill=fill)
+
+
+def phase_serve_av(arch: str) -> dict:
+    """Phases 34-35 (``serve whisper-large-v3``, ``serve
+    llama-3.2-vision-90b``): the arch at full width (the vision model at
+    ``VISION_LAYERS`` layers, its gates at ``VISION_GATE``) built from
+    seed 0; four requests with frames or patches from seed 0 through
+    ``Engine.generate``, counted (``_av_serve``) and timed (the cross
+    prefill, the first step with its capture, the steady step), greedy
+    ids equal over two runs; the captured step against ``decode_eager``
+    bit for bit; the scheduler's batch-drain mode against
+    ``Engine.generate`` on the same padded rows with zero frames or
+    patches; a few captured steps traced (K1's device ms a step against
+    its bytes bound, the busy share); whisper's encoder and cross
+    prefill timed alone (the encoder's K1 launches on the tensor-core
+    loop); whisper under naive-actorder (K4 only); the vision model's
+    2048-token forward with the flash kernel against the einsum one.
+    Returns the record."""
+    cfg = av_config(arch)
+    phase = f"serve {arch}"
+    engine, init_s, nbytes, init_peak = _av_make(cfg, phase)
+    full = get_config(arch).num_layers
+    line(phase, f"{describe(cfg)} full width"
+         + (f", depth cut from {full} to {cfg.num_layers} layers "
+            f"({cfg.num_layers // cfg.cross_attn_every} of "
+            f"{full // cfg.cross_attn_every} superblocks; the gates set to "
+            f"{VISION_GATE}: at 0 the cross layers add nothing)"
+            if cfg.num_layers != full else
+            f", encoder {cfg.encoder_layers} layers over "
+            f"{cfg.encoder_seq} frames")
+         + f": init {init_s:.1f}s, params {nbytes / 2**30:.2f} GiB (peak "
+         f"during the init {init_peak / 2**30:.2f} GiB)")
+    serve, batch, _, prompts = _av_serve(engine, cfg,
+                                         "dequant_matmul_ordered", phase)
+    out = {"layers": cfg.num_layers, "full_layers": full, "init_s": init_s,
+           "params_bytes": nbytes, "init_peak_bytes": init_peak,
+           "serve": serve}
+    line(phase, "4 requests ({} + {} tokens each, greedy) through "
+         "Engine.generate in {:.2f}s ({:.1f} tok/s): cross prefill {:.1f} "
+         "ms, the first step with its capture {:.1f} ms, then a median "
+         "{:.2f} ms a step (decode step: {}); K1 launches {} = {} x {} "
+         "steps{}; greedy ids equal over two runs; first ids {}".format(
+             AV_BUDGET, AV_NEW, serve["generate_s"], serve["tokens_per_s"],
+             serve["cross_prefill_ms"], serve["first_step_ms"],
+             serve["steady_ms_per_step"], serve["decode_mode"],
+             serve["launches"], serve["launches_per_step"],
+             serve["decode_steps"],
+             (f" + {serve['encoder_tc_launches']} on the tensor-core loop "
+              f"in the encoder (M = 4 x {cfg.encoder_seq})"
+              if cfg.family == "audio" else ""),
+             [row[:4] for row in serve["ids"]]))
+    steps = 4
+    captures, offsets, _ = _av_capture(engine, cfg, batch, steps,
+                                       f"capture {arch}")
+    out["capture"] = {"steps_each": steps, "captures": captures,
+                      "offsets": offsets, "bit_equal": True}
+    drained, generated = _drain(engine, cfg, prompts)
+    if drained != generated:
+        raise AssertionError(f"{phase}: batch-drain ids {drained} != "
+                             f"Engine.generate's {generated}")
+    out["batch_drain"] = {"ids": drained, "equal_to_generate": True}
+    line(f"capture {arch}", f"B=4, cross K/V of the request batch: "
+         f"{steps} lockstep and {steps} per-slot steps (offsets {offsets}) "
+         f"through the captured step bit-equal to decode_eager (logits, "
+         f"the self cache and the cross K/V after each step); captures "
+         f"{captures}; Scheduler.run() in batch-drain mode (zero "
+         f"{_av_key(cfg)}) gives Engine.generate's ids on the same padded "
+         f"rows: {[row[:4] for row in drained.values()]}")
+    per = mlp_launches(cfg)
+    out["trace"] = tr = phase_trace(engine, {"K1": _is_k1},
+                                    f"trace {arch}", expect={"K1": per},
+                                    steps=2)
+    k1 = tr["kernels"]["K1"]["launches_per_step"]
+    if k1 != per:
+        raise AssertionError(f"{arch}: {k1} K1 kernels per captured step on "
+                             f"the device, expected {per}")
+    if cfg.family == "audio":
+        out["encode"] = _time_encode(engine, cfg, batch)
+        naive = av_config(arch, "naive-actorder")
+        nengine, *_ = _av_make(naive, f"serve-naive {arch}")
+        out["serve_naive"] = _av_serve(nengine, naive,
+                                       "dequant_matmul_gidx",
+                                       f"serve-naive {arch}")[0]
+        s = out["serve_naive"]
+        line(f"serve-naive {arch}", "naive-actorder on backend=cuda: 4 "
+             "requests through Engine.generate, K4 launches {} = {} x {} "
+             "steps + {} in the encoder (K1 0), median step {:.2f} ms; ids "
+             "{} those of tp-aware".format(
+                 s["launches"], per, s["decode_steps"],
+                 2 * cfg.encoder_layers, s["steady_ms_per_step"],
+                 "equal to" if s["ids"] == serve["ids"] else "not all"))
+        del nengine
+    else:
+        out["forward_flash"] = _av_forward_flash(engine, cfg)
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def _time_encode(engine, cfg, batch: dict) -> dict:
+    """Whisper's encoder over the four requests' frames and the cross K/V
+    of its states written into a cache, each timed alone (host wall
+    ending in a synchronize, after a warm run), the encoder's K1 launches
+    counted (all on the tensor-core loop)."""
+    from repro_torch.models import whisper
+
+    frames = batch["frames"]
+    cache = engine.init_cache(frames.shape[0])
+
+    def encode():
+        return whisper.encode(cfg, engine.params, frames, engine.policy)
+
+    with torch.inference_mode():
+        enc = encode()
+        whisper.precompute_cross(cfg, engine.params, enc, cache)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        enc = encode()
+        torch.cuda.synchronize()
+        enc_ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counts()
+        t0 = time.perf_counter()
+        whisper.precompute_cross(cfg, engine.params, enc, cache)
+        torch.cuda.synchronize()
+        cross_ms = (time.perf_counter() - t0) * 1e3
+    n = 2 * cfg.encoder_layers
+    expect_counts(counts, {"dequant_matmul_ordered": n, TC: n},
+                  "whisper encode")
+    if not torch.isfinite(enc).all() or enc.shape != frames.shape:
+        raise AssertionError("whisper encode: states not finite or of "
+                             "another shape")
+    cross_bytes = 2 * cache["cross_k"].nbytes
+    line(f"serve {cfg.arch_id}", f"encode of 4 x {cfg.encoder_seq} frames "
+         f"{enc_ms:.1f} ms ({counts[TC]} K1 launches, all on the "
+         f"tensor-core loop), precompute_cross {cross_ms:.1f} ms "
+         f"({cross_bytes / 1e6:.1f} MB of bf16 cross K/V, "
+         f"{cross_bytes / 4 / 1e6:.1f} MB a request)")
+    return {"encode_ms": enc_ms, "precompute_cross_ms": cross_ms,
+            "counts": counts, "cross_bytes": cross_bytes}
+
+
+@torch.inference_mode()
+def _vision_layers(engine, batch: dict, attn_backend: str,
+                   carries=None) -> tuple[list, list]:
+    """The vision model's forward one layer at a time (self layers
+    through ``transformer.layer_forward`` under ``attn_backend``, the
+    gated cross layers on the einsum path): the carry entering each
+    layer and each layer's float32 output, before its cast; on the input
+    ``carries`` when given, else on its own."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models import vision_llama as vl
+
+    cfg, params = engine.model.cfg, engine.params
+    x = cm.embed_tokens(cfg, params["embed"], batch["tokens"])
+    own, outs = [], []
+    for sp in params["super"]:
+        for lp in sp["self"] + [None]:
+            xin = x if carries is None else carries[len(outs)]
+            own.append(xin)
+            y = (tfm.layer_forward(cfg, lp, xin, engine.policy,
+                                   attn_backend=attn_backend,
+                                   path=vl.SELF_MLP_PATH) if lp is not None
+                 else vl.cross_layer_forward(cfg, sp["cross"], xin,
+                                             batch["patches"],
+                                             engine.policy))
+            outs.append(y)
+            x = y.to(x.dtype)
+    return own, outs
+
+
+def _av_forward_flash(engine, cfg) -> dict:
+    """The vision model's full-sequence forward of one 2048-token
+    sequence beside patches from seed 0, with the flash kernel and with
+    the einsum attention on the same params: K2 once per self layer
+    (cross-attention stays on the einsum path), every K1 launch on its
+    tensor-core loop, the logits finite.  Then layer by layer on the
+    einsum forward's input carries: each layer's float32 output through
+    the flash kernel within 5e-3 of max|.| of the einsum layer's (the
+    two attentions differ by float32 sum order; free-running, this
+    random model without qk_norm amplifies that through its bf16 carry,
+    so the whole forward's logit gap and argmax agreement are reported,
+    not held)."""
+    s = AV_FORWARD_S
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = engine.model.make_batch(gen, 1, s)
+    flash = dataclasses.replace(engine, attn_backend="flash")
+    res, logits = {}, {}
+    nself = cfg.num_layers - cfg.num_layers // cfg.cross_attn_every
+    for name, eng in (("flash", flash), ("xla", engine)):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits[name] = eng.prefill_logits(batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = read_counts()
+        expect_counts(counts, {
+            "dequant_matmul_ordered": mlp_launches(cfg),
+            TC: mlp_launches(cfg),
+            "flash_attention": nself if name == "flash" else 0},
+            f"vision forward {name}")
+        res[name] = {"wall_ms": wall, "counts": counts}
+    lf, lx = logits.pop("flash"), logits.pop("xla")
+    if lf.shape != (1, s, cfg.vocab_size) or not (
+            torch.isfinite(lf).all() and torch.isfinite(lx).all()):
+        raise AssertionError("vision flash forward: logits not finite of "
+                             "the expected shape")
+    gap = (lf - lx).abs().max().item()
+    scale = lx.abs().max().item()
+    last_gap = (lf[:, -1] - lx[:, -1]).abs().max().item()
+    last_scale = lx[:, -1].abs().max().item()
+    agree = (lf.argmax(-1) == lx.argmax(-1)).float().mean().item()
+    # the yardstick of that drift: the einsum forward again with one
+    # patch element moved by one bf16 step
+    nudged = dict(batch, patches=batch["patches"].clone())
+    p0 = nudged["patches"][0, 0, 0]
+    nudged["patches"][0, 0, 0] = p0 + p0.abs().clamp(min=1e-3) * 2 ** -7
+    ln = engine.prefill_logits(nudged)
+    nudge_agree = (ln.argmax(-1) == lx.argmax(-1)).float().mean().item()
+    nudge_gap = (ln - lx).abs().max().item()
+    del lf, lx, ln, nudged
+    carries, refs = _vision_layers(engine, batch, "xla")
+    _, outs = _vision_layers(engine, batch, "flash", carries)
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(outs, refs, strict=True)):
+        rel = (a - b).abs().max().item() / b.abs().max().item()
+        if not rel <= 5e-3:
+            raise AssertionError(f"vision flash vs einsum, layer {i} on the "
+                                 f"same input carry: {rel:.3g} of max|.|")
+        worst = max(worst, rel)
+    del carries, refs, outs
+    out = dict(res, flash_launches=res["flash"]["counts"]["flash_attention"],
+               layer_max_rel_err=worst, max_logit_gap=gap, max_logit=scale,
+               last_gap=last_gap, last_max_logit=last_scale,
+               argmax_agree=agree, nudged_argmax_agree=nudge_agree,
+               nudged_max_logit_gap=nudge_gap)
+    line(f"serve {cfg.arch_id}", "forward B1 S{} with patches: flash {:.1f} "
+         "ms, xla {:.1f} ms wall; flash_attention launches {} = {} self "
+         "layers, K1 {} on the tensor-core loop; layer by layer on the "
+         "einsum forward's carries, flash within {:.3g} of max|.| (held "
+         "at 5e-3); the whole forward free-running (reported): last "
+         "position max logit gap {:.3g} (max|logit| {:.3g}), all positions "
+         "{:.3g} (max|logit| {:.3g}), argmax agrees at {:.2f}% of "
+         "positions; the einsum forward with one patch element moved by "
+         "one bf16 step: max logit gap {:.3g}, argmax agrees at {:.2f}%"
+         .format(s, res["flash"]["wall_ms"], res["xla"]["wall_ms"],
+                 out["flash_launches"], nself, res["flash"]["counts"][TC],
+                 worst, last_gap, last_scale, gap, scale, 100 * agree,
+                 nudge_gap, 100 * nudge_agree))
+    return out
+
+
+def phase_fold_whisper() -> dict:
+    """Phase 36: whisper at full depth with the attention V->O fold
+    (``attn_tp_aware``): prepared on the card at tp=1, the in-memory plan
+    served beside the same plan saved to a temporary directory and
+    served from it (``make_engine(artifact=DIR)``): greedy ids and logits
+    of the four requests bit-equal, every decode step launching K1 for
+    the decoder's MLP and for V and O in each decoder layer
+    (``fold_launches``: 128), the encoder's 64 on the tensor-core loop;
+    the aux holds the waived encoder and cross folds beside the consumed
+    one, and the engines keep only the decoder's."""
+    cfg = av_config(WHISPER, attn_tp_aware=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    art = compiler.prepare(cfg, tp=1, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    paths = sorted(art.aux["attn_plans"])
+    if paths != ["dec_layers.attn", "dec_layers.xattn", "enc_layers.attn"]:
+        raise AssertionError(f"fold-whisper: the aux folds {paths}")
+    memory = Engine(model=build_model(cfg), params=art.rank_tree(0),
+                    device=torch.device("cuda"), max_seq=AV_MAX_SEQ,
+                    aux=art.aux, row_block=4)
+    path, nbytes = _artifact_dir(list(art.rank_params) + [art.aux])
+    try:
+        t0 = time.perf_counter()
+        art.save(path)
+        save_s = time.perf_counter() - t0
+        files = {f: os.path.getsize(os.path.join(path, f))
+                 for f in sorted(os.listdir(path))}
+        t0 = time.perf_counter()
+        served = make_engine(cfg, device="cuda", max_seq=AV_MAX_SEQ,
+                             artifact=path, row_block=4)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(path)
+    del art
+    for eng in (memory, served):
+        folds = eng.aux["attn_plans"]
+        if sorted(folds) != ["dec_layers.attn"] or len(
+                folds["dec_layers.attn"]) != cfg.num_layers:
+            raise AssertionError(f"fold-whisper: the engine keeps "
+                                 f"{ {k: len(v) for k, v in folds.items()} }")
+    _, batch, plen = _av_batch(cfg)
+    per = fold_launches(cfg)
+    steps = AV_BUDGET + AV_NEW - 1
+    res = {}
+    for name, eng in (("in-memory", memory), ("artifact", served)):
+        reset_counts()
+        ids, logits, cross_ms, step_ms = _av_greedy(eng, batch, plen)
+        counts = read_counts()
+        enc = 2 * cfg.encoder_layers
+        expect_counts(counts, {"dequant_matmul_ordered": per * steps + enc,
+                               TC: enc}, f"fold-whisper {name}")
+        res[name] = {"ids": ids, "logits": logits, "counts": counts,
+                     "first_step_ms": step_ms[0],
+                     "steady_ms_per_step": statistics.median(step_ms[1:])}
+    a, b = res["in-memory"], res["artifact"]
+    if not (torch.equal(a["ids"], b["ids"])
+            and torch.equal(a["logits"], b["logits"])):
+        raise AssertionError("fold-whisper: the artifact's greedy ids or "
+                             "logits differ from the in-memory plan's")
+    tr = phase_trace(served, {"K1": _is_k1}, None, expect={"K1": per},
+                     steps=2)
+    out = {"prepare_s": prepare_s, "prepare_peak_bytes": peak,
+           "save_s": save_s, "load_s": load_s, "file_bytes": files,
+           "reckoned_bytes": nbytes, "aux_folds": paths,
+           "launches": b["counts"]["dequant_matmul_ordered"],
+           "counts": b["counts"], "launches_per_step": per,
+           "decode_steps": steps, "bit_equal": True,
+           "steady_ms_per_step": b["steady_ms_per_step"],
+           "first_step_ms": b["first_step_ms"], "trace": tr,
+           "ids": b["ids"].tolist()}
+    line("fold-whisper", "{} with attn_tp_aware: prepared on the card in "
+         "{:.1f}s (peak {:.2f} GiB; aux folds {}), saved in {:.1f}s "
+         "({:.2f} GB of files, aux.npz {:.3f} GB), loaded in {:.1f}s; the "
+         "engines keep the {} decoder folds; 4 requests greedy: ids and "
+         "logits of the artifact bit-equal to the in-memory plan's; K1 "
+         "launches {} = {} x {} steps + {} in the encoder; median step "
+         "{:.2f} ms; traced: {:.2f} ms of kernels a step, K1 {:.3f} ms in "
+         "{:.0f} launches, busy {:.1f}%".format(
+             describe(cfg), prepare_s, peak / 2**30, paths, save_s,
+             sum(files.values()) / 1e9, files.get("aux.npz", 0) / 1e9,
+             load_s, cfg.num_layers, out["launches"], per, steps,
+             2 * cfg.encoder_layers, out["steady_ms_per_step"],
+             tr["device_ms_per_step"], tr["kernels"]["K1"]["ms_per_step"],
+             tr["kernels"]["K1"]["launches_per_step"],
+             100 * tr["busy_share"]))
+    del memory, served
+    torch.cuda.empty_cache()
+    return out
+
+
+def _check_time_av(gen) -> dict:
+    """The kernels at the audio and vision paths' shapes, each against its
+    plain version (float32 and bfloat16, ``TOL``) and timed (CUDA-graph
+    replay, weights beyond L2) against its bound: K1 and K4 at whisper's
+    decoder MLP (M=4), K1 at the vision model's (M=4), K1 at whisper's
+    encoder MLP (M = 4 x 1500: its tensor-core loop), K1 at whisper's
+    fold V and O (M=4), and K2 at the vision forward's self-attention
+    (B1 H64 S2048 D128, causal) against ``FLASH_TOL``, its bound and
+    ``scaled_dot_product_attention``."""
+    wcfg, vcfg = av_config(WHISPER), av_config(VISION)
+    wsh, vsh, wfold = mlp_shapes(wcfg), mlp_shapes(vcfg), fold_shapes(wcfg)
+    enc_m = 4 * wcfg.encoder_seq
+    decode = [(4, k, n, gs) for _, k, n, gs in wsh + vsh + wfold]
+    kernel = (lambda x, ql, dt: ops.dequant_matmul(x, ql, compute_dtype=dt))
+    ordered = _check_gemm(
+        gen, "dequant_matmul_ordered (audio and vision shapes)",
+        decode + [(enc_m, k, n, gs) for _, k, n, gs in wsh], "ordered",
+        kernel, lambda x, ql, dt: dk.dequant_matmul_ordered_torch(
+            x, ql.qweight, ql.scales, ql.zeros, group_size=ql.group_size,
+            compute_dtype=dt), phase="kernels-av")
+    gidx = _check_gemm(
+        gen, "dequant_matmul_gidx (audio shapes)",
+        [(4, k, n, gs) for _, k, n, gs in wsh], "naive", kernel,
+        lambda x, ql, dt: dk.dequant_matmul_gidx_torch(
+            x, ql.qweight, ql.scales, ql.zeros, ql.g_idx, compute_dtype=dt),
+        phase="kernels-av")
+
+    def err(res, shapes, m):
+        return max(r["max_abs_err"] for r in res["cases"]
+                   if r["m"] == m and r["dtype"] == str(torch.float32)
+                   and (r["k"], r["n"]) in {(k, n) for _, k, n, _ in shapes})
+
+    out = {"errs": {"whisper": err(ordered, wsh, 4),
+                    "whisper_naive": err(gidx, wsh, 4),
+                    "vision": err(ordered, vsh, 4),
+                    "whisper_fold": err(ordered, wfold, 4),
+                    "whisper_encoder": err(ordered, wsh, enc_m)},
+           "check": {"ordered": ordered, "gidx": gidx}}
+    for key, layout, shapes, gated in (
+            ("whisper", "ordered", wsh, False),
+            ("whisper_naive", "naive", wsh, False),
+            ("vision", "ordered", vsh, True),
+            ("whisper_fold", "ordered", wfold, False)):
+        r = _time_gemm(gen, layout, shapes=shapes)
+        r["layer"] = _layer(r, shapes, gated)
+        out[key] = r
+        line("kernels-av", "{} f32 M=4 {}, CUDA-graph replay: ".format(
+            "K4" if layout == "naive" else "K1", key) + "; ".join(
+                "{} (K {} N {} gs {}) {:.4f} ms (bound {:.4f} by {}: "
+                "{:.2f} MB; plain {:.4f})".format(
+                    name.split(" ", 1)[1], k, n, gs, r[name]["ms"],
+                    r[name]["bound_ms"], r[name]["bound_by"],
+                    r[name]["bytes"] / 1e6, r[name]["plain_ms"])
+                for name, k, n, gs in shapes)
+            + "; per layer {:.4f} ms (bound {:.4f})".format(
+                r["layer"]["ms"], r["layer"]["bound_ms"]))
+        torch.cuda.empty_cache()
+    enc = _time_k1_large(gen, enc_m, shapes=wsh, cfg=wcfg)
+    out["whisper_encoder"] = enc
+    line("kernels-av", "K1 f32 M={} whisper encoder MLP (tensor-core loop), "
+         "CUDA-graph replay: per layer {:.3f} ms (bound {:.3f} by "
+         "operations, plain {:.3f}, matmul on the dequantized weight "
+         "{:.3f} [context]), x {} layers = {:.1f} ms an encode".format(
+             enc_m, enc["per_layer_ms"], enc["per_layer_bound_ms"],
+             enc["per_layer_plain_ms"],
+             enc["per_layer_matmul_dequantized_ms"], wcfg.encoder_layers,
+             enc["per_layer_ms"] * wcfg.encoder_layers))
+    h = vcfg.n_heads
+    shape = (1, h, AV_FORWARD_S, vcfg.head_dim, True, None)
+    q, k, v = (torch.randn(shape[:4], generator=gen, device="cuda")
+               for _ in range(3))
+    y = fa.flash_attention(q, k, v, causal=True)
+    ref = fa.flash_attention_torch(q, k, v, causal=True)
+    rows = []
+    _within(rows, (y - ref).abs().max().item(), ref,
+            *FLASH_TOL[torch.float32], "flash_attention (vision shape)")
+    del q, k, v, y, ref
+    fl = _time_flash(gen, shape)
+    fl["max_abs_err"] = rows[0]["max_abs_err"]
+    out["flash_vision"] = fl
+    line("kernels-av", "K2 f32 B1 H{} S=T={} D{} causal (the vision forward's "
+         "self-attention): {:.4f} ms (bound {:.4f} by {}; plain {:.4f}); "
+         "scaled_dot_product_attention {:.4f} [library, backend {}]; "
+         "max_abs_err {:.3g} against the plain version".format(
+             h, AV_FORWARD_S, vcfg.head_dim, fl["ms"], fl["bound_ms"],
+             fl["bound_by"], fl["plain_ms"], fl["library_ms"],
+             fl["sdpa"]["backend"], fl["max_abs_err"]))
+    return out
+
+
 def _entry(name, source, replaces, launches, max_abs_err, t: dict,
            library_ms=None) -> dict:
     return {"name": name, "route": "cuda", "source": source,
@@ -4926,6 +5593,10 @@ def main() -> int:
     moe_tp = phase_moe_tp(moe_engine)
     del moe_engine
     torch.cuda.empty_cache()
+    av_kernels = _check_time_av(gen)
+    serve_whisper = phase_serve_av(WHISPER)
+    serve_vision = phase_serve_av(VISION)
+    fold_whisper = phase_fold_whisper()
 
     src = "src/repro_torch/csrc/"
     tpu = "src/repro/kernels/"
@@ -5130,6 +5801,50 @@ def main() -> int:
                    for p in MOE_TP_PLANS), errs["K1"],
                mt[q]["ordered_tp2"]["expert"]),
     ]
+    # the audio and vision families (phases 34-36): K1 on whisper's
+    # decoder MLP (per layer, M=4) and its encoder's (the tensor-core
+    # loop, M = 4 x 1500), K4 under naive-actorder, K1 on the vision
+    # model's MLP, K2 on its 2048-token forward, K1 on whisper's fold V
+    # and O
+    ak, sw, sv = av_kernels, serve_whisper, serve_vision
+    enc = ak["whisper_encoder"]
+    kernels += [
+        _entry(f"dequant_matmul_ordered ({WHISPER} decoder MLP, 32 layers; "
+               "per layer M=4)", src + "dequant_matmul_ordered.cu",
+               tpu + "dequant_matmul.py:104",
+               sw["serve"]["launches"] - sw["serve"]["encoder_tc_launches"],
+               ak["errs"]["whisper"], ak["whisper"]["layer"]),
+        _entry(f"dequant_matmul_ordered (tensor cores, {WHISPER} encoder "
+               f"MLP, M={4 * get_config(WHISPER).encoder_seq}; per layer)",
+               src + "dequant_matmul_ordered.cuh",
+               tpu + "dequant_matmul.py:104",
+               sw["serve"]["encoder_tc_launches"],
+               ak["errs"]["whisper_encoder"],
+               {"ms": enc["per_layer_ms"],
+                "plain_ms": enc["per_layer_plain_ms"],
+                "bound_ms": enc["per_layer_bound_ms"],
+                "bound_by": "operations"}),
+        _entry(f"dequant_matmul_gidx ({WHISPER}, naive-actorder: decoder "
+               "MLP and encoder MLP; timed per decoder layer, M=4)",
+               src + "dequant_matmul_gidx.cu", tpu + "dequant_matmul.py:333",
+               sw["serve_naive"]["launches"], ak["errs"]["whisper_naive"],
+               ak["whisper_naive"]["layer"]),
+        _entry(f"dequant_matmul_ordered ({VISION}, {VISION_LAYERS} layers; "
+               "per layer M=4)", src + "dequant_matmul_ordered.cu",
+               tpu + "dequant_matmul.py:104", sv["serve"]["launches"],
+               ak["errs"]["vision"], ak["vision"]["layer"]),
+        _entry(f"flash_attention ({VISION} S{AV_FORWARD_S} forward, "
+               f"{sv['forward_flash']['flash_launches']} self layers)",
+               src + "flash_attention.cu", tpu + "flash_attention.py:107",
+               sv["forward_flash"]["flash_launches"],
+               ak["flash_vision"]["max_abs_err"], ak["flash_vision"],
+               ak["flash_vision"]["library_ms"]),
+        _entry(f"dequant_matmul_ordered ({WHISPER} V->O fold artifact: "
+               "decoder MLP, V and O, encoder MLP; timed V and O per "
+               "decoder layer, M=4)", src + "dequant_matmul_ordered.cu",
+               tpu + "dequant_matmul.py:104", fold_whisper["launches"],
+               ak["errs"]["whisper_fold"], ak["whisper_fold"]["layer"]),
+    ]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"nvidia_smi": smi, "build": build, "check": checks,
@@ -5149,7 +5864,10 @@ def main() -> int:
                    "overlap_tp": overlap_tp, "mesh_dp": mesh_dp,
                    "batch_solo": batch_solo, "serve_moe": moe_serve,
                    "artifact_moe": moe_art, "moe_ep": moe_ep,
-                   "moe_tp": moe_tp, "kernels": kernels,
+                   "moe_tp": moe_tp, "kernels_av": av_kernels,
+                   "serve_whisper": serve_whisper,
+                   "serve_vision": serve_vision,
+                   "fold_whisper": fold_whisper, "kernels": kernels,
                    "phase_seconds": phase_seconds(),
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(json.dumps({"kernels": kernels}))

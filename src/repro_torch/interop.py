@@ -2,10 +2,16 @@
 
 Files are the npz format of ``repro/train/checkpoint.py::save``, which
 ``repro_torch/train/checkpoint.py`` reads and writes.  What differs is
-the layout: the reference stacks a dense model's layers along a leading
-dim (leaves ``(L, ...)`` under ``layers``, for ``lax.scan``), the port
-holds a list of per-layer dicts.  ``to_port_layout`` and
-``to_reference_layout`` convert between the two.
+the layout: the reference stacks layers along leading dims (for
+``lax.scan``), the port holds lists of per-layer dicts.  Each family
+module declares where its reference tree stacks layers and how many
+leading dims it stacks there (``LAYER_STACKS``: ``layers`` 1 for the
+dense and MoE families, ``enc_layers`` and ``dec_layers`` 1 for whisper,
+``super`` 1 and ``super.self`` 2 for the vision model, whose
+``(n_super, n_self)`` self layers become a list of lists).
+``to_port_layout`` and ``to_reference_layout`` convert between the two
+by those declarations (every family's at once: their prefixes never
+collide).
 """
 
 from __future__ import annotations
@@ -31,24 +37,74 @@ def stack_layers(layers: list) -> Any:
         layers[0], lambda key, _: torch.stack([f[key] for f in flats]))
 
 
+def all_layer_stacks() -> dict:
+    """Every family's ``LAYER_STACKS`` as one map."""
+    from repro_torch.models.registry import layer_stacks
+
+    return layer_stacks()
+
+
+def stack_levels(stacks: dict, path: str) -> int:
+    """How many leading dims the stacked prefix ``path`` adds to those of
+    the longest stacked prefix above it (``super.self``: 2 - 1 = 1)."""
+    parts = path.split(".")
+    above = next((stacks[p] for p in (".".join(parts[:i])
+                                      for i in range(len(parts) - 1, 0, -1))
+                  if p in stacks), 0)
+    return stacks[path] - above
+
+
+def _depth(node: Any) -> int:
+    return next(iter(checkpoint.flatten_keys(node).values())).shape[0]
+
+
 def to_port_layout(tree: Any) -> Any:
-    """A tree in the reference's layout with its layer stack split into
-    the port's list of layers (other trees unchanged)."""
-    if not isinstance(tree, dict) or not isinstance(tree.get("layers"),
-                                                    dict):
-        return tree
-    leaves = checkpoint.flatten_keys(tree["layers"])
-    depth = next(iter(leaves.values())).shape[0]
-    return dict(tree, layers=unstack_layers(tree["layers"], depth))
+    """A tree in the reference's layout with each stacked prefix split
+    into (nested) lists of per-layer trees; other trees unchanged."""
+    stacks = all_layer_stacks()
+
+    def split(node, levels: int, path: str):
+        if levels == 0:
+            return conv(node, path)
+        return [split(item, levels - 1, path)
+                for item in unstack_layers(node, _depth(node))]
+
+    def conv(node, path: str):
+        if not isinstance(node, dict):
+            return node
+        out = {}
+        for k, v in node.items():
+            p = f"{path}.{k}" if path else str(k)
+            out[k] = (split(v, stack_levels(stacks, p), p)
+                      if p in stacks and isinstance(v, dict)
+                      else conv(v, p))
+        return out
+
+    return conv(tree, "")
 
 
 def to_reference_layout(tree: Any) -> Any:
-    """A port tree with its list of layers stacked, as the reference
-    holds it (other trees unchanged)."""
-    if not isinstance(tree, dict) or not isinstance(tree.get("layers"),
-                                                    list):
-        return tree
-    return dict(tree, layers=stack_layers(tree["layers"]))
+    """A port tree with its (nested) lists of layers stacked at each
+    stacked prefix, as the reference holds it; other trees unchanged."""
+    stacks = all_layer_stacks()
+
+    def join(node, levels: int, path: str):
+        if levels == 0:
+            return conv(node, path)
+        return stack_layers([join(item, levels - 1, path) for item in node])
+
+    def conv(node, path: str):
+        if not isinstance(node, dict):
+            return node
+        out = {}
+        for k, v in node.items():
+            p = f"{path}.{k}" if path else str(k)
+            out[k] = (join(v, stack_levels(stacks, p), p)
+                      if p in stacks and isinstance(v, list)
+                      else conv(v, p))
+        return out
+
+    return conv(tree, "")
 
 
 def load_tree(path: str, *, device: DeviceLike = None) -> Any:
@@ -61,9 +117,9 @@ def load_tree(path: str, *, device: DeviceLike = None) -> Any:
 
 
 def load_params(path: str, *, device: DeviceLike = None) -> dict:
-    """A dense model's JAX params (``checkpoint.save`` npz) as the port's
-    params on ``device`` (default: the CUDA card; raises without one): the
-    layer stack split into a list of layers."""
+    """A model's JAX params (``checkpoint.save`` npz) as the port's params
+    on ``device`` (default: the CUDA card; raises without one): the layer
+    stacks split into lists of layers."""
     dev = resolve_device(device)
     return checkpoint.map_tensors(to_port_layout(checkpoint.load(path)),
                                   lambda _, t: t.to(dev))

@@ -45,6 +45,12 @@ one-shot lifecycle, and prepare-once / serve-many).
   layouts) is the port's choice at load, whatever backend the manifest
   names (``plan/artifact.py``).
 
+The audio and vision families (``--arch whisper-large-v3``,
+``llama-3.2-vision-90b``) are served in-process by the scheduler's
+batch-drain mode (zero frames or patches beside each batch of prompts,
+as in the reference); ``--http`` refuses them and exits 1, as the
+reference's loop refuses them.
+
 ``--kv-page-size N [--kv-bits 8|4]`` serves from the paged KV cache
 (``cache/``): on the in-memory plan through the config, and over an
 ``--artifact`` as a runtime override of its policy, never of its config
@@ -290,8 +296,11 @@ def _serve(args, device, group=None, transport="1 device"):
 def fold_layers(engine) -> str:
     """How many layers' attention the engine runs through a V->O fold
     (``"36 layers"``), or ``"none"``."""
+    def count(node) -> int:
+        return sum(map(count, node)) if isinstance(node, list) else 1
+
     plans = (engine.aux or {}).get("attn_plans") or {}
-    n = sum(len(v) for v in plans.values())
+    n = sum(count(v) for v in plans.values())
     return f"{n} layers" if n else "none"
 
 
@@ -302,11 +311,15 @@ def _serve_http(args, device):
     cfg, engine = _engine(args, device)
     policy = engine.policy
     host, _, port = args.http.rpartition(":")
-    srv = ServingServer(
-        engine, host=host or "127.0.0.1", port=int(port or 0),
-        max_batch=args.max_batch, prompt_budget=args.prompt_budget,
-        scfg=SamplingConfig(temperature=args.temperature, top_k=40),
-        seed=args.seed, queue_capacity=args.queue_capacity)
+    try:
+        srv = ServingServer(
+            engine, host=host or "127.0.0.1", port=int(port or 0),
+            max_batch=args.max_batch, prompt_budget=args.prompt_budget,
+            scfg=SamplingConfig(temperature=args.temperature, top_k=40),
+            seed=args.seed, queue_capacity=args.queue_capacity)
+    except ValueError as e:
+        # the loop refuses batch-drain families (audio, vision)
+        raise SystemExit(f"error: {e}") from None
     source = f"artifact={args.artifact}" if args.artifact else \
         "in-memory plan"
     print(f"serving {cfg.arch_id} on http://{srv.address[0]}:{srv.port} "

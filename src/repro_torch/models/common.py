@@ -1,4 +1,4 @@
-"""Shared model substrate (dense subset); port of ``repro/models/common.py``.
+"""Shared model substrate; port of ``repro/models/common.py``.
 
 Params are plain dicts of tensors, one dict per layer (the reference
 stacks layers along a leading L dim for ``lax.scan``).  Where the
@@ -348,8 +348,9 @@ def _out_proj(p, out, group, vo: Optional[PlannedPair] = None,
 def attention_forward(cfg: ModelConfig, p, x, *, positions=None,
                       window=None, causal=True, attn_backend="xla",
                       group=None, vo: Optional[PlannedPair] = None,
-                      policy: Optional[ExecutionPolicy] = None):
-    """Full-sequence self-attention.
+                      policy: Optional[ExecutionPolicy] = None,
+                      kv_x: Optional[torch.Tensor] = None):
+    """Full-sequence attention (prefill, an encoder, cross-attention).
 
     ``attn_backend`` as in the reference's ``ParallelContext``: ``"xla"``
     is the einsum path (under the reference's name), ``"flash"`` the flash
@@ -358,29 +359,37 @@ def attention_forward(cfg: ModelConfig, p, x, *, positions=None,
     a time: each chunk's softmax rows see the whole key range, so the
     result is the unchunked one, while the score tensor shrinks from
     (S, T) to (Q_CHUNK, T) (the reference's ``chunk_scan=False`` form).
-    ``vo``: a V->O fold, whose GEMMs run under ``policy``."""
+    ``vo``: a V->O fold, whose GEMMs run under ``policy``.
+
+    ``kv_x`` (B, T, d): the source sequence of cross-attention, which K
+    and V are projected from.  Cross-attention takes no RoPE and no mask,
+    and never the flash kernel or the Q chunks, as in the reference."""
     if attn_backend not in ATTN_BACKENDS:
         raise ValueError(f"unknown attn_backend {attn_backend!r}, expected "
                          f"one of {ATTN_BACKENDS}")
+    cross = kv_x is not None
+    src = kv_x if cross else x
     b, s, _ = x.shape
+    t = src.shape[1]
     hd = cfg.head_dim
     h, kvh = _local_heads(cfg, p)
     q = matmul(x, p["wq"]).reshape(b, s, h, hd)
-    k = matmul(x, p["wk"]).reshape(b, s, kvh, hd)
-    v = (_vo_project_v(vo, x, policy) if vo is not None
-         else matmul(x, p["wv"])).reshape(b, s, kvh, hd)
+    k = matmul(src, p["wk"]).reshape(b, t, kvh, hd)
+    v = (_vo_project_v(vo, src, policy) if vo is not None
+         else matmul(src, p["wv"])).reshape(b, t, kvh, hd)
     if cfg.qk_norm:
         q = rms_head_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_head_norm(k, p["k_norm"], cfg.norm_eps)
-    if cfg.use_rope:
+    if cfg.use_rope and not cross:
         if positions is None:
             positions = torch.arange(s, device=x.device)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    if attn_backend == "flash":
+    if attn_backend == "flash" and not cross:
         return _out_proj(p, _flash_sdpa(q, k, v, causal=causal,
                                         window=window), group, vo, policy,
                          x.dtype)
+    causal = causal and not cross
 
     def mask_rows(i0: int, rows: int):
         """The causal (and window) mask of query rows i0 .. i0 + rows."""
@@ -495,6 +504,22 @@ def attention_decode(cfg: ModelConfig, p, x, cache, pos, *, window=None,
     mask = valid[:, None, :].expand(b, 1, cap)
     out = row_stable(_sdpa_decode, q, ck.to(x.dtype), cv.to(x.dtype), mask)
     return _out_proj(p, out, group, vo, policy, x.dtype), cache
+
+
+def cross_attention_decode(cfg: ModelConfig, p, x, k, v, *, group=None):
+    """One query a row against precomputed cross K/V (the audio and vision
+    families' decode): x (B, 1, d) the normed residual; k/v (B, T, KV, D),
+    this rank's KV heads, cast to ``x``'s dtype as the reference casts
+    them; no mask (every source position is valid).  Under TP ``wo`` holds
+    this rank's rows and the product closes with the all-reduce that
+    closes self-attention.  Returns (B, 1, d)."""
+    b = x.shape[0]
+    h, _ = _local_heads(cfg, p)
+    q = matmul(x, p["wq"]).reshape(b, 1, h, cfg.head_dim)
+    # a fill on the card, not a host tensor: a CUDA graph can hold it
+    mask = torch.ones((b, 1, k.shape[1]), dtype=torch.bool, device=x.device)
+    out = row_stable(_sdpa_decode, q, k.to(x.dtype), v.to(x.dtype), mask)
+    return _out_proj(p, out, group)
 
 
 def init_kv_cache(cfg: ModelConfig, num_layers: int, batch: int,

@@ -66,6 +66,11 @@ DENSE_MLP_PATH = "layers.moe.dense_mlp"
 #: the key ``init_params`` stages each expert's raw weights under
 EXPERT_KEY = "experts"
 
+#: the stacked layer prefixes of the reference's tree and how many
+#: leading dims each stacks (``interop``, the artifact's layout); the
+#: experts' ``E`` dim stays a dim of their leaves
+LAYER_STACKS = {"layers": 1}
+
 
 def _capacity(cfg: ModelConfig, tokens: int) -> int:
     c = int(cfg.capacity_factor * tokens * cfg.top_k / cfg.num_experts)

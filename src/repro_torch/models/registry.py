@@ -1,7 +1,7 @@
-"""Model registry (the dense and MoE families); port of
+"""Model registry (the dense, MoE, audio and vision families); port of
 ``repro/models/registry.py``.
 
-The other families follow in the order of ``ROADMAP.md``.
+The recurrent families follow in the order of ``ROADMAP.md``.
 """
 
 from __future__ import annotations
@@ -14,9 +14,20 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.policy import ExecutionPolicy
 from repro_torch.device import DeviceLike, new_generator, resolve_device
-from repro_torch.models import moe, transformer
+from repro_torch.models import moe, transformer, vision_llama, whisper
 
-_FAMILY_MODULES = {"dense": transformer, "moe": moe}
+_FAMILY_MODULES = {"dense": transformer, "moe": moe, "audio": whisper,
+                   "vlm": vision_llama}
+
+
+def layer_stacks() -> dict:
+    """Every family's stacked layer prefixes (``LAYER_STACKS``: dotted
+    path -> leading dims stacked there in the reference's tree), as one
+    map: the prefixes of different families never collide."""
+    out: dict = {}
+    for mod in _FAMILY_MODULES.values():
+        out.update(getattr(mod, "LAYER_STACKS", {}))
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +87,51 @@ class Model:
         return getattr(self.module, "ATTN_VO_PATH", None)
 
     @property
+    def attn_vo_waived(self) -> dict:
+        """Folds the plan compiler makes for this family that its runtime
+        does not consume, with the reason (``ATTN_VO_WAIVED``): an
+        artifact may carry them, and the engine leaves them unused."""
+        return dict(getattr(self.module, "ATTN_VO_WAIVED", {}))
+
+    @property
+    def has_cross(self) -> bool:
+        """The decoder attends to a source that prefill writes into the
+        cache (whisper's encoder states, the vision patches):
+        ``prefill_cross`` runs before the prompt replay."""
+        return hasattr(self.module, "prefill_cross")
+
+    def prefill_cross(self, params, batch: dict, cache,
+                      policy: ExecutionPolicy, *, attn_backend="xla",
+                      group=None) -> None:
+        """Fill ``cache``'s cross K/V from ``batch`` (its ``"frames"`` or
+        ``"patches"``) in place."""
+        need = "frames" if self.cfg.family == "audio" else "patches"
+        if need not in batch:
+            raise ValueError(f"family {self.cfg.family!r} needs "
+                             f"batch[{need!r}] beside the tokens")
+        self.module.prefill_cross(self.cfg, params, batch, cache, policy,
+                                  attn_backend=attn_backend, group=group)
+
+    def make_batch(self, gen: torch.Generator, batch: int, seq_len: int,
+                   *, dtype=torch.bfloat16) -> dict:
+        """A random batch on ``gen.device``: ``"tokens"`` (B, S) and, for
+        the audio and vision families, the stubs' ``"frames"`` (B,
+        encoder_seq, d) or ``"patches"`` (B, vision_tokens, d) in
+        ``dtype``, the reference's ``make_batch`` shapes."""
+        cfg, dev = self.cfg, gen.device
+        out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, seq_len),
+                                       generator=gen, device=dev)}
+        if cfg.family == "audio":
+            out["frames"] = torch.randn(
+                (batch, cfg.encoder_seq, cfg.d_model), generator=gen,
+                device=dev).to(dtype)
+        if cfg.family == "vlm":
+            out["patches"] = torch.randn(
+                (batch, cfg.vision_tokens, cfg.d_model), generator=gen,
+                device=dev).to(dtype)
+        return out
+
+    @property
     def supports_experts(self) -> bool:
         """The family's layers hold MoE experts, which a data group can
         spread over its processes (expert parallelism, ``ep_group``)."""
@@ -121,16 +177,20 @@ class Model:
 
     def init_paged_cache(self, n_pages: int, page_size: int, *,
                          bits=None, dtype=torch.bfloat16,
-                         device: DeviceLike = None, tp: int = 1):
+                         device: DeviceLike = None, tp: int = 1,
+                         batch: Optional[int] = None):
         """A page pool in place of ``init_cache``'s dense rows, for the
-        families whose KV grows with the sequence."""
+        families whose KV grows with the sequence; ``batch``: the slots
+        of the dense cross K/V beside it (the audio and vision
+        families)."""
         if not self.supports_paged:
             raise ValueError(
                 f"family {self.cfg.family!r} has no paged cache (its decode "
                 "state is fixed-size per slot)")
+        kw = {} if batch is None else {"batch": batch}
         return self.module.init_paged_cache(
             self.cfg, n_pages, page_size, bits=bits, dtype=dtype,
-            device=resolve_device(device), tp=tp)
+            device=resolve_device(device), tp=tp, **kw)
 
     @property
     def supports_paged(self) -> bool:

@@ -36,20 +36,39 @@ SUPPORTS_ATTN_VO = True
 ATTN_VO_PATH = "layers.attn"
 
 
+#: the stacked layer prefixes of the reference's tree and how many
+#: leading dims each stacks (``interop``, the artifact's layout)
+LAYER_STACKS = {"layers": 1}
+
+
+def layer_folds(aux, path: str, dims: tuple) -> list:
+    """The V->O folds at ``path`` of the aux tree's ``attn_plans`` as
+    nested per-layer lists of shape ``dims`` (``(L,)``, or ``(ns, nself)``
+    for a two-level stack), None at every layer without one: a fold
+    stacked over the layers (as the artifact holds it) is split into
+    per-layer views; a list is taken as it is."""
+    def nones(dims):
+        return [None if len(dims) == 1 else nones(dims[1:])
+                for _ in range(dims[0])]
+
+    def split(vo, dims):
+        if isinstance(vo, list):
+            out = vo
+        else:
+            out = [map_tensors(vo, lambda _, t, i=i: t[i])
+                   for i in range(vo.up.qweight.shape[0])]
+        if len(out) != dims[0]:
+            raise ValueError(f"the V->O fold at {path} has {len(out)} "
+                             f"layers, the model {dims[0]}")
+        return out if len(dims) == 1 else [split(v, dims[1:]) for v in out]
+
+    vo = ((aux or {}).get("attn_plans") or {}).get(path)
+    return nones(dims) if vo is None else split(vo, dims)
+
+
 def _layer_vo(aux, num_layers: int) -> list:
-    """One V->O fold (or None) for each of the ``num_layers`` layers: the
-    aux tree's fold at ``ATTN_VO_PATH``, its stacked leaves split into
-    per-layer views, or its list of layers as it is."""
-    vo = ((aux or {}).get("attn_plans") or {}).get(ATTN_VO_PATH)
-    if vo is None:
-        return [None] * num_layers
-    if not isinstance(vo, list):
-        vo = [map_tensors(vo, lambda _, t, i=i: t[i])
-              for i in range(vo.up.qweight.shape[0])]
-    if len(vo) != num_layers:
-        raise ValueError(f"the V->O fold has {len(vo)} layers, the model "
-                         f"{num_layers}")
-    return vo
+    """One V->O fold (or None) for each of the ``num_layers`` layers."""
+    return layer_folds(aux, ATTN_VO_PATH, (num_layers,))
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, *,
@@ -95,27 +114,42 @@ def param_specs(cfg: ModelConfig, params, tp: int):
                                       params["final_norm"], tp)}
 
 
-def _mlp_residual(cfg, lp, x, h, policy, group):
+def _mlp_residual(cfg, lp, x, h, policy, group, path=MLP_PATH):
     """``x + h`` then the MLP block's residual (bf16 + f32 promotes to f32
     in both frameworks; the caller casts back to the carry's dtype, as
-    the reference's scan does)."""
+    the reference's scan does).  ``path``: the MLP's pair path."""
     y = x + h
     return y + cm.mlp_forward(cfg, lp["mlp"],
                               cm.apply_norm(cfg, lp["ln2"], y), policy,
-                              group=group, path=MLP_PATH)
+                              group=group, path=path)
 
 
 def layer_forward(cfg: ModelConfig, lp, x, policy: ExecutionPolicy, *,
-                  window=None, attn_backend="xla", group=None, vo=None):
-    """One layer of the forward (the reference's scan body): attention
-    (through the V->O fold ``vo`` when given), then the MLP block, each on
-    the pre-normed residual; the result before its cast to the carry's
-    dtype."""
+                  window=None, attn_backend="xla", group=None, vo=None,
+                  path=MLP_PATH):
+    """One layer of the forward (the reference's scan body, ``_layer``):
+    attention (through the V->O fold ``vo`` when given), then the MLP
+    block (pair path ``path``), each on the pre-normed residual; the
+    result before its cast to the carry's dtype."""
     h = cm.attention_forward(cfg, lp["attn"], cm.apply_norm(cfg, lp["ln1"], x),
                              window=window, causal=cfg.causal,
                              attn_backend=attn_backend, group=group, vo=vo,
                              policy=policy)
-    return _mlp_residual(cfg, lp, x, h, policy, group)
+    return _mlp_residual(cfg, lp, x, h, policy, group, path)
+
+
+def layer_decode(cfg: ModelConfig, lp, x, layer_cache, pos,
+                 policy: ExecutionPolicy, *, window=None, group=None,
+                 pages=None, kv_len=None, vo=None, path=MLP_PATH):
+    """One layer of the decode step: attention over ``layer_cache`` (this
+    layer's dense rows or page pool, written in place), then the MLP
+    block (pair path ``path``); the result before its cast to the
+    carry's dtype."""
+    h, _ = cm.attention_decode(cfg, lp["attn"],
+                               cm.apply_norm(cfg, lp["ln1"], x), layer_cache,
+                               pos, window=window, group=group, pages=pages,
+                               kv_len=kv_len, vo=vo, policy=policy)
+    return _mlp_residual(cfg, lp, x, h, policy, group, path)
 
 
 def forward(cfg: ModelConfig, params, batch: dict, policy: ExecutionPolicy,
@@ -159,11 +193,8 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos,
     vos = _layer_vo(aux, len(params["layers"]))
     for i, (lp, vo) in enumerate(zip(params["layers"], vos)):
         layer_cache = {name: leaf[i] for name, leaf in cache.items()}
-        h, _ = cm.attention_decode(cfg, lp["attn"],
-                                   cm.apply_norm(cfg, lp["ln1"], x),
-                                   layer_cache, pos, window=window,
-                                   group=group, pages=pages, kv_len=kv_len,
-                                   vo=vo, policy=policy)
-        x = _mlp_residual(cfg, lp, x, h, policy, group).to(x.dtype)
+        x = layer_decode(cfg, lp, x, layer_cache, pos, policy,
+                         window=window, group=group, pages=pages,
+                         kv_len=kv_len, vo=vo).to(x.dtype)
     x = cm.apply_norm(cfg, params["final_norm"], x)
     return cm.lm_head(cfg, params["embed"], x, group=group)[:, 0], cache

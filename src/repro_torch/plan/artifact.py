@@ -12,14 +12,19 @@ serves the other's artifacts:
 * ``aux.npz``: optional V->O attention folds (``{"attn_plans":
   {"layers.attn": PlannedPair}}``, the pair's leaves stacked over the
   layers), written whole and read whole by every rank, as the reference
-  does; the engine keeps each rank's heads of it (``runtime/serve.py``).
-  ``validate`` refuses an aux tree the port's model does not consume.
+  does; the engine keeps each rank's heads of the fold its model
+  consumes (``runtime/serve.py``).  ``validate`` refuses an aux tree the
+  port's model neither consumes nor waives (``ATTN_VO_WAIVED``: whisper's
+  encoder and cross folds, the vision model's cross folds, which the
+  reference's prepare writes and its runtime leaves unused).
 
-Layout.  The files hold the reference's layout: a dense model's layers
-stacked along a leading dim, and ``leaf_shards`` keyed and dimensioned
-in that stacked tree (``layers||attn||wq: 2``).  The port's trees hold a
-list of per-layer dicts: ``save`` stacks them and ``load`` unstacks, and
-the split dim of a ``layers||...`` leaf is the per-layer dim + 1.
+Layout.  The files hold the reference's layout: layers stacked along
+leading dims, and ``leaf_shards`` keyed and dimensioned in that stacked
+tree (``layers||attn||wq: 2``).  The port's trees hold lists of
+per-layer dicts: ``save`` stacks them and ``load`` unstacks, by the
+families' ``LAYER_STACKS`` (``interop``), and the split dim of a stacked
+leaf is the per-layer dim plus the dims stacked above it (1 under
+``layers``, 2 under the vision model's ``super.self``).
 
 Backends.  The manifest names the reference's backends: the port's
 ``torch`` is ``jnp``, ``cuda`` is ``pallas`` and ``ref`` is ``ref``.
@@ -86,12 +91,23 @@ def policy_fields(policy: ExecutionPolicy) -> dict:
 
 def _stacked_key(key: str) -> tuple[str, int]:
     """A port leaf key's key in the reference's stacked tree, and what its
-    split dims add there: ``layers||3||attn||wq`` -> (``layers||attn||wq``,
-    1)."""
-    parts = key.split(checkpoint.SEP)
-    if len(parts) > 2 and parts[0] == "layers" and parts[1].isdigit():
-        return checkpoint.SEP.join(["layers"] + parts[2:]), 1
-    return key, 0
+    split dims add there: each list index below a stacked prefix
+    (``interop``'s ``LAYER_STACKS``) is a leading dim there:
+    ``layers||3||attn||wq`` -> (``layers||attn||wq``, 1),
+    ``super||1||self||0||attn||wq`` -> (``super||self||attn||wq``, 2)."""
+    stacks = interop.all_layer_stacks()
+    kept, path, pending, shift = [], [], 0, 0
+    for part in key.split(checkpoint.SEP):
+        if pending and part.isdigit():
+            pending -= 1
+            shift += 1
+            continue
+        kept.append(part)
+        path.append(part)
+        dotted = ".".join(path)
+        pending = (interop.stack_levels(stacks, dotted)
+                   if dotted in stacks else 0)
+    return checkpoint.SEP.join(kept), shift
 
 
 def stacked_shards(leaf_shards: dict) -> dict:
@@ -270,8 +286,9 @@ class DeploymentArtifact:
 
     def _check_aux(self, cfg) -> None:
         """The aux tree must be attention folds (``attn_plans``) at the
-        path the model's attention consumes them from (with ``cfg``):
-        serving without part of a plan would serve another model."""
+        path the model's attention consumes them from, or at paths its
+        family waives (with ``cfg``): serving without part of a plan
+        would serve another model."""
         from repro_torch.core.reorder import PlannedPair
         from repro_torch.models.registry import build_model
 
@@ -289,11 +306,13 @@ class DeploymentArtifact:
             return
         model = build_model(cfg)
         want = {model.attn_vo_path} if model.supports_attn_vo else set()
-        if set(plans) - want:
+        waived = set(model.attn_vo_waived)
+        if set(plans) - want - waived:
             raise PlanMismatchError(
                 f"artifact's {AUX} folds attention at {sorted(plans)}, "
                 f"but the port's {cfg.family} model consumes folds at "
-                f"{sorted(want)} only and cannot serve the others")
+                f"{sorted(want)} only (and waives {sorted(waived)}) and "
+                "cannot serve the others")
 
     def _check_shards(self, cfg) -> None:
         """Each leaf must be split as the port's model splits it at the

@@ -142,10 +142,14 @@ def stage_fold_attention(cfg: ModelConfig, params: Any,
     """The head-block-constrained V->O folds of every attention dict
     (``{"wv", "wo", ...}``, unquantized in a raw tree and in a plan), when
     ``cfg.quant.attn_tp_aware`` is set (else None): ``{dotted path:
-    PlannedPair}``, a list of layers' pairs stacked along a leading dim
-    (``{"layers.attn": pair of (L, ...) leaves}``, the reference's aux
-    tree).  Each fold draws its row importance and V's processing order
-    from ``generator``, layer by layer, over the padded head grid."""
+    PlannedPair}``, the layers' pairs stacked along the leading dims of
+    their layer stacks (``{"layers.attn": pair of (L, ...) leaves}``;
+    the vision model's ``super.self.attn`` over ``(n_super, n_self)``),
+    the reference's aux tree.  The paths come in the tree's walk order
+    (whisper: ``enc_layers.attn``, ``dec_layers.attn``,
+    ``dec_layers.xattn``), and the folds path by path, layer by layer;
+    each draws its row importance and V's processing order from
+    ``generator``, over the padded head grid."""
     from repro_torch import interop
     from repro_torch.models.common import head_grid
 
@@ -154,28 +158,29 @@ def stage_fold_attention(cfg: ModelConfig, params: Any,
     kvp, _, hp = head_grid(cfg)
     hd = cfg.head_dim
     gs = choose_group_size(hd, cfg.quant.group_size)
-    plans: dict = {}
 
-    def walk(node, path: tuple, stacked: bool):
+    def collect(node, path: tuple) -> dict:
+        """{dotted path: the attention dict, or nested lists of them}"""
         if _is_attn_dict(node):
-            pp = attention_fold.plan_attention_vo(
-                node["wv"], node["wo"], n_heads=hp, n_kv_heads=kvp,
-                head_dim=hd, group_size=gs, generator=generator)
-            key = ".".join(path)
-            if stacked:
-                plans.setdefault(key, []).append(pp)
-            else:
-                plans[key] = pp
-        elif isinstance(node, dict):
+            return {".".join(path): node}
+        found: dict = {}
+        if isinstance(node, dict):
             for k, v in node.items():
-                walk(v, path + (k,), stacked)
-        elif isinstance(node, list):
-            for v in node:
-                walk(v, path, True)
+                found.update(collect(v, path + (k,)))
+        elif isinstance(node, list) and node:
+            items = [collect(v, path) for v in node]
+            found = {key: [it[key] for it in items] for key in items[0]}
+        return found
 
-    walk(params, (), False)
-    return {k: interop.stack_layers(v) if isinstance(v, list) else v
-            for k, v in plans.items()} or None
+    def fold(node):
+        if isinstance(node, list):
+            return interop.stack_layers([fold(v) for v in node])
+        return attention_fold.plan_attention_vo(
+            node["wv"], node["wo"], n_heads=hp, n_kv_heads=kvp,
+            head_dim=hd, group_size=gs, generator=generator)
+
+    return {key: fold(node)
+            for key, node in collect(params, ()).items()} or None
 
 
 # ---------------------------------------------------------------------------

@@ -105,11 +105,12 @@ def simulate_wire(partials, spec: CollectiveSpec) -> torch.Tensor:
 
 
 def _layer0(node):
-    """Layer 0 of a per-layer list, or of a pair stacked over layers."""
-    if isinstance(node, list):
-        return node[0]
-    if node.up.qweight.dim() > 2:
-        return map_tensors(node, lambda _, t: t[0])
+    """Layer 0 of (nested) per-layer lists, or of a pair stacked over one
+    or more layer dims."""
+    while isinstance(node, list):
+        node = node[0]
+    while node.up.qweight.dim() > 2:
+        node = map_tensors(node, lambda _, t: t[0])
     return node
 
 

@@ -1,8 +1,17 @@
-"""Continuous-batching request scheduler; port of
-``repro/runtime/scheduler.py`` (``Request``, ``StepEvent``, ``Scheduler``
-in continuous mode, on the dense cache or the paged one; the batch-drain
-mode, which serves only the audio and vision families, comes with those
-families, ROADMAP.md queue 1, item 10).
+"""Request scheduler; port of ``repro/runtime/scheduler.py``
+(``Request``, ``StepEvent``, ``Scheduler`` in continuous mode, on the
+dense cache or the paged one, and in batch-drain mode).
+
+``run()`` picks the mode by the engine (``Engine.supports_continuous``):
+the dense and MoE families step continuously; the audio and vision
+families, whose cross-attention prefill (frames, patches) is
+batch-global, are batch-drained (``_run_batch``): up to ``max_batch``
+queued requests at a time, their prompts right-padded to
+``prompt_budget``, beside zero frames or patches (the reference's
+stand-in for the stubbed front ends), through one ``Engine.generate``
+of the longest ``max_new_tokens``, sampled from one generator per batch
+drawn from the scheduler's seed; every request keeps its own
+``max_new_tokens`` of the ids.  ``step()`` refuses these families.
 
 One fixed-shape decode program steps all ``max_batch`` slots together,
 each slot on its own clock; a finished slot takes the next queued request
@@ -40,6 +49,9 @@ from repro_torch.cache import paged as paged_pool
 from repro_torch.device import derive_seed, new_generator
 from repro_torch.runtime import sampling
 from repro_torch.runtime.serve import Engine
+
+#: seed part of batch-drain mode's per-batch sample streams
+DRAIN_STREAM = 0x4452414E  # "DRAN"
 
 
 @dataclasses.dataclass
@@ -93,6 +105,7 @@ class Scheduler:
         self._slots: list[Optional[_Slot]] = []
         self._step_no = 0
         self._cache_builds = 0
+        self._drained = 0               # batches of batch-drain mode
         self.manager = None
         if engine.uses_page_table:
             self.manager = PagedCacheManager(
@@ -159,10 +172,49 @@ class Scheduler:
         return bool(self.queue) or self.live_slots > 0
 
     def run(self) -> dict[int, Request]:
-        """Drain the queue; returns {rid: finished request}."""
-        while self.has_work:
-            self.step()
+        """Drain the queue; returns {rid: finished request}.  Continuous
+        families step at token granularity; the others drain the queue a
+        batch at a time (``_run_batch``)."""
+        if self.engine.supports_continuous:
+            while self.has_work:
+                self.step()
+            return self.finished
+        while self.queue:
+            batch = [self.queue.popleft()
+                     for _ in range(min(self.max_batch, len(self.queue)))]
+            self._run_batch(batch)
         return self.finished
+
+    def _run_batch(self, batch: list[Request]):
+        """Batch-drain mode: serve ``batch`` through one
+        ``Engine.generate`` (the reference's ``_run_batch``)."""
+        b, s = len(batch), self.prompt_budget
+        cfg, dev = self.engine.model.cfg, self.engine.device
+        tokens = np.zeros((b, s), np.int64)
+        plen = np.zeros((b,), np.int64)
+        for i, r in enumerate(batch):
+            tokens[i, :r.prompt.size] = r.prompt
+            plen[i] = r.prompt.size
+        inputs = {"tokens": torch.from_numpy(tokens)}
+        if cfg.family == "audio":
+            inputs["frames"] = torch.zeros(
+                (b, cfg.encoder_seq, cfg.d_model), dtype=torch.bfloat16,
+                device=dev)
+        if cfg.family == "vlm":
+            inputs["patches"] = torch.zeros(
+                (b, cfg.vision_tokens, cfg.d_model), dtype=torch.bfloat16,
+                device=dev)
+        max_new = max(r.max_new_tokens for r in batch)
+        gen = new_generator(derive_seed(self.seed, DRAIN_STREAM,
+                                        self._drained), dev)
+        self._drained += 1
+        out = self.engine.generate(gen, inputs, torch.from_numpy(plen),
+                                   max_new_tokens=max_new,
+                                   scfg=self.scfg).cpu().numpy()
+        for i, r in enumerate(batch):
+            r.output = out[i, :r.max_new_tokens].tolist()
+            r.done = True
+            self.finished[r.rid] = r
 
     def _request_generator(self, req: Request) -> torch.Generator:
         seed = req.seed if req.seed is not None else derive_seed(self.seed,
@@ -234,7 +286,12 @@ class Scheduler:
 
     def step(self) -> list[StepEvent]:
         """One admission + decode step; returns a ``StepEvent`` per request
-        that emitted a token or was retired."""
+        that emitted a token or was retired.  Raises for a batch-drain
+        family (use ``run()``)."""
+        if not self.engine.supports_continuous:
+            raise RuntimeError(
+                f"family '{self.engine.model.cfg.family}' does not support "
+                "token-granularity stepping (batch-drain only) — use run()")
         b = self.max_batch
         if self._cache is None:
             self._build_cache()

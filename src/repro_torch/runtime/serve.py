@@ -37,11 +37,22 @@ An MoE engine of a grid with ``dp > 1`` also takes its data group
 experts' owners by an all-to-all over that group, so the data ranks
 step in lockstep and the step stays eager.
 
+The audio and vision families (whisper, the vision model) attend to a
+source besides their tokens: ``prefill`` and ``generate`` take the
+reference's ``batch_inputs`` dict, encode its ``"frames"`` (under
+``attn_backend``) or take its ``"patches"``, and write their cross K/V
+into the cache in place (``Model.prefill_cross``) before the prompt
+replay, so a captured step keeps the cache's addresses; the cache is
+nested (``{"self": ..., "cross_k", "cross_v"}``) and a step's graph is
+keyed by every leaf.  These families are batch-drained by the
+scheduler (``supports_continuous``).
+
 An artifact's aux plans (attention V->O folds, ``Engine.aux``) are kept
-once, at construction, as a list of per-layer folds on the engine's
-device, each rank's heads of them under TP; every forward and decode
-step runs them, and the captured step holds their addresses as it holds
-the params'.
+once, at construction, as (nested) lists of per-layer folds on the
+engine's device, each rank's heads of them under TP; every forward and
+decode step runs them, and the captured step holds their addresses as
+it holds the params'.  Folds the family waives (whisper's encoder and
+cross folds, the vision model's cross folds) are not kept.
 
 Every forward and decode step runs its library products in blocks of
 ``Engine.row_block`` rows (``models/common.row_stable``), so a row's
@@ -68,7 +79,7 @@ from repro_torch.models import common as cm
 from repro_torch.models.registry import Model, build_model
 from repro_torch.plan.artifact import DeploymentArtifact
 from repro_torch.runtime import sampling
-from repro_torch.train.checkpoint import map_tensors
+from repro_torch.train.checkpoint import flatten_keys, map_tensors
 
 
 @dataclasses.dataclass
@@ -89,11 +100,13 @@ class StepGraph:
 
 
 def _cache_key(cache) -> tuple:
-    """Where a cache's tensors live, every leaf by name (a dense cache's
-    k/v, a pool's k/v and its quantized pages' scales and zeros): a graph
-    writes into these addresses."""
+    """Where a cache's tensors live, every leaf by its key path, nested
+    entries included (a dense cache's k/v, a pool's k/v and its quantized
+    pages' scales and zeros, the audio and vision families' ``self``
+    entry beside their cross K/V): a graph reads and writes these
+    addresses."""
     return tuple((name, t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
-                 for name, t in sorted(cache.items()))
+                 for name, t in sorted(flatten_keys(cache).items()))
 
 
 def _step_key(cache, pages) -> tuple:
@@ -159,11 +172,13 @@ class Engine:
         self.aux = self._rank_aux(self.aux)
 
     def _rank_aux(self, aux):
-        """The aux tree as this rank serves it: each fold a list of
-        per-layer folds of this rank's heads, contiguous on ``device``.  A
-        fold stacked over the layers (as the artifact holds it) is split
-        and sliced; a list is taken as this rank's already (so an engine
-        ``dataclasses.replace`` makes from this one keeps it)."""
+        """The aux tree as this rank serves it: the fold the model
+        consumes (at ``attn_vo_path``; the folds its family waives are
+        dropped) as (nested) lists of per-layer folds of this rank's
+        heads, contiguous on ``device``.  A fold stacked over the layer
+        dims (as the artifact holds it) is split and sliced; a list is
+        taken as this rank's already (so an engine ``dataclasses.replace``
+        makes from this one keeps it)."""
         from repro_torch.core.attention_fold import shard_attention_vo
         from repro_torch.models.common import head_grid
 
@@ -173,18 +188,19 @@ class Engine:
         kvp, _, hp = head_grid(cfg)
         rank = comm.axis_index(self.group)
 
-        def mine(pp):
-            return shard_attention_vo(pp, self.tp, n_heads=hp,
+        def mine(vo):
+            if isinstance(vo, list):
+                return vo
+            if vo.up.qweight.dim() > 2:
+                return [mine(map_tensors(vo, lambda _, t, i=i: t[i]))
+                        for i in range(vo.up.qweight.shape[0])]
+            return shard_attention_vo(vo, self.tp, n_heads=hp,
                                       n_kv_heads=kvp,
                                       head_dim=cfg.head_dim)[rank]
 
-        plans = {}
-        for path, vo in (aux.get("attn_plans") or {}).items():
-            layers = vo if isinstance(vo, list) else [
-                mine(map_tensors(vo, lambda _, t, i=i: t[i]))
-                for i in range(vo.up.qweight.shape[0])]
-            plans[path] = [map_tensors(pp, lambda _, t: t.to(self.device))
-                           for pp in layers]
+        plans = {path: map_tensors(mine(vo), lambda _, t: t.to(self.device))
+                 for path, vo in (aux.get("attn_plans") or {}).items()
+                 if path == self.model.attn_vo_path}
         return dict(aux, attn_plans=plans)
 
     @property
@@ -199,7 +215,9 @@ class Engine:
     def supports_continuous(self) -> bool:
         """The scheduler may step this model at token granularity on
         per-slot positions: its whole decode state is the position-masked
-        KV cache (the dense and MoE families)."""
+        KV cache (the dense and MoE families).  The audio and vision
+        families are batch-drained: their cross-attention prefill (frames,
+        patches) is batch-global."""
         return self.model.cfg.family in ("dense", "moe")
 
     @property
@@ -223,12 +241,21 @@ class Engine:
         for b in [b for b, g in self.graphs.items() if g.cache[0] == key]:
             del self.graphs[b]
 
+    def _batch(self, batch_inputs) -> dict:
+        """The reference's ``batch_inputs`` dict (``"tokens"``, and the
+        audio and vision families' ``"frames"`` or ``"patches"``) on
+        ``device``; a bare tokens tensor is ``{"tokens": tokens}``."""
+        if torch.is_tensor(batch_inputs):
+            batch_inputs = {"tokens": batch_inputs}
+        return {k: v.to(self.device) for k, v in batch_inputs.items()}
+
     @torch.inference_mode()
-    def prefill_logits(self, tokens: torch.Tensor) -> torch.Tensor:
-        """The full-sequence forward: tokens (B, S) -> logits (B, S, V)
-        (the reference's ``prefill_logits``)."""
+    def prefill_logits(self, batch_inputs) -> torch.Tensor:
+        """The full-sequence forward: tokens (B, S), or the reference's
+        ``batch_inputs`` dict -> logits (B, S, V) (the reference's
+        ``prefill_logits``)."""
         with cm.row_blocks(self.row_block):
-            return self.model.forward(self.params, {"tokens": tokens},
+            return self.model.forward(self.params, self._batch(batch_inputs),
                                       self.policy, window=self.window,
                                       attn_backend=self.attn_backend,
                                       group=self.group, aux=self.aux,
@@ -339,9 +366,23 @@ class Engine:
         return logits, cache
 
     @torch.inference_mode()
-    def prefill(self, tokens: torch.Tensor, cache, prompt_len: torch.Tensor):
+    def prefill(self, batch_inputs, cache, prompt_len: torch.Tensor):
         """Replay right-padded prompts (B, S) through the decode step;
-        returns (logits at each row's last prompt token (B, V), cache)."""
+        returns (logits at each row's last prompt token (B, V), cache).
+        ``batch_inputs``: the tokens, or the reference's dict of them and,
+        for the audio and vision families, the ``"frames"`` or
+        ``"patches"``: those are first encoded (under ``attn_backend``)
+        or taken as they are, and their cross K/V written into the cache
+        in place (``Model.prefill_cross``), as the reference's prefill
+        does before the replay."""
+        batch = self._batch(batch_inputs)
+        tokens = batch["tokens"]
+        if self.model.has_cross:
+            with cm.row_blocks(self.row_block):
+                self.model.prefill_cross(self.params, batch, cache,
+                                         self.policy,
+                                         attn_backend=self.attn_backend,
+                                         group=self.group)
         b, s = tokens.shape
         last = torch.zeros((b, self.model.cfg.vocab_size),
                            dtype=torch.float32, device=self.device)
@@ -352,15 +393,16 @@ class Engine:
         return last, cache
 
     @torch.inference_mode()
-    def generate(self, gen: Optional[torch.Generator], tokens: torch.Tensor,
+    def generate(self, gen: Optional[torch.Generator], batch_inputs,
                  prompt_len, *, max_new_tokens: int = 32,
                  scfg: sampling.SamplingConfig = sampling.SamplingConfig()):
         """Batched generation; returns (B, max_new_tokens) token ids.
-        ``gen`` draws the samples (unused when greedy)."""
-        tokens = tokens.to(self.device)
+        ``batch_inputs``: the tokens (B, S) or the reference's dict
+        (``prefill``); ``gen`` draws the samples (unused when greedy)."""
+        batch = self._batch(batch_inputs)
         prompt_len = torch.as_tensor(prompt_len, device=self.device)
-        cache = self.init_cache(tokens.shape[0])
-        logits, cache = self.prefill(tokens, cache, prompt_len)
+        cache = self.init_cache(batch["tokens"].shape[0])
+        logits, cache = self.prefill(batch, cache, prompt_len)
         pos = int(prompt_len.max())
         tok = sampling.sample(gen, logits, scfg)
         out = [tok]
