@@ -28,7 +28,8 @@ Phases, one line each:
      starcoder2's tp=2 down shards), and within one
      quantization level of its plain version; K3's repeat check (the same
      call twice and after a call of another shape bit-equal: its counters
-     reset) and one device kernel a call (torch.profiler), in both loops
+     reset) and one device kernel a call (the nodes of its CUDA graph),
+     in both loops
   4. timing: full-width launches (CUDA-graph replay, weights beyond L2)
      against their bounds and plain versions: K1 and K4 at M=4 (their
      ratio is the naive-versus-ordered comparison; K4's up/gate and down
@@ -53,7 +54,8 @@ Phases, one line each:
   6. trace: device time of a few full-width captured decode steps by
      kernel (torch.profiler) against their wall time: the device's busy
      share, and K1's and the split-add's time and launches per step (108
-     K1 kernels a step from the device); the eager step's wall time and
+     K1 kernels a step among the kernel nodes of the step's CUDA graph,
+     the trace's count beside); the eager step's wall time and
      busy share beside them
   7. capture: the captured step against ``Engine.decode_eager`` at full
      width: logits and the whole KV cache bit for bit over 16 decode
@@ -120,14 +122,14 @@ Phases, one line each:
      tok/s and peak memory
  19. serve-tp-archs: granite (its odd vocab, 49155, split by d_model) and
      starcoder2 at tp=2 with ``quant-int8:fused`` on two rank processes,
-     full width, depth cut to 10 layers (printed; to keep the script
+     full width, depth cut to 4 layers (printed; to keep the script
      within its time), as phases 14 and 15: K3 (one per
      layer) and K1 launches per step per rank, the fused ring
      bit-identical to the plain one, psum at tp=2 against phase 18's tp=1
-     engine's first 10 layers layer by layer (the greedy ids of those
+     engine's first 4 layers layer by layer (the greedy ids of those
      layers reported)
  20. artifact-granite: as phases 16 and 17 for granite at full width,
-     depth cut to 10 of its 40 layers (the cut printed; the files' save
+     depth cut to 4 of its 40 layers (the cut printed; the files' save
      and load dominate the phase): the tp=1 and the tp=2 plans prepared,
      saved (bytes reckoned against the free disk first; each directory
      deleted after use) and served from their files, ids and logits
@@ -226,7 +228,7 @@ Phases, one line each:
      cut to 4 and 2 layers (printed), from seed 0 (experts quantized one
      at a time; the init's peak memory): the four requests through the
      captured step, K1 once per GEMM of every expert (and arctic's dense
-     MLP) a step, counted and seen on the device (torch.profiler); the
+     MLP) a step, counted and seen among the step graph's nodes; the
      captured step against ``decode_eager`` bit for bit; greedy ids on
      backend=cuda against torch; qwen3-moe under naive-actorder (K4)
  31. artifact-moe: qwen3-moe at 2 layers prepared on the card (peak
@@ -277,14 +279,41 @@ Phases, one line each:
      bit-equal, K1 128 a decode step (64 MLP, 32 V, 32 O) and the
      encoder's 64; the aux holds the waived encoder and cross folds,
      which no step launches
+ 37. kernels-rec: K1 and K4 at the recurrent families' MLP shapes
+     (rwkv6-3b's channel-mix pair 2560 -> 8960 -> 2560, ungated;
+     recurrentgemma-2b's GeGLU 2560 -> 7680 -> 2560) against their plain
+     versions at M 1, 4 and (K1) 64, and timed at M=4 against their bytes
+     bounds, per layer
+ 38-39. serve rwkv6-3b (32 layers) and recurrentgemma-2b (26 layers), at
+     full width and depth from seed 0: the four requests of phase 5
+     through the continuous scheduler and the captured step (K1 64 and
+     78 a step, counted; the first step with its capture, the steady
+     step, the params and the init's peak); a few captured steps traced
+     (K1's launches a step asserted from the step graph's kernel nodes,
+     the busy share, the heaviest other kernels); the captured step
+     against ``decode_eager`` bit for bit (logits and every state leaf);
+     slot reuse: six greedy requests of
+     unequal lengths at 4 slots, row block 4, so that later ones enter
+     lanes that ``Engine.reset_slot`` zeroed, each request's ids and
+     every emitted logits row bit-equal to its solo ``Engine.generate``;
+     the 64-token forward (``prefill_logits``) against the replay
+     through the decode step within 2e-2 of max|logit| in float32
+     activations, state and K/V ring (in the config's bf16, reported:
+     the bf16 ring's rounding, the reference's own, moves the random
+     26-layer recurrentgemma far); rwkv6's tp=1
+     artifact prepared, saved and served (ids and greedy logits bit-equal
+     to the in-memory engine; bytes, seconds to prepare, save and load);
+     recurrentgemma's flash forward raising for head dim 256 (K2 takes
+     32, 64 and 128); then naive-actorder (K4 64 and 78 a step, K1 0)
 
 then the per-kernel JSON line (after the first six: K2 on the long
 forward, the paged and HTTP serves' K1, K4 and K3 rows, the other
 archs' K1, K4 and K3 rows, then K1 on the GPTQ pair and on the fold's V
 and O, K3 where phase 26's tuner fused the MLP, K3 and K1 on the
 ``:overlap`` paths of phases 27 and 28, then K1 on phase 29's serves
-and K1 and K4 on the MoE paths of phases 30-33, per expert, and K1, K4
-and K2 on the audio and vision paths of phases 34-36), the total
+and K1 and K4 on the MoE paths of phases 30-33, per expert, K1, K4
+and K2 on the audio and vision paths of phases 34-36, and K1 and K4 on
+the recurrent paths of phases 38-39), the total
 seconds
 and each phase's, the
 card's nvidia-smi line
@@ -360,12 +389,12 @@ TP_ARCHS = ARCHS[:2]
 MISTRAL_LAYERS = 4
 #: granite's depth in phase 20 (its artifact's save and load take about
 #: half a second a layer each)
-ARTIFACT_GRANITE_LAYERS = 10
+ARTIFACT_GRANITE_LAYERS = 4
 #: granite's and starcoder2's depth at tp=2 (phase 19): the gloo step via
 #: host costs 7-9 ms a layer; a depth-L model is the full one's first L
 #: layers (the init draws them first), so phase 18's full engine gives
 #: the reference of the first L
-TP_ARCH_LAYERS = 10
+TP_ARCH_LAYERS = 4
 #: the long forward (phase 21): starcoder2 at full width, two layers,
 #: one sequence of 8192 tokens (the reference's Q_CHUNK_MIN_SEQ) under
 #: its 4096-token window
@@ -556,6 +585,15 @@ VISION_GATE = 0.5
 AV_BUDGET, AV_NEW = 32, 16
 AV_MAX_SEQ = AV_BUDGET + AV_NEW + 1
 AV_FORWARD_S = 2048
+#: phases 37-39 (the recurrent families): both at full width and depth
+#: (rwkv6-3b ~6.4 GB of params, recurrentgemma-2b ~6.2 GB); the four
+#: requests of phase 5 (max_seq 49); six greedy requests of unequal
+#: lengths at 4 slots for slot reuse; a 64-token forward
+REC_ARCHS = ("rwkv6-3b", "recurrentgemma-2b")
+REC_BUDGET = 32
+REC_MAX_SEQ = REC_BUDGET + 16 + 1
+REC_REUSE_NEW = (4, 16, 6, 12, 8, 10)
+REC_FORWARD_S = 64
 #: the collectives of the TP phases
 TP_SERVE = "quant-int8:fused"
 TP_PAIRS = (("quant-int8:fused", "quant-int8"),
@@ -903,20 +941,33 @@ _NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
                10: "mem_alloc", 11: "mem_free"}
 
 
-def _graph_work(fn) -> dict:
-    """The device work one call of ``fn`` enqueues, by kind (``"kernel"``,
-    ``"memcpy"``, ``"memset"``, ...): the call captured in a CUDA graph
-    (after one call on the capture's stream outside it), the graph's
-    nodes read with ``cuGraphGetNodes`` and ``cuGraphNodeGetType`` from
-    libcuda.  A capture holds every launch and copy the call makes,
-    where a ``torch.profiler`` session on the card has recorded no
-    device event at all ten times in a row."""
+class _KernelNodeParams(ctypes.Structure):
+    """``CUDA_KERNEL_NODE_PARAMS_v2`` (cuda.h): a kernel node's launch."""
+    _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                ("block", ctypes.c_uint * 3), ("shared_bytes", ctypes.c_uint),
+                ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def _graph_nodes(fn) -> list:
+    """The device work one call of ``fn`` enqueues, node by node, as
+    (kind, name): the call captured in a CUDA graph (after one call on
+    the capture's stream outside it), the graph's nodes read with
+    ``cuGraphGetNodes`` and ``cuGraphNodeGetType`` from libcuda, and
+    each kernel node's (mangled) function name with
+    ``cuGraphKernelNodeGetParams_v2`` and ``cuFuncGetName`` (or
+    ``cuKernelGetName``); other nodes have the name None.  A capture
+    holds every launch and copy the call makes, where a
+    ``torch.profiler`` session on the card has recorded no device event
+    at all ten times in a row, and others dropped a few kernels of a
+    step.  What the wrappers count during the capture is taken back."""
     cu = ctypes.CDLL("libcuda.so.1")
 
     def check(rc, what):
         if rc != 0:
             raise RuntimeError(f"{what} failed with CUresult {rc}")
 
+    counts = ops.launch_counts()
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
@@ -925,19 +976,45 @@ def _graph_work(fn) -> dict:
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph, stream=stream):
         fn()
+    ops.add_launch_counts(c - a for a, c in zip(ops.launch_counts(), counts))
     raw = ctypes.c_void_p(int(graph.raw_cuda_graph()))
     n = ctypes.c_size_t(0)
     check(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
     nodes = (ctypes.c_void_p * n.value)()
     check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
-    out = {}
+    out = []
     for node in nodes:
         kind = ctypes.c_int(-1)
         check(cu.cuGraphNodeGetType(ctypes.c_void_p(node),
                                     ctypes.byref(kind)), "cuGraphNodeGetType")
-        name = _NODE_TYPES.get(kind.value, f"type {kind.value}")
-        out[name] = out.get(name, 0) + 1
+        kind = _NODE_TYPES.get(kind.value, f"type {kind.value}")
+        name = None
+        if kind == "kernel":
+            p = _KernelNodeParams()
+            check(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
+                                                   ctypes.byref(p)),
+                  "cuGraphKernelNodeGetParams_v2")
+            text = ctypes.c_char_p()
+            if p.func:
+                check(cu.cuFuncGetName(ctypes.byref(text),
+                                       ctypes.c_void_p(p.func)),
+                      "cuFuncGetName")
+            else:
+                check(cu.cuKernelGetName(ctypes.byref(text),
+                                         ctypes.c_void_p(p.kern)),
+                      "cuKernelGetName")
+            name = text.value.decode()
+        out.append((kind, name))
     del graph
+    return out
+
+
+def _graph_work(fn) -> dict:
+    """The device work one call of ``fn`` enqueues, by kind
+    (``"kernel"``, ``"memcpy"``, ``"memset"``, ...; ``_graph_nodes``)."""
+    out = {}
+    for kind, _ in _graph_nodes(fn):
+        out[kind] = out.get(kind, 0) + 1
     return out
 
 
@@ -1967,8 +2044,11 @@ def phase_trace(engine, kernels: dict, phase: str | None = "trace",
     times (on every rank, so the ranks stay in step) and rank 0 keeps the
     first trace that counts them, else the last: profiler sessions have
     dropped events (more often the more events a session holds, so a
-    step of many kernels is traced over fewer ``steps``).  The caller
-    checks the counts."""
+    step of many kernels is traced over fewer ``steps``).  Each label's
+    ``launches_per_step`` is the count of its kernels among the nodes of
+    the step captured in a CUDA graph (``_graph_nodes``) where one
+    process runs the step, else the trace's; ``traced_launches_per_step``
+    is the trace's.  The caller checks the counts."""
     cache = engine.init_cache(4)
     tokens = torch.arange(4, device=engine.device)
     pos = torch.full((4,), 24, device=engine.device)
@@ -1999,7 +2079,7 @@ def phase_trace(engine, kernels: dict, phase: str | None = "trace",
 
     def counted(out):
         return out is not None and all(
-            out["kernels"][label]["launches_per_step"] == n
+            out["kernels"][label]["traced_launches_per_step"] == n
             for label, n in (expect or {}).items())
 
     out = None
@@ -2017,11 +2097,24 @@ def phase_trace(engine, kernels: dict, phase: str | None = "trace",
                "kernels": {label: {
                    "ms_per_step": sum(v for k, v in by_name.items()
                                       if test(k)),
-                   "launches_per_step": sum(v for k, v in counts.items()
-                                            if test(k))}
+                   "traced_launches_per_step": sum(
+                       v for k, v in counts.items() if test(k))}
                            for label, test in kernels.items()}}
     if rank != 0:
         return None
+    # launches a step from the step's own CUDA graph where one process
+    # runs it; the trace's count beside it (a session may drop events)
+    names = None
+    if engine.group is None and engine.ep_group is None:
+        names = [name for kind, name in _graph_nodes(
+            lambda: engine.decode_eager(cache, tokens, pos))
+                 if kind == "kernel"]
+        out["graph_kernels_per_step"] = len(names)
+    for label, test in kernels.items():
+        k = out["kernels"][label]
+        k["launches_per_step"] = (k["traced_launches_per_step"]
+                                  if names is None else
+                                  sum(1 for name in names if test(name)))
     if engine.group is None:
         eager = runner(engine.decode_eager)
         eager_wall = wall_ms(eager)
@@ -2047,9 +2140,14 @@ def _trace_line(phase: str, out: dict) -> None:
                    f"{eager['device_ms_per_step']:.2f} ms of kernels -> "
                    f"busy {100 * eager['busy_share']:.1f}%; ")
                 + f"{out['device_events_per_step']:.0f} device "
-                f"kernels/copies per step; "
+                f"kernels/copies traced per step"
+                + ("" if "graph_kernels_per_step" not in out else
+                   f" ({out['graph_kernels_per_step']} kernel nodes in "
+                   f"the step's graph)")
+                + "; "
                 + ", ".join(f"{label} {v['ms_per_step']:.3f} ms in "
-                            f"{v['launches_per_step']:.0f} launches"
+                            f"{v['launches_per_step']:.0f} launches "
+                            f"({v['traced_launches_per_step']:.0f} traced)"
                             for label, v in out["kernels"].items())
                 + " per step; top kernels ms/step: "
                 + ", ".join(f"{k[:40]} {v:.3f}"
@@ -3050,12 +3148,14 @@ def _sibling(engine, kv: str = "dense", max_seq: int = PAGED_MAX_SEQ,
 
 
 def _recorded_serve(engine, cfg, scfg, kernel: str, what: str,
-                    sched=None) -> dict:
-    """Serve ``_paged_requests`` through a scheduler of 4 slots on
-    ``engine`` (or ``sched``), the launch counts set to 0 just before and
-    read just after: every step launches ``kernel`` once for each MLP
-    weight and no other counted kernel.  Each request's logits row of
-    every step that emits is kept (the engine's ``decode`` wrapped)."""
+                    sched=None, requests=None) -> dict:
+    """Serve ``requests`` (default ``_paged_requests``) through a
+    scheduler of 4 slots on ``engine`` (or ``sched``), the launch counts
+    set to 0 just before and read just after: every step launches
+    ``kernel`` once for each MLP weight and no other counted kernel.
+    Each request's logits row of every step that emits is kept (the
+    engine's ``decode`` wrapped)."""
+    reqs = _paged_requests(cfg) if requests is None else requests
     if sched is None:
         sched = Scheduler(engine, max_batch=4, prompt_budget=40, scfg=scfg,
                           seed=0)
@@ -3070,7 +3170,7 @@ def _recorded_serve(engine, cfg, scfg, kernel: str, what: str,
         return logits, cache
 
     engine.decode = decode
-    for req in _paged_requests(cfg):
+    for req in reqs:
         sched.submit(req)
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
@@ -3084,8 +3184,8 @@ def _recorded_serve(engine, cfg, scfg, kernel: str, what: str,
     steps = sched.steps - steps0
     expect_counts(counts, {kernel: mlp_launches(cfg) * steps},
                   f"{what} ({steps} decode steps)")
-    if sorted(done) != list(range(8)) or any(
-            len(r.output) != 16 for r in done.values()):
+    if sorted(done) != sorted(r.rid for r in reqs) or any(
+            len(done[r.rid].output) != r.max_new_tokens for r in reqs):
         raise AssertionError(f"{what}: requests incomplete")
     if not engine.decode_mode.startswith("CUDA graph"):
         raise AssertionError(f"{what}: decode step {engine.decode_mode}")
@@ -3583,9 +3683,9 @@ def phase_fold(dense_trace: dict) -> tuple[dict, tuple]:
     trace = phase_trace(engine, {"K1": _is_k1, "split-add": _is_split_add,
                                  "sgemm": _is_sgemm}, "trace-fold",
                         expect={"K1": per}, steps=2)
-    # the wrappers' counts gate the launches (above); torch.profiler has
-    # dropped a K1 event of this step in all three of phase_trace's
-    # sessions in full runs of this script, so its count is reported
+    # the wrappers' counts gate the launches (above); the step graph's
+    # count is reported (torch.profiler has dropped a K1 event of this
+    # step in all three of phase_trace's sessions in full runs)
     k1_device = trace["kernels"]["K1"]["launches_per_step"]
     captures, offsets, _ = _captured_vs_eager(engine, cfg, 16,
                                               "capture-fold")
@@ -5489,6 +5589,294 @@ def _check_time_av(gen) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 37-39: the recurrent families at full depth
+# ---------------------------------------------------------------------------
+
+def rec_config(arch: str, scheme: str = "tp-aware"):
+    """The recurrent ``arch`` at full width and depth, tp-aware on the
+    kernels' auto backend (naive-actorder on backend=cuda)."""
+    backend = "auto" if scheme == "tp-aware" else "cuda"
+    return get_config(arch).with_quant(mode="mlp", scheme=scheme,
+                                       backend=backend)
+
+
+def _check_time_rec(gen) -> dict:
+    """K1 and K4 at the recurrent families' MLP shapes (rwkv6's ungated
+    channel-mix pair, recurrentgemma's GeGLU), each against its plain
+    version (float32 and bfloat16, ``TOL``) at M 1 (a solo serve), 4
+    (the serves) and, for K1, 64 (the forward, on the decode loop), then
+    timed at M=4 (CUDA-graph replay, weights beyond L2) against its
+    bytes bound, per shape and per layer."""
+    shapes = {a: mlp_shapes(rec_config(a)) for a in REC_ARCHS}
+    kernel = (lambda x, ql, dt: ops.dequant_matmul(x, ql, compute_dtype=dt))
+    ordered = _check_gemm(
+        gen, "dequant_matmul_ordered (recurrent shapes)",
+        [(m, k, n, gs) for a in REC_ARCHS for _, k, n, gs in shapes[a]
+         for m in (1, 4, REC_FORWARD_S)], "ordered", kernel,
+        lambda x, ql, dt: dk.dequant_matmul_ordered_torch(
+            x, ql.qweight, ql.scales, ql.zeros, group_size=ql.group_size,
+            compute_dtype=dt), phase="kernels-rec")
+    gidx = _check_gemm(
+        gen, "dequant_matmul_gidx (recurrent shapes)",
+        [(m, k, n, gs) for a in REC_ARCHS for _, k, n, gs in shapes[a]
+         for m in (1, 4)], "naive", kernel,
+        lambda x, ql, dt: dk.dequant_matmul_gidx_torch(
+            x, ql.qweight, ql.scales, ql.zeros, ql.g_idx, compute_dtype=dt),
+        phase="kernels-rec")
+
+    def err(res, a):
+        kn = {(k, n) for _, k, n, _ in shapes[a]}
+        return max(r["max_abs_err"] for r in res["cases"]
+                   if r["m"] == 4 and r["dtype"] == str(torch.float32)
+                   and (r["k"], r["n"]) in kn)
+
+    out = {"errs": {a: {"K1": err(ordered, a), "K4": err(gidx, a)}
+                    for a in REC_ARCHS},
+           "check": {"ordered": ordered, "gidx": gidx}}
+    for a in REC_ARCHS:
+        gated = rec_config(a).mlp_gated
+        out[a] = {}
+        for layout, name in (("ordered", "K1"), ("naive", "K4")):
+            r = _time_gemm(gen, layout, shapes=shapes[a])
+            r["layer"] = _layer(r, shapes[a], gated)
+            out[a][layout] = r
+            line("kernels-rec", "{} f32 M=4 {}, CUDA-graph replay: ".format(
+                name, a) + "; ".join(
+                    "{} (K {} N {} gs {}) {:.4f} ms (bound {:.4f} by {}: "
+                    "{:.2f} MB; plain {:.4f})".format(
+                        nm.split(" ", 1)[1], k, n, gs, r[nm]["ms"],
+                        r[nm]["bound_ms"], r[nm]["bound_by"],
+                        r[nm]["bytes"] / 1e6, r[nm]["plain_ms"])
+                    for nm, k, n, gs in shapes[a])
+                + "; per layer {:.4f} ms (bound {:.4f}, plain {:.4f})".format(
+                    r["layer"]["ms"], r["layer"]["bound_ms"],
+                    r["layer"]["plain_ms"]))
+            torch.cuda.empty_cache()
+    return out
+
+
+def _reuse_requests(cfg) -> list:
+    """Six greedy requests of 4-31 prompt tokens and unequal
+    ``max_new_tokens`` (``REC_REUSE_NEW``), each seeded by its rid: at 4
+    slots the early finishers' lanes take the last two."""
+    rng = np.random.default_rng(29)
+    return [Request(rid=i, prompt=rng.integers(
+        0, cfg.vocab_size, int(rng.integers(4, 32))).astype(np.int32),
+        max_new_tokens=n, seed=i) for i, n in enumerate(REC_REUSE_NEW)]
+
+
+def _slot_reuse(engine, cfg, arch: str) -> dict:
+    """The continuous scheduler over the recurrent state with slot reuse:
+    ``_reuse_requests`` greedy at 4 slots (row block 4), then each alone
+    through the same engine's ``Engine.generate`` (batch 1): every
+    request's ids equal and every emitted logits row bit-equal; at least
+    one request entered a lane another had used (``admissions``), which
+    ``Engine.reset_slot`` zeroed first."""
+    what = f"slot-reuse {arch}"
+    eng = _sibling(engine, max_seq=REC_MAX_SEQ, row_block=4)
+    sched = Scheduler(eng, max_batch=4, prompt_budget=REC_BUDGET,
+                      scfg=GREEDY, seed=0)
+    reqs = _reuse_requests(cfg)
+    run = _recorded_serve(eng, cfg, GREEDY, "dequant_matmul_ordered", what,
+                          sched=sched, requests=reqs)
+    reused = [rid for step, rid in sched.admissions if step > 0]
+    if not reused:
+        raise AssertionError(f"{what}: no request entered a used lane "
+                             f"(admissions {sched.admissions})")
+    solo_steps = 0
+    reset_counts()
+    for req in reqs:
+        ids, rows = _solo_rows(eng, req, GREEDY)
+        solo_steps += req.prompt.size + req.max_new_tokens - 1
+        if ids != run["ids"][req.rid] or not torch.equal(
+                rows, run["logits"][req.rid]):
+            gap = (rows - run["logits"][req.rid]).abs().max().item()
+            raise AssertionError(
+                f"{what}: request {req.rid} alone gave ids {ids[:8]} "
+                f"against {run['ids'][req.rid][:8]} batched (max logit gap "
+                f"{gap:.3g})")
+    counts = read_counts()
+    expect_counts(counts, {"dequant_matmul_ordered":
+                           mlp_launches(cfg) * solo_steps},
+                  f"{what}, solo ({solo_steps} decode steps)")
+    out = {"requests": len(reqs), "max_new": list(REC_REUSE_NEW),
+           "admissions": sched.admissions, "reused_lanes_by": reused,
+           "batched_steps": run["steps"],
+           "batched_launches": run["launches"],
+           "steady_ms_per_step": run["steady_ms_per_step"],
+           "solo_steps": solo_steps,
+           "solo_launches": counts["dequant_matmul_ordered"],
+           "ids": run["ids"], "bit_equal": True}
+    line(what, f"{len(reqs)} greedy requests (max_new {list(REC_REUSE_NEW)}) "
+         f"at 4 slots, row block 4, through the captured step: requests "
+         f"{reused} entered used lanes (admissions {sched.admissions}); "
+         f"each alone (Engine.generate, batch 1): ids equal and every "
+         f"emitted logits row bit-equal ({run['steps']} batched steps, "
+         f"{run['steady_ms_per_step']:.2f} ms a step; {solo_steps} solo "
+         f"steps; K1 {run['launches']} + {out['solo_launches']} launches)")
+    del eng, sched, run
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rec_forward(engine, cfg, arch: str) -> dict:
+    """The full-sequence forward of ``REC_FORWARD_S`` tokens
+    (``Engine.prefill_logits``; recurrentgemma's local attention on the
+    einsum path) against the same tokens replayed through the captured
+    decode step of an engine of ``max_seq`` past them, on ``engine``'s
+    params: in float32 activations with a float32 state and K/V ring,
+    within 2e-2 of max|logit| (the reference's bound); in the config's
+    bf16 activations and bf16 K/V ring, reported (the ring's rounding of
+    K and V, which the reference's decode also makes and its forward
+    does not, moves a random 26-layer model's logits far).  K1 once per
+    MLP weight in each forward (M = 64, its decode loop) and per step in
+    each replay."""
+    what = f"forward {arch}"
+    per = mlp_launches(cfg)
+    toks = torch.from_numpy(np.random.default_rng(30).integers(
+        0, cfg.vocab_size, (1, REC_FORWARD_S))).cuda()
+    out = {"tokens": REC_FORWARD_S}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        eng = Engine(model=build_model(cfg.with_(dtype=name)),
+                     params=engine.params, device=engine.device,
+                     max_seq=REC_FORWARD_S + 1, policy=engine.policy,
+                     row_block=4)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        full = eng.prefill_logits(toks)
+        torch.cuda.synchronize()
+        forward_s = time.perf_counter() - t0
+        expect_counts(read_counts(), {"dequant_matmul_ordered": per},
+                      f"{what}, {name} (M = {REC_FORWARD_S})")
+        cache = eng.model.init_cache(1, eng.max_seq, dtype=dtype,
+                                     device=eng.device)
+        outs = []
+        reset_counts()
+        t0 = time.perf_counter()
+        for t in range(REC_FORWARD_S):
+            logits, cache = eng.decode(cache, toks[:, t], t)
+            outs.append(logits)
+        torch.cuda.synchronize()
+        replay_s = time.perf_counter() - t0
+        expect_counts(read_counts(), {"dequant_matmul_ordered":
+                                      per * REC_FORWARD_S},
+                      f"{what}, {name} replay ({REC_FORWARD_S} steps)")
+        dec = torch.stack(outs, dim=1)
+        if not (torch.isfinite(full).all() and torch.isfinite(dec).all()):
+            raise AssertionError(f"{what}, {name}: logits not finite")
+        if tuple(full.shape) != (1, REC_FORWARD_S, cfg.vocab_size):
+            raise AssertionError(f"{what}: forward {tuple(full.shape)}")
+        gap = (dec - full).abs().max().item() / full.abs().max().item()
+        out[name] = {"forward_s": forward_s, "replay_s": replay_s,
+                     "gap_over_max_logit": gap, "argmax_agreement": (
+                         dec.argmax(-1) == full.argmax(-1)).float().mean(
+                         ).item()}
+        if dtype == torch.float32 and gap >= 2e-2:
+            raise AssertionError(f"{what}: the float32 forward against its "
+                                 f"decode replay: gap {gap:.3g} of "
+                                 f"max|logit|, bound 2e-2")
+        del eng, cache, outs, dec, full
+    f32, b16 = out["float32"], out["bfloat16"]
+    line(what, f"prefill_logits of {REC_FORWARD_S} tokens "
+         f"({'einsum local attention, ' if cfg.family == 'hybrid' else ''}"
+         f"K1 {per} launches) against the replay through the captured "
+         f"decode step ({per * REC_FORWARD_S} K1 launches): float32 "
+         f"activations and state, max gap {f32['gap_over_max_logit']:.3g} "
+         f"of max|logit| (bound 2e-2), argmax agreement "
+         f"{f32['argmax_agreement']:.3f} (forward {f32['forward_s']:.2f}s, "
+         f"replay {f32['replay_s']:.2f}s); bf16 activations and K/V ring "
+         f"[reported]: gap {b16['gap_over_max_logit']:.3g}, argmax "
+         f"agreement {b16['argmax_agreement']:.3f} (forward "
+         f"{b16['forward_s']:.2f}s, replay {b16['replay_s']:.2f}s)")
+    return out
+
+
+def _flash_refused(engine, arch: str) -> dict:
+    """recurrentgemma's flash forward: its head dim 256 is not one of
+    K2's, so ``prefill_logits`` with ``attn_backend="flash"`` raises the
+    ValueError and takes no other path."""
+    toks = torch.zeros((1, 8), dtype=torch.int64, device="cuda")
+    reset_counts()
+    try:
+        dataclasses.replace(engine, attn_backend="flash").prefill_logits(toks)
+    except ValueError as e:
+        if "head dims" not in str(e):
+            raise
+        message = str(e)
+    else:
+        raise AssertionError(f"flash {arch}: the flash forward at head dim "
+                             f"{engine.model.cfg.head_dim} did not raise")
+    if read_counts()["flash_attention"]:
+        raise AssertionError(f"flash {arch}: K2 launched")
+    line(f"flash {arch}", f"attn_backend='flash' at head dim "
+         f"{engine.model.cfg.head_dim} raised, as it must: {message}")
+    return {"raised": True, "message": message}
+
+
+def phase_serve_recurrent(arch: str) -> dict:
+    """Phases 38-39 (``serve rwkv6-3b``, ``serve recurrentgemma-2b``): the
+    arch at full width and depth from seed 0, tp-aware: the four requests
+    of phase 5 through the continuous scheduler and the captured step
+    (``phase_serve``: K1 once per MLP weight a step, counted; the first
+    step with its capture and the steady step; the params' bytes and the
+    init's peak); a few captured steps traced (K1's launches a step
+    asserted, the busy share, the heaviest kernels); the captured step
+    against ``decode_eager`` bit for bit; slot reuse against solo runs
+    (``_slot_reuse``); the forward against the decode replay
+    (``_rec_forward``); rwkv6's tp=1 artifact (``phase_artifact``: ids
+    and greedy logits bit-equal to the in-memory engine) or
+    recurrentgemma's flash forward refused; then naive-actorder (K4 once
+    per MLP weight a step, K1 never)."""
+    cfg = rec_config(arch)
+    per = mlp_launches(cfg)
+    engine, serve = phase_serve(cfg, "dequant_matmul_ordered",
+                                f"serve {arch}")
+    out = {"layers": cfg.num_layers, "launches_per_step": per,
+           "serve": serve}
+    # one step a profiler run: the profiler drops events the more a run
+    # holds (about 1900 and 3400 kernels a step here)
+    out["trace"] = tr = phase_trace(engine, {"K1": _is_k1}, f"trace {arch}",
+                                    expect={"K1": per}, steps=1)
+    k1 = tr["kernels"]["K1"]["launches_per_step"]
+    if k1 != per:
+        raise AssertionError(f"{arch}: {k1} K1 kernels per captured step on "
+                             f"the device, expected {per}")
+    steps = 4
+    captures, offsets, recapture_s = _captured_vs_eager(
+        engine, cfg, steps, f"capture {arch}")
+    out["capture"] = {"steps_each": steps, "captures": captures,
+                      "offsets": offsets, "recapture_s": recapture_s,
+                      "bit_equal": True}
+    line(f"capture {arch}", f"B=4: {steps} lockstep and {steps} per-slot "
+         f"steps (offsets {offsets}) through the captured step bit-equal to "
+         f"decode_eager (logits and every state leaf after each step); "
+         f"captures {captures}, the recapture {recapture_s:.3f}s")
+    out["slot_reuse"] = _slot_reuse(engine, cfg, arch)
+    out["forward"] = _rec_forward(engine, cfg, arch)
+    if cfg.family == "ssm":
+        out["artifact"] = phase_artifact(
+            cfg, memory_reference(engine, cfg, serve), f"artifact {arch}")
+    else:
+        out["flash"] = _flash_refused(engine, arch)
+    del engine
+    torch.cuda.empty_cache()
+    naive = rec_config(arch, "naive-actorder")
+    nengine, out["serve_naive"] = phase_serve(
+        naive, "dequant_matmul_gidx", f"serve-naive {arch}")
+    s = out["serve_naive"]
+    line(f"serve-naive {arch}", "naive-actorder on backend=cuda: K4 {} = "
+         "{} x {} steps (K1 0), median step {:.2f} ms against tp-aware's "
+         "{:.2f}".format(s["launches"], per, s["decode_steps"],
+                         s["steady_ms_per_step"],
+                         serve["steady_ms_per_step"]))
+    del nengine
+    torch.cuda.empty_cache()
+    return out
+
+
 def _entry(name, source, replaces, launches, max_abs_err, t: dict,
            library_ms=None) -> dict:
     return {"name": name, "route": "cuda", "source": source,
@@ -5597,6 +5985,8 @@ def main() -> int:
     serve_whisper = phase_serve_av(WHISPER)
     serve_vision = phase_serve_av(VISION)
     fold_whisper = phase_fold_whisper()
+    rec_kernels = _check_time_rec(gen)
+    serve_rec = {a: phase_serve_recurrent(a) for a in REC_ARCHS}
 
     src = "src/repro_torch/csrc/"
     tpu = "src/repro/kernels/"
@@ -5845,6 +6235,22 @@ def main() -> int:
                tpu + "dequant_matmul.py:104", fold_whisper["launches"],
                ak["errs"]["whisper_fold"], ak["whisper_fold"]["layer"]),
     ]
+    # the recurrent families (phases 37-39): K1 on each arch's MLP pairs
+    # (per layer, M=4) on its tp-aware serve, K4 on its naive one
+    for a in REC_ARCHS:
+        rk, sr = rec_kernels, serve_rec[a]
+        kernels += [
+            _entry(f"dequant_matmul_ordered ({a}, {sr['layers']} layers; "
+                   "per layer M=4)", src + "dequant_matmul_ordered.cu",
+                   tpu + "dequant_matmul.py:104",
+                   sr["serve"]["launches"], rk["errs"][a]["K1"],
+                   rk[a]["ordered"]["layer"]),
+            _entry(f"dequant_matmul_gidx ({a}, naive-actorder; per layer "
+                   "M=4)", src + "dequant_matmul_gidx.cu",
+                   tpu + "dequant_matmul.py:333",
+                   sr["serve_naive"]["launches"], rk["errs"][a]["K4"],
+                   rk[a]["naive"]["layer"]),
+        ]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"nvidia_smi": smi, "build": build, "check": checks,
@@ -5867,7 +6273,9 @@ def main() -> int:
                    "moe_tp": moe_tp, "kernels_av": av_kernels,
                    "serve_whisper": serve_whisper,
                    "serve_vision": serve_vision,
-                   "fold_whisper": fold_whisper, "kernels": kernels,
+                   "fold_whisper": fold_whisper,
+                   "kernels_rec": rec_kernels, "serve_recurrent": serve_rec,
+                   "kernels": kernels,
                    "phase_seconds": phase_seconds(),
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,8 @@
 """Config registry; port of ``repro/configs/__init__.py``.
 
-The dense decoders, the MoE family and the audio and vision families
-are registered, in the reference's order; the recurrent families follow
-the order in ``ROADMAP.md``.
+Every architecture of the reference is registered, in its order: the
+dense decoders, the MoE family, the audio and vision families and the
+recurrent families (recurrentgemma-2b, rwkv6-3b).
 """
 
 from __future__ import annotations
@@ -19,6 +19,8 @@ ARCH_IDS = (
     "mistral-large-123b",
     "whisper-large-v3",
     "starcoder2-3b",
+    "recurrentgemma-2b",
+    "rwkv6-3b",
     "arctic-480b",
     "granite-3-8b",
 )
@@ -30,6 +32,8 @@ _MODULES = {
     "mistral-large-123b": "mistral_large_123b",
     "whisper-large-v3": "whisper_large_v3",
     "starcoder2-3b": "starcoder2_3b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
+    "rwkv6-3b": "rwkv6_3b",
     "arctic-480b": "arctic_480b",
     "granite-3-8b": "granite_3_8b",
 }
@@ -37,8 +41,8 @@ _MODULES = {
 
 def _module(arch_id: str):
     if arch_id not in _MODULES:
-        raise KeyError(f"arch {arch_id!r} is not ported yet; ported: "
-                       f"{sorted(_MODULES)} (see ROADMAP.md)")
+        raise KeyError(f"unknown arch {arch_id!r}; known: "
+                       f"{sorted(_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
 
 

@@ -8,10 +8,14 @@ module declares where its reference tree stacks layers and how many
 leading dims it stacks there (``LAYER_STACKS``: ``layers`` 1 for the
 dense and MoE families, ``enc_layers`` and ``dec_layers`` 1 for whisper,
 ``super`` 1 and ``super.self`` 2 for the vision model, whose
-``(n_super, n_self)`` self layers become a list of lists).
-``to_port_layout`` and ``to_reference_layout`` convert between the two
-by those declarations (every family's at once: their prefixes never
-collide).
+``(n_super, n_self)`` self layers become a list of lists; ``super`` 1
+and ``extra`` 1 for recurrentgemma, whose ``extra`` is None when there
+are no extra layers).  ``to_port_layout`` and ``to_reference_layout``
+convert between the two by those declarations (every family's at once:
+a prefix two families share has one depth, ``registry.layer_stacks``).
+A stack of length 0 (recurrentgemma's ``super`` below 3 layers) has no
+layers to list: it stays a tree of ``(0, ...)`` leaves in both layouts,
+which keeps a layer's shapes.
 """
 
 from __future__ import annotations
@@ -66,8 +70,11 @@ def to_port_layout(tree: Any) -> Any:
     def split(node, levels: int, path: str):
         if levels == 0:
             return conv(node, path)
+        depth = _depth(node)
+        if depth == 0:
+            return node
         return [split(item, levels - 1, path)
-                for item in unstack_layers(node, _depth(node))]
+                for item in unstack_layers(node, depth)]
 
     def conv(node, path: str):
         if not isinstance(node, dict):

@@ -1,7 +1,9 @@
-"""Model registry (the dense, MoE, audio and vision families); port of
-``repro/models/registry.py``.
+"""Model registry (the dense, MoE, audio, vision and recurrent families);
+port of ``repro/models/registry.py``.
 
-The recurrent families follow in the order of ``ROADMAP.md``.
+The recurrent families (``hybrid``: recurrentgemma, ``ssm``: rwkv6) keep
+a fixed-size decode state per slot: they have no paged cache, and their
+decode step accepts a page table and ignores it.
 """
 
 from __future__ import annotations
@@ -14,19 +16,27 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.policy import ExecutionPolicy
 from repro_torch.device import DeviceLike, new_generator, resolve_device
-from repro_torch.models import moe, transformer, vision_llama, whisper
+from repro_torch.models import (moe, rglru, rwkv6, transformer,
+                                vision_llama, whisper)
 
-_FAMILY_MODULES = {"dense": transformer, "moe": moe, "audio": whisper,
-                   "vlm": vision_llama}
+_FAMILY_MODULES = {"dense": transformer, "moe": moe, "hybrid": rglru,
+                   "ssm": rwkv6, "audio": whisper, "vlm": vision_llama}
 
 
 def layer_stacks() -> dict:
     """Every family's stacked layer prefixes (``LAYER_STACKS``: dotted
     path -> leading dims stacked there in the reference's tree), as one
-    map: the prefixes of different families never collide."""
+    map.  Families may share a prefix (``super``: the vision model's and
+    recurrentgemma's superblocks) if they stack the same number of dims
+    there; a prefix stacked at two depths raises, as one map could not
+    convert both trees."""
     out: dict = {}
     for mod in _FAMILY_MODULES.values():
-        out.update(getattr(mod, "LAYER_STACKS", {}))
+        for path, depth in getattr(mod, "LAYER_STACKS", {}).items():
+            if out.setdefault(path, depth) != depth:
+                raise ValueError(
+                    f"layer stack {path!r} is {out[path]} dims deep in one "
+                    f"family and {depth} in {mod.__name__}")
     return out
 
 
@@ -208,6 +218,6 @@ class Model:
 
 def build_model(cfg: ModelConfig) -> Model:
     if cfg.family not in _FAMILY_MODULES:
-        raise KeyError(f"family {cfg.family!r} is not ported yet; ported: "
-                       f"{sorted(_FAMILY_MODULES)} (see ROADMAP.md)")
+        raise KeyError(f"unknown family {cfg.family!r}; known: "
+                       f"{sorted(_FAMILY_MODULES)}")
     return Model(cfg=cfg, module=_FAMILY_MODULES[cfg.family])

@@ -40,7 +40,7 @@ from repro_torch.core.reorder import PairBundle, PlannedPair
 from repro_torch.device import (DeviceLike, derive_seed, new_generator,
                                 resolve_device)
 from repro_torch.dist.topology import MeshPlan
-from repro_torch.train.checkpoint import flatten_keys
+from repro_torch.train.checkpoint import flatten_keys, map_tensors
 
 #: seed part separating the quantization stream from the init stream
 PLAN_RNG_STREAM = 0x504C414E  # "PLAN"
@@ -123,10 +123,29 @@ def compile_params(cfg: ModelConfig, raw_params: Any, *,
     """Raw fp params -> planned params (quantize, then lay out).
 
     ``generator`` draws the act-order processing orders (default: seed 0
-    on the CPU); ``scheme`` defaults to ``cfg.quant.scheme``."""
+    on the CPU); ``scheme`` defaults to ``cfg.quant.scheme``.  The MLP
+    dict of a layer stack of length 0 (recurrentgemma below 3 layers)
+    becomes a ``PlannedPair`` of ``(0, ...)`` leaves with a pair's
+    shapes."""
     gen = generator if generator is not None else new_generator(0)
+    scheme = scheme or cfg.quant.scheme
+
+    def empty_stack(node: dict):
+        # a layer stack of length 0 ((0, ...) leaves, which keep a layer's
+        # shapes): a pair of ones of those shapes planned with a generator
+        # of its own, stacked 0 deep
+        one = {k: torch.ones(t.shape[1:], dtype=t.dtype, device=t.device)
+               for k, t in node.items()}
+        plan = compile_params(cfg, one, generator=new_generator(
+            0, node["w_up"].device), scheme=scheme)
+        return map_tensors(plan, lambda _, t: t.new_empty(
+            (0,) + tuple(t.shape)))
+
+    raw_params = _walk(raw_params, empty_stack,
+                       lambda n: _is_mlp_dict(n) and n["w_up"].dim() > 2
+                       and n["w_up"].shape[0] == 0)
     bundles = stage_quantize(cfg, raw_params, gen)
-    return stage_layout(bundles, scheme or cfg.quant.scheme)
+    return stage_layout(bundles, scheme)
 
 
 # ---------------------------------------------------------------------------

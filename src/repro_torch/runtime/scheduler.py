@@ -3,8 +3,8 @@
 dense cache or the paged one, and in batch-drain mode).
 
 ``run()`` picks the mode by the engine (``Engine.supports_continuous``):
-the dense and MoE families step continuously; the audio and vision
-families, whose cross-attention prefill (frames, patches) is
+the dense, MoE and recurrent families step continuously; the audio and
+vision families, whose cross-attention prefill (frames, patches) is
 batch-global, are batch-drained (``_run_batch``): up to ``max_batch``
 queued requests at a time, their prompts right-padded to
 ``prompt_budget``, beside zero frames or patches (the reference's
@@ -18,6 +18,11 @@ each slot on its own clock; a finished slot takes the next queued request
 at the next step boundary.  Prompt replay and generation are the same
 decode loop.  The causal mask hides other slots' cache rows, so a
 request's tokens do not depend on which other requests share the batch.
+The recurrent families' state has no mask: a slot's lane is dirty once a
+decode step has run over it (a request's, or the filler of an idle
+slot), and a request admitted into a dirty lane has it zeroed first
+(``Engine.reset_slot``, in place), the fresh cache's state, so its
+tokens are those of a solo run through slot reuse too.
 
 Paged mode (``engine.uses_page_table``): a ``PagedCacheManager`` owns
 per-slot page tables over a shared page pool.  Admission reserves each
@@ -49,6 +54,7 @@ from repro_torch.cache import paged as paged_pool
 from repro_torch.device import derive_seed, new_generator
 from repro_torch.runtime import sampling
 from repro_torch.runtime.serve import Engine
+from repro_torch.train.checkpoint import flatten_keys
 
 #: seed part of batch-drain mode's per-batch sample streams
 DRAIN_STREAM = 0x4452414E  # "DRAN"
@@ -103,6 +109,10 @@ class Scheduler:
         self.admissions: list[tuple[int, int]] = []
         self._cache = None
         self._slots: list[Optional[_Slot]] = []
+        #: lanes a decode step has run over since the cache was built (a
+        #: recurrent family's lane must be reset before its next request)
+        self._dirty: list[bool] = []
+        self._recurrent = engine.model.cfg.family in ("hybrid", "ssm")
         self._step_no = 0
         self._cache_builds = 0
         self._drained = 0               # batches of batch-drain mode
@@ -249,6 +259,7 @@ class Scheduler:
         else:
             self._cache = self.engine.init_cache(b)
         self._slots = [None] * b
+        self._dirty = [False] * b
         self._cache_builds += 1
 
     def release_cache(self) -> bool:
@@ -264,6 +275,7 @@ class Scheduler:
         self.engine.release(self._cache)
         self._cache = None
         self._slots = []
+        self._dirty = []
         return True
 
     def cache_stats(self) -> dict:
@@ -276,7 +288,7 @@ class Scheduler:
             if self._cache is not None:
                 out["bytes"] = {"pool": sum(
                     t.numel() * t.element_size()
-                    for t in self._cache.values())}
+                    for t in flatten_keys(self._cache).values())}
             return out
         out.update(self.manager.stats())
         out["per_request_pages"] = {
@@ -325,6 +337,9 @@ class Scheduler:
                         break
                     fed0 = self.manager.admit(i, req.prompt,
                                               req.max_new_tokens)
+                elif self._recurrent and self._dirty[i]:
+                    self._cache = self.engine.reset_slot(self._cache, i)
+                    self._dirty[i] = False
                 self.queue.popleft()
                 slots[i] = _Slot(req=req, gen=self._request_generator(req),
                                  fed=fed0)
@@ -362,6 +377,7 @@ class Scheduler:
         logits, self._cache = self.engine.decode(
             self._cache, torch.from_numpy(tokens).to(dev),
             torch.from_numpy(pos).to(dev), pages)
+        self._dirty = [True] * b
         sampled = sampling.sample_slots(
             gens, logits, torch.from_numpy(temperature).to(dev),
             torch.from_numpy(top_p).to(dev),

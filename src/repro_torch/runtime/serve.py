@@ -47,6 +47,13 @@ nested (``{"self": ..., "cross_k", "cross_v"}``) and a step's graph is
 keyed by every leaf.  These families are batch-drained by the
 scheduler (``supports_continuous``).
 
+The recurrent families (rwkv6, recurrentgemma) step continuously: their
+fixed-size per-slot state (shift rows, wkv, conv and LRU states, the
+local K/V ring) is written in place by every step like the KV cache, and
+``reset_slot`` zeroes a slot's lane in place before a new request
+enters it.  Under a paged policy they keep that dense state
+(``uses_page_table``).
+
 An artifact's aux plans (attention V->O folds, ``Engine.aux``) are kept
 once, at construction, as (nested) lists of per-layer folds on the
 engine's device, each rank's heads of them under TP; every forward and
@@ -65,6 +72,7 @@ runs each product once, unpadded, and a lone request pads to it.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from typing import Any, Optional
 
@@ -214,11 +222,27 @@ class Engine:
     @property
     def supports_continuous(self) -> bool:
         """The scheduler may step this model at token granularity on
-        per-slot positions: its whole decode state is the position-masked
-        KV cache (the dense and MoE families).  The audio and vision
-        families are batch-drained: their cross-attention prefill (frames,
-        patches) is batch-global."""
-        return self.model.cfg.family in ("dense", "moe")
+        per-slot positions.  The dense and MoE families qualify because
+        their whole decode state is the position-masked KV cache: a
+        reused slot's stale rows are hidden by the ``j <= pos`` mask.  The
+        recurrent families (``hybrid``, ``ssm``) carry per-slot state with
+        no mask; the scheduler zeroes a re-admitted slot's lane
+        (``reset_slot``), the fresh cache's state, so they step
+        continuously too.  The audio and vision families are
+        batch-drained: their cross-attention prefill (frames, patches) is
+        batch-global."""
+        return self.model.cfg.family in ("dense", "moe", "hybrid", "ssm")
+
+    @torch.inference_mode()
+    def reset_slot(self, cache, slot: int):
+        """Zero lane ``slot`` (dim 1, the batch of every leaf: ``(L, B,
+        ...)``) of every leaf of ``cache``, the local attention's K/V
+        included, **in place**, so a captured step's addresses stay
+        valid; returns the cache.  A recurrent family's re-admitted slot
+        so starts from the fresh cache's state."""
+        for leaf in flatten_keys(cache).values():
+            leaf[:, slot].zero_()
+        return cache
 
     @property
     def uses_page_table(self) -> bool:
@@ -345,14 +369,25 @@ class Engine:
                                           static_pages)
         logits.record_stream(current)
         torch.cuda.synchronize(dev)
+        # dead cycles are collected now, and no collection runs during the
+        # capture: a graph the cyclic collector frees there (of an engine
+        # dropped earlier) resets itself, which the capturing stream
+        # forbids, and the capture is invalidated
+        gc.collect()
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         graph = torch.cuda.CUDAGraph()
         counts = ops.launch_counts()
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph, stream=self._stream):
-            static_logits, _ = self.decode_eager(cache, static_tokens,
-                                                 static_pos, static_pages)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, stream=self._stream):
+                static_logits, _ = self.decode_eager(
+                    cache, static_tokens, static_pos, static_pages)
+        finally:
+            if collecting:
+                gc.enable()
         seconds = time.perf_counter() - t0
         launches = tuple(a - c for a, c in zip(ops.launch_counts(), counts))
         ops.add_launch_counts(-n for n in launches)
