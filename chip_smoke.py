@@ -305,6 +305,23 @@ Phases, one line each:
      to the in-memory engine; bytes, seconds to prepare, save and load);
      recurrentgemma's flash forward raising for head dim 256 (K2 takes
      32, 64 and 128); then naive-actorder (K4 64 and 78 a step, K1 0)
+ 40. train: the dense qwen3-4b (``quant.mode="none"``, float32 params,
+     the config's bf16 carry) at full width and depth trained for 8 steps
+     at batch 2 x seq 128 on the synthetic stream through ``python -m
+     repro_torch.launch.train`` in a child process, after this process
+     has freed its cached memory (``torch.cuda.mem_get_info`` printed
+     first): every loss finite, step 0's within 1.5 of ln(vocab), step
+     7's below it; s/step after the first, tokens/s, the peak allocated
+     beside the 16 B a param of state reckoned from ``param_count``, and
+     no counted kernel launched; then one train step of each of the ten
+     smoke configs (float32 carry and stubs) on the card and on the CPU
+     from the same params and batch: every leaf's gradient within
+     ``FAMILY_GRAD_TOL`` of its max, loss and grad_norm within
+     ``FAMILY_RTOL`` (whisper's grad_norm within ``WHISPER_GNORM_RTOL``),
+     the card's grad_norm within ``FAMILY_F64_RTOL`` of a float64
+     gradient's, the params within ``FAMILY_PARAM_TOL`` of max|p| at all
+     but ``FAMILY_PARAM_SHARE`` of the elements; no counted kernel
+     launched
 
 then the per-kernel JSON line (after the first six: K2 on the long
 forward, the paged and HTTP serves' K1, K4 and K3 rows, the other
@@ -329,9 +346,11 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import gc
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -350,7 +369,8 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.comm import dispatch as comm  # noqa: E402
 from repro_torch.comm.spec import parse_collective  # noqa: E402
 from repro_torch.comm.wire import wire_params  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core import quantization as qz  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import dequant_matmul as dk  # noqa: E402
@@ -361,6 +381,7 @@ from repro_torch.dist.topology import MeshPlan  # noqa: E402
 from repro_torch.kernels import dispatch as kdispatch  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import mesh  # noqa: E402
+from repro_torch.launch.train import stubs  # noqa: E402
 from repro_torch.models import common as cm  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.plan import compiler  # noqa: E402
@@ -369,6 +390,9 @@ from repro_torch.runtime.sampling import SamplingConfig  # noqa: E402
 from repro_torch.runtime.scheduler import Request, Scheduler  # noqa: E402
 from repro_torch.runtime.serve import Engine, make_engine  # noqa: E402
 from repro_torch.train import checkpoint  # noqa: E402
+from repro_torch.train import data as data_lib  # noqa: E402
+from repro_torch.train import optimizer as topt  # noqa: E402
+from repro_torch.train import trainstep  # noqa: E402
 
 #: H100 SXM data-sheet peaks (dense): HBM bytes/s, float32 FLOP/s outside
 #: the tensor cores (the GEMM kernels' float32 policy uses plain FMA), and
@@ -5877,6 +5901,246 @@ def phase_serve_recurrent(arch: str) -> dict:
     return out
 
 
+#: the training phase: qwen3-4b's dense model at full width through the
+#: trainer's CLI, in a child process
+TRAIN_ARCH = "qwen3-4b"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 2, 128
+#: the step-0 loss of the random model within this of ln(vocab)
+TRAIN_LOSS0_GAP = 1.5
+#: each family's smoke step, card against CPU (float32 carry and stubs),
+#: from the same params and batch:
+#: * every leaf's gradient within ``FAMILY_GRAD_TOL`` of that leaf's
+#:   max|grad| on the CPU (the tolerance tests/test_torch_train_archs.py
+#:   holds the port's gradients to against the reference), the same
+#:   leaves without a gradient;
+#: * the loss and the step's grad_norm within ``FAMILY_RTOL`` relative,
+#:   but whisper's grad_norm within ``WHISPER_GNORM_RTOL``; and each
+#:   card grad_norm within ``FAMILY_F64_RTOL`` of a float64 gradient's on
+#:   the CPU.  Whisper's own bound has a measured cause: 77% of its
+#:   |grad|^2 lies in attention projections (encoder layer 0's wk 42%, wv
+#:   18%, decoder layer 0's self-attention wk 13%), and there the card's
+#:   float32 and the CPU's round to opposite sides of the float64 value
+#:   (|grad|^2 -9.4e-6 and +4.7e-6 of the total for encoder layer 0's
+#:   wk; tools/train_grad_gaps.py), so they differ by 1.15e-5 where each
+#:   is within 7e-6 of float64.  In the nine others the card's grad_norm
+#:   lies within 1.3e-6 of float64, and card and CPU differ by 5.6e-6 at
+#:   most.  Two runs on the card give bit-equal gradients, so no atomic
+#:   adds are at play;
+#: * the params after the step within ``FAMILY_PARAM_TOL`` of max|p| but
+#:   at most ``FAMILY_PARAM_SHARE`` of the elements (AdamW's first
+#:   direction g / (|g| + eps) is ill conditioned where g is near 0).
+FAMILY_GRAD_TOL = 1e-4
+FAMILY_RTOL = {"loss": 1e-5, "grad_norm": 1e-5}
+WHISPER_GNORM_RTOL = 3e-5
+FAMILY_F64_RTOL = 1e-5
+FAMILY_PARAM_TOL = 1e-5
+FAMILY_PARAM_SHARE = 1e-4
+FAMILY_BATCH, FAMILY_SEQ = 2, 32
+FAMILY_LR = 1e-3
+
+
+def _train_child() -> dict:
+    """The full-width trainer (``python -m repro_torch.launch.train``) in
+    a child process, after this process has let go of its cached
+    memory; its lines parsed and checked."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    held = torch.cuda.memory_allocated()
+    line("train", f"before the trainer: {free} B free of {total} "
+                  f"(torch.cuda.mem_get_info); this process holds {held} B "
+                  f"allocated, {torch.cuda.memory_reserved()} B reserved")
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+           str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--log-every", "1"]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")] + ([os.environ["PYTHONPATH"]]
+                                       if os.environ.get("PYTHONPATH")
+                                       else [])))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        raise RuntimeError(f"{' '.join(cmd[1:])} exited {proc.returncode}:\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    out = proc.stdout.splitlines()
+    for ln in out:
+        line("train", f"trainer: {ln}")
+    losses = [float(ln.split()[3]) for ln in out if ln.startswith("step ")]
+    steps = re.search(r"first ([\d.]+) s, median of the rest ([\d.]+) "
+                      r"s/step \(([\d.]+) s of it the batch\), ([\d.]+) "
+                      r"tokens/s", proc.stdout)
+    mem = re.search(r"param_count (\d+) \((\d+) param elements\), (\d+) B "
+                    r"of train state reckoned .*, (\d+) B "
+                    r"max_memory_allocated \((\d+) B reserved\)",
+                    proc.stdout)
+    launches = re.search(r"kernel launches: (\d+)", proc.stdout)
+    if len(losses) != TRAIN_STEPS or not (steps and mem and launches):
+        raise AssertionError(f"trainer output not understood:\n"
+                             f"{proc.stdout}")
+    vocab = get_config(TRAIN_ARCH).vocab_size
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"trainer: a loss is not finite: {losses}")
+    if abs(losses[0] - math.log(vocab)) > TRAIN_LOSS0_GAP:
+        raise AssertionError(f"trainer: step-0 loss {losses[0]} is not "
+                             f"within {TRAIN_LOSS0_GAP} of ln({vocab}) = "
+                             f"{math.log(vocab):.4f}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"trainer: the loss did not fall: {losses}")
+    if int(launches.group(1)):
+        raise AssertionError(f"trainer: {launches.group(1)} counted kernel "
+                             f"launches on the dense path, expected 0")
+    res = {"cmd": " ".join(cmd[1:]), "losses": losses,
+           "ln_vocab": math.log(vocab),
+           "first_step_s": float(steps.group(1)),
+           "s_per_step": float(steps.group(2)),
+           "batch_s_per_step": float(steps.group(3)),
+           "tokens_per_s": float(steps.group(4)),
+           "param_count": int(mem.group(1)),
+           "param_elements": int(mem.group(2)),
+           "state_bytes_reckoned": int(mem.group(3)),
+           "max_memory_allocated": int(mem.group(4)),
+           "max_memory_reserved": int(mem.group(5)),
+           "free_before": free, "total": total, "parent_allocated": held,
+           "kernel_launches": int(launches.group(1)), "wall_s": wall}
+    line("train", f"{TRAIN_ARCH} full width ({get_config(TRAIN_ARCH).num_layers}"
+                  f" layers), batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, "
+                  f"{TRAIN_STEPS} steps: loss {losses[0]:.4f} -> "
+                  f"{losses[-1]:.4f} (ln V {math.log(vocab):.4f}); "
+                  f"{res['s_per_step']:.4f} s/step after the first "
+                  f"({res['first_step_s']:.4f} s), {res['tokens_per_s']:.1f} "
+                  f"tokens/s; peak {res['max_memory_allocated'] / 2**30:.2f} "
+                  f"GiB allocated against {res['state_bytes_reckoned'] / 1e9:.1f}"
+                  f" GB ({res['state_bytes_reckoned'] / 2**30:.2f} GiB) of "
+                  f"state reckoned; the child's {wall:.1f} s")
+    return res
+
+
+def _on(tree, device, dtype=torch.float32):
+    """A copy of the tensors of ``tree`` on ``device``, its floating ones
+    in ``dtype``."""
+    return checkpoint.map_tensors(tree, lambda _, t: t.to(
+        device, dtype if t.is_floating_point() else t.dtype, copy=True))
+
+
+def _family_grads(model, params, batch, device, dtype=torch.float32):
+    """The train loss of ``batch`` and every leaf's gradient (float64 on
+    the CPU; None where autograd gives none) from a copy of ``params`` on
+    ``device`` in ``dtype``."""
+    params = trainstep.trainable(_on(params, device, dtype))
+    loss = trainstep.loss_fn(model, params, _on(batch, device, dtype))
+    loss.backward()
+    return float(loss.detach()), {
+        k: None if p.grad is None else p.grad.to("cpu", torch.float64)
+        for k, p in checkpoint.flatten_keys(params).items()}
+
+
+def _norm(grads: dict) -> float:
+    return math.sqrt(sum(float(torch.sum(g * g)) for g in grads.values()
+                         if g is not None))
+
+
+def _family_step(model, params, batch, device):
+    """One train step of ``model`` from a copy of ``params`` on
+    ``device``: (metrics as floats, the params after it)."""
+    params = trainstep.trainable(_on(params, device))
+    state = {"params": params, "opt": topt.init_state(params)}
+    step = trainstep.make_train_step(model, topt.AdamWConfig(
+        lr=FAMILY_LR, warmup_steps=1, total_steps=TRAIN_STEPS))
+    state, metrics = step(state, _on(batch, device))
+    return {k: float(v) for k, v in metrics.items()}, state["params"]
+
+
+def _train_families() -> dict:
+    """One train step of each smoke config, float32 carry and stubs, the
+    same port code on the card and on the CPU from the same params and
+    batch, with each leaf's gradient beside it (and a float64 gradient
+    on the CPU for scale); no counted kernel launched."""
+    out = {}
+    reset_counts()
+    for arch in ARCH_IDS:
+        cfg = get_smoke_config(arch).with_quant(mode="none").with_(
+            dtype="float32")
+        model = build_model(cfg)
+        params = model.init(0, device="cpu")
+        batch = next(data_lib.batches(data_lib.DataConfig(
+            seq_len=FAMILY_SEQ, global_batch=FAMILY_BATCH,
+            vocab_size=cfg.vocab_size), device="cpu"))
+        batch.update(stubs(cfg, FAMILY_BATCH, "cpu"))
+        _, g_cpu = _family_grads(model, params, batch, "cpu")
+        _, g_gpu = _family_grads(model, params, batch, "cuda")
+        _, g_64 = _family_grads(build_model(cfg.with_(dtype="float64")),
+                                params, batch, "cpu", torch.float64)
+        graded = sorted(k for k, g in g_cpu.items() if g is not None)
+        if graded != sorted(k for k, g in g_gpu.items() if g is not None):
+            raise AssertionError(f"{arch}: the card and the CPU give "
+                                 f"gradients to different leaves")
+        grad_gap = {k: float((g_gpu[k] - g_cpu[k]).abs().max())
+                    / max(float(g_cpu[k].abs().max()), 1e-30)
+                    for k in graded if g_cpu[k].numel()}
+        worst_leaf = max(grad_gap, key=grad_gap.get)
+        n64 = _norm(g_64)
+        vs64 = {"cpu": abs(_norm(g_cpu) - n64) / n64,
+                "card": abs(_norm(g_gpu) - n64) / n64}
+        m_cpu, p_cpu = _family_step(model, params, batch, "cpu")
+        m_gpu, p_gpu = _family_step(model, params, batch, "cuda")
+        torch.cuda.synchronize()
+        a = {k: t.detach() for k, t in checkpoint.flatten_keys(p_cpu).items()}
+        b = {k: t.detach().cpu() for k, t in
+             checkpoint.flatten_keys(p_gpu).items()}
+        pmax = max(float(t.abs().max()) for t in a.values() if t.numel())
+        gaps = [(b[k] - a[k]).abs() for k in a if a[k].numel()]
+        n = sum(g.numel() for g in gaps)
+        outside = sum(int((g > FAMILY_PARAM_TOL * pmax).sum()) for g in gaps)
+        rel = {k: abs(m_gpu[k] - m_cpu[k]) / abs(m_cpu[k])
+               for k in ("loss", "grad_norm")}
+        rtol = dict(FAMILY_RTOL)
+        if arch == "whisper-large-v3":
+            rtol["grad_norm"] = WHISPER_GNORM_RTOL
+        out[arch] = {"cpu": m_cpu, "card": m_gpu, "rel": rel,
+                     "grad_norm_vs_float64": vs64,
+                     "worst_grad_leaf": worst_leaf,
+                     "worst_grad_gap": grad_gap[worst_leaf],
+                     "param_elements": n, "outside": outside,
+                     "max_param_gap": max(float(g.max()) for g in gaps),
+                     "max_param": pmax}
+        line("train", f"{arch} smoke step, card vs CPU: loss {m_gpu['loss']:.6f}"
+                      f" / {m_cpu['loss']:.6f} (rel {rel['loss']:.2e}), "
+                      f"grad_norm rel {rel['grad_norm']:.2e} (bound "
+                      f"{rtol['grad_norm']:g}; against float64: card "
+                      f"{vs64['card']:.2e}, bound {FAMILY_F64_RTOL:g}, CPU "
+                      f"{vs64['cpu']:.2e}); worst "
+                      f"gradient leaf {worst_leaf} at "
+                      f"{grad_gap[worst_leaf]:.2e} of its max; params: "
+                      f"{outside} of {n} beyond {FAMILY_PARAM_TOL:g} x "
+                      f"max|p|")
+        if (any(rel[k] > rtol[k] for k in rel)
+                or vs64["card"] > FAMILY_F64_RTOL
+                or grad_gap[worst_leaf] > FAMILY_GRAD_TOL
+                or outside > FAMILY_PARAM_SHARE * n
+                or m_gpu["step"] != m_cpu["step"]):
+            raise AssertionError(f"{arch}: the card's train step is not the "
+                                 f"CPU's within the stated tolerances: "
+                                 f"{out[arch]}")
+    counts = read_counts()
+    expect_counts(counts, {}, "train steps of the ten smoke configs")
+    out["counts"] = counts
+    return out
+
+
+def phase_train() -> dict:
+    """Phase 40: the dense model trained on the card (see the module
+    docstring)."""
+    t0 = time.perf_counter()
+    res = {"full": _train_child(), "families": _train_families()}
+    res["seconds"] = time.perf_counter() - t0
+    line("train", f"phase seconds {res['seconds']:.1f}; the path launched "
+                  "none of the five kernels (counted in the trainer and in "
+                  "this process)")
+    return res
+
+
 def _entry(name, source, replaces, launches, max_abs_err, t: dict,
            library_ms=None) -> dict:
     return {"name": name, "route": "cuda", "source": source,
@@ -5987,6 +6251,7 @@ def main() -> int:
     fold_whisper = phase_fold_whisper()
     rec_kernels = _check_time_rec(gen)
     serve_rec = {a: phase_serve_recurrent(a) for a in REC_ARCHS}
+    train = phase_train()
 
     src = "src/repro_torch/csrc/"
     tpu = "src/repro/kernels/"
@@ -6275,6 +6540,7 @@ def main() -> int:
                    "serve_vision": serve_vision,
                    "fold_whisper": fold_whisper,
                    "kernels_rec": rec_kernels, "serve_recurrent": serve_rec,
+                   "train": train,
                    "kernels": kernels,
                    "phase_seconds": phase_seconds(),
                    "seconds": time.perf_counter() - t_start}, f, indent=1)

@@ -98,6 +98,37 @@ class ModelConfig:
         return dataclasses.replace(
             self, quant=dataclasses.replace(self.quant, **kw))
 
+    def _counts(self) -> tuple[int, int, int]:
+        """Per-layer attention and MLP params, and the experts' per expert
+        (with the router's ``d * E`` apart)."""
+        d, hd = self.d_model, self.head_dim
+        attn = d * (self.n_heads * hd) * 2 + d * (self.n_kv_heads * hd) * 2
+        if self.family == "ssm":
+            attn = d * d * 4  # r,k,v,o time-mix projections
+        mlp = d * self.d_ff * (3 if self.mlp_gated else 2)
+        if self.num_experts and not self.dense_residual:
+            mlp = 0
+        expert = d * self.moe_dff * (3 if self.mlp_gated else 2)
+        return attn, mlp, expert
+
+    def param_count(self) -> int:
+        """Approximate total parameter count N (for MODEL_FLOPS = 6ND), as
+        the reference counts it."""
+        attn, mlp, expert = self._counts()
+        moe = (self.num_experts * expert + self.d_model * self.num_experts
+               if self.num_experts else 0)
+        emb = self.vocab_size * self.d_model * 2
+        enc = self.encoder_layers * (attn + mlp)
+        return self.num_layers * (attn + mlp + moe) + emb + enc
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: the ``top_k`` experts only)."""
+        attn, mlp, expert = self._counts()
+        moe = (self.top_k * expert + self.d_model * self.num_experts
+               if self.num_experts else 0)
+        emb = self.vocab_size * self.d_model  # the lm head's product
+        return self.num_layers * (attn + mlp + moe) + emb
+
 
 def smoke_reduce(cfg: ModelConfig, **overrides) -> ModelConfig:
     """Reduced same-family variant for CPU smoke tests."""

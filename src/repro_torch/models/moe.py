@@ -7,6 +7,10 @@ dicts) with an MoE block in place of the MLP:
 ``"experts"`` is one ``PlannedPair`` whose leaves keep a leading ``E``
 dim (what the reference's ``(L, E, ...)`` stack leaves per layer, and
 what the artifact holds); expert ``e`` runs on the view ``leaf[e]``.
+In a dense config (``quant.mode == "none"``, what training runs) it is
+the raw weights' dict of ``(E, d, ff)`` / ``(E, ff, d)`` leaves, which
+run as one batched product per GEMM over the experts (the reference's
+``vmap`` of the dense MLP).
 
 Token-choice top-k routing with capacity (``_capacity``, ``dispatch``):
 a float32 router and softmax, ``topk`` with the gates renormalised, each
@@ -39,8 +43,9 @@ name it:
 On one device the experts run under the compute dtype of
 ``DEFAULT_POLICY`` and the deployment's kernel backend, as the
 reference's single-device path runs them under ``REPLICATED``.
-The load-balance loss (the reference's ``return_aux``) belongs to
-training and is not ported.
+``moe_forward(return_aux=True)`` also gives the Switch-style
+load-balance loss ``E * sum_e f_e * P_e`` of the layer's tokens (the
+train loss does not add it, as the reference's does not).
 """
 
 from __future__ import annotations
@@ -200,12 +205,23 @@ def expert_bytes(params) -> int:
 # the MoE block
 # ---------------------------------------------------------------------------
 
+def load_balance_loss(cfg: ModelConfig, probs: torch.Tensor,
+                      idx: torch.Tensor) -> torch.Tensor:
+    """Switch-style ``E * sum_e f_e * P_e``: ``f_e`` the share of the
+    ``T * k`` slots routed to expert ``e``, ``P_e`` its mean probability."""
+    e = cfg.num_experts
+    frac = torch.nn.functional.one_hot(idx, e).to(torch.float32).mean(
+        dim=(0, 1))
+    return e * torch.sum(frac * probs.mean(dim=0))
+
+
 def dispatch(cfg: ModelConfig, xt: torch.Tensor, router: torch.Tensor,
              cap: int):
     """Token-choice top-k dispatch of the tokens ``xt`` (T, d): the
     ``(E, cap, d)`` buffer of each expert's tokens (zero rows past its
-    count), and the routing ``(idx (T, k), gate (T, k), pos (T*k,),
-    keep (T*k,))`` the combine reads (the reference's ``_dispatch_local``)."""
+    count), the routing ``(idx (T, k), gate (T, k), pos (T*k,),
+    keep (T*k,))`` the combine reads (the reference's ``_dispatch_local``),
+    and the router's probabilities (T, E) the load-balance loss reads."""
     t, d = xt.shape
     e, k = cfg.num_experts, cfg.top_k
     scores = cm.matmul(xt.to(torch.float32), router.to(torch.float32))
@@ -221,7 +237,7 @@ def dispatch(cfg: ModelConfig, xt: torch.Tensor, router: torch.Tensor,
     # dropped slots go to a spare row past the capacity, cut off after
     buf = xt.new_zeros((e, cap + 1, d))
     buf[flat_e, torch.where(keep, pos, cap)] = xt[flat_tok]
-    return buf[:, :cap], (idx, gate, pos, keep)
+    return buf[:, :cap], (idx, gate, pos, keep), probs
 
 
 def combine(out: torch.Tensor, routing, dtype) -> torch.Tensor:
@@ -254,11 +270,15 @@ def expert_views(experts: PlannedPair) -> list:
     return views
 
 
-def experts_forward(cfg: ModelConfig, experts: PlannedPair, xs, policy, *,
+def experts_forward(cfg: ModelConfig, experts, xs, policy, *,
                     group=None) -> torch.Tensor:
     """``xs`` (E_local, C, d) through this process's experts, one pair
     each, every GEMM one kernel launch: (E_local, C, d).  With the TP
-    ``group``, one collective closes the stacked partials."""
+    ``group``, one collective closes the stacked partials.  Raw experts
+    (a dense config's dict of stacked weights) run one batched product
+    per GEMM (one device only: ``moe_forward`` refuses a group)."""
+    if not isinstance(experts, PlannedPair):
+        return cm.mlp_forward(cfg, experts, xs, policy)
     views = expert_views(experts)
     act = cfg.activation
     if group is None:
@@ -282,12 +302,19 @@ def experts_forward(cfg: ModelConfig, experts: PlannedPair, xs, policy, *,
 
 
 def moe_forward(cfg: ModelConfig, p, x, policy: ExecutionPolicy, *,
-                group=None, ep_group=None) -> torch.Tensor:
+                group=None, ep_group=None, return_aux: bool = False):
     """x: (B, S, d) -> (B, S, d): the MoE block (and arctic's dense
-    residual MLP beside it)."""
+    residual MLP beside it); with ``return_aux``, ``(y, aux)``, ``aux``
+    the load-balance loss of these tokens."""
+    if (group is not None or ep_group is not None) and not isinstance(
+            p["experts"], PlannedPair):
+        raise ValueError(
+            "the raw (quant.mode='none') experts run on one device only "
+            "(ROADMAP.md queue 1, item 11)")
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
-    buf, routing = dispatch(cfg, xt, p["router"], _capacity(cfg, b * s))
+    buf, routing, probs = dispatch(cfg, xt, p["router"],
+                                   _capacity(cfg, b * s))
     if group is None and ep_group is None:
         out = experts_forward(cfg, p["experts"], buf, policy.with_(
             compute_dtype=DEFAULT_POLICY.compute_dtype))
@@ -301,6 +328,8 @@ def moe_forward(cfg: ModelConfig, p, x, policy: ExecutionPolicy, *,
     if cfg.dense_residual:
         y = y + cm.mlp_forward(cfg, p["dense_mlp"], x, policy, group=group,
                                path=DENSE_MLP_PATH)
+    if return_aux:
+        return y, load_balance_loss(cfg, probs, routing[0])
     return y
 
 

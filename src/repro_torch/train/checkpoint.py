@@ -1,5 +1,6 @@
 """npz checkpoints in the reference's template-free format; port of
-``repro/train/checkpoint.py`` (``save``, ``load``, ``flatten_keys``).
+``repro/train/checkpoint.py`` (``save``, ``load``, ``restore``,
+``latest``, ``flatten_keys``).
 
 A file holds one array per tensor leaf, under its ``||``-joined key path,
 and under ``__tree__`` a JSON schema of the tree: dicts, lists, tuples,
@@ -21,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 from typing import Any, Callable
 
 import numpy as np
@@ -149,9 +151,13 @@ def _decode(schema: dict, leaves: dict, key: tuple = ()) -> Any:
     return _tensor(arr, schema["dtype"])
 
 
-def save(path: str, tree: Any) -> str:
+def save(path: str, tree: Any, *, step: int | None = None) -> str:
     """Write ``tree`` (tensors on any device) to ``path`` (.npz, added if
-    missing), schema included.  Returns the file written."""
+    missing), schema included; with ``step``, to
+    ``<path>_stepNNNNNNNN.npz``.  Returns the file written."""
+    if step is not None:
+        root, ext = os.path.splitext(path)
+        path = f"{root}_step{step:08d}{ext or '.npz'}"
     if not path.endswith(".npz"):
         path += ".npz"
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
@@ -176,3 +182,38 @@ def load(path: str) -> Any:
                              f"supported v{_SCHEMA_VERSION}")
         leaves = {k: data[k] for k in data.files if k != _TREE_KEY}
     return _decode(meta["tree"], leaves)
+
+
+def restore(path: str, template: Any) -> Any:
+    """The checkpoint at ``path`` in the structure of ``template``: each
+    leaf with the template leaf's dtype and device.  The file may hold
+    the reference's layout (layers stacked) or the port's (lists of
+    layers).  Raises ``KeyError`` for a leaf the file lacks and
+    ``ValueError`` for a shape that differs from the template's."""
+    from repro_torch.interop import to_port_layout
+
+    flat = flatten_keys(to_port_layout(load(path)))
+
+    def put(key, t):
+        if key not in flat:
+            raise KeyError(f"checkpoint {path} missing {key}")
+        arr = flat[key]
+        if tuple(arr.shape) != tuple(t.shape):
+            raise ValueError(f"{key}: checkpoint shape {tuple(arr.shape)} "
+                             f"!= template {tuple(t.shape)}")
+        return arr.to(device=t.device, dtype=t.dtype)
+
+    return map_tensors(template, put)
+
+
+def latest(dirpath: str, prefix: str) -> str | None:
+    """Newest ``<prefix>_stepNNNNNNNN.npz`` in ``dirpath`` (None if none)."""
+    if not os.path.isdir(dirpath):
+        return None
+    pat = re.compile(re.escape(prefix) + r"_step(\d+)\.npz$")
+    best, best_step = None, -1
+    for f in os.listdir(dirpath):
+        m = pat.match(f)
+        if m and int(m.group(1)) > best_step:
+            best, best_step = os.path.join(dirpath, f), int(m.group(1))
+    return best

@@ -244,7 +244,7 @@ def test_dispatch_and_combine_equal_the_references_with_drops(carried):
     assert cap == 5
     jbuf, jcombine, (_, jidx) = jax_moe._dispatch_local(
         cfg, jnp.asarray(xt), jnp.asarray(router.numpy()), cap)
-    buf, routing = moe.dispatch(cfg, torch.from_numpy(xt), router, cap)
+    buf, routing, _ = moe.dispatch(cfg, torch.from_numpy(xt), router, cap)
     idx, gate, pos, keep = routing
     np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
     flat = np.asarray(jidx).reshape(-1)
