@@ -6,7 +6,9 @@
 Phases, one line each:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
   2. build: nvcc of the five kernels for sm_90a, all started together;
-     each one's build seconds, ptxas registers and shared memory
+     each one's build seconds, ptxas registers and shared memory (K2's at
+     head dims 128 and 256), and the registers and spill bytes of K2's
+     head-dim-256 instances
   3. check: each CUDA kernel against its plain torch version, float32 and
      bfloat16: the ordered dequant-GEMM (K1) and the g_idx dequant-GEMM
      (K4) at the reference's test shapes, gs=76, ragged edges, the
@@ -21,7 +23,10 @@ Phases, one line each:
      bit-equal (also at granite's shapes, gs 100);
      flash attention (K2) at the reference's test shapes, the edges of
      its 128-query, 64-key tiling (ragged S, windows, S != T, every head
-     dim at S 2048) and the full-width forward's; the fused dequant-GEMM
+     dim at S 2048) and the full-width forward's, and at head dim 256 the
+     edges of its 64-query, 32-key tiling and recurrentgemma's forward
+     shape (B1 H10 S2048, window 2048), float32 and bfloat16; the fused
+     dequant-GEMM
      + wire quantize (K3) bit-equal to K1 followed by the collective's
      quantizer (also above K1's tensor-core threshold, at quant blocks
      that make epilogue units of several tiles, and at granite's and
@@ -36,7 +41,8 @@ Phases, one line each:
      apart, each with the table bytes it reads), K5, K2 against its
      3xTF32 tensor-core bound and the float32 CUDA-core bound, beside
      torch's scaled_dot_product_attention (its backend named, and the
-     memory-efficient and math backends timed alone), K3 at the tp=2 down
+     memory-efficient and math backends timed alone), the same at
+     recurrentgemma's B1 H10 S2048 D256 causal, K3 at the tp=2 down
      projection (int8 and int4; its device kernels a call) beside K1
      followed by the plain quantizer and K1 alone,
      K3 at M 2 and 1 and K1 at M 2 at that shard (the ``:overlap``
@@ -103,7 +109,9 @@ Phases, one line each:
      as two rank files; two rank processes each read only their own
      (``RankLoadStats``: resident fraction below 1), serve the four
      requests (36 K3 and 72 K1 launches a decode step per rank; the ids
-     of phase 14) and give phase 14's greedy ids and logits bit for bit
+     of phase 14) and give phase 14's greedy ids and logits bit for bit;
+     ``python -m repro_torch.launch.serve verify`` of the directory, run
+     beside the ranks, exits 0 with no finding (its seconds)
 
  18. serve-archs: granite-3-8b (40 layers), starcoder2-3b (30) and
      mistral-large-123b (full width, depth cut to 4 layers, the cut
@@ -189,7 +197,11 @@ Phases, one line each:
      heads of the fold: ids equal on both ranks, K3 where the tuner fused
      the MLP and K1 for the other GEMMs and V and O; with a float32
      carry under psum, each layer within the float32 GEMM tolerance of
-     phase 25's tp=1 fold on the same input carries
+     phase 25's tp=1 fold on the same input carries; beside the ranks,
+     ``serve verify`` of the directory exits 0 with no finding, and of a
+     copy of it (rank files linked) with rank_01.npz renamed rank_05.npz
+     and an unreachable glob added to the plan exits 1 with MF004 and
+     MF001
  27. overlap-tp: the ``:overlap`` epilogue (``dist/overlap.py``):
      qwen3-4b at full width, depth cut to 4 layers (printed), prepared
      at tp=2 with the tuner's ``:overlap`` marks (``prepare
@@ -278,7 +290,8 @@ Phases, one line each:
      memory and from its saved directory: greedy ids and logits
      bit-equal, K1 128 a decode step (64 MLP, 32 V, 32 O) and the
      encoder's 64; the aux holds the waived encoder and cross folds,
-     which no step launches
+     which no step launches; ``serve verify`` of the directory exits 0,
+     its only findings the two waived folds (MF005, info)
  37. kernels-rec: K1 and K4 at the recurrent families' MLP shapes
      (rwkv6-3b's channel-mix pair 2560 -> 8960 -> 2560, ungated;
      recurrentgemma-2b's GeGLU 2560 -> 7680 -> 2560) against their plain
@@ -303,8 +316,13 @@ Phases, one line each:
      26-layer recurrentgemma far); rwkv6's tp=1
      artifact prepared, saved and served (ids and greedy logits bit-equal
      to the in-memory engine; bytes, seconds to prepare, save and load);
-     recurrentgemma's flash forward raising for head dim 256 (K2 takes
-     32, 64 and 128); then naive-actorder (K4 64 and 78 a step, K1 0)
+     recurrentgemma's forward of 4096 tokens (past its 2048-token window)
+     with the flash kernel (K2 at head dim 256, 8 a forward, one per
+     superblock) against the einsum one: each wall, K1 78 on the
+     tensor-core loop, each local attention layer on the einsum
+     forward's float32 carries within ``layerwise``'s tolerance, the
+     whole bf16 forward's logit gap and greedy ids reported; then
+     naive-actorder (K4 64 and 78 a step, K1 0)
  40. train: the dense qwen3-4b (``quant.mode="none"``, float32 params,
      the config's bf16 carry) at full width and depth trained for 8 steps
      at batch 2 x seq 128 on the synthetic stream through ``python -m
@@ -322,6 +340,11 @@ Phases, one line each:
      gradient's, the params within ``FAMILY_PARAM_TOL`` of max|p| at all
      but ``FAMILY_PARAM_SHARE`` of the elements; no counted kernel
      launched
+ 41. analysis: ``python -m repro_torch.analysis --ast --contracts --tp 2``
+     on the card (AS rules, CT002 in process, CT001 on two ranks sharing
+     the card over gloo, CT003 and CT004 on each family's smoke model):
+     exit 0, no finding; its seconds beside those of phases 17, 26 and
+     36's ``serve verify`` runs
 
 then the per-kernel JSON line (after the first six: K2 on the long
 forward, the paged and HTTP serves' K1, K4 and K3 rows, the other
@@ -329,8 +352,9 @@ archs' K1, K4 and K3 rows, then K1 on the GPTQ pair and on the fold's V
 and O, K3 where phase 26's tuner fused the MLP, K3 and K1 on the
 ``:overlap`` paths of phases 27 and 28, then K1 on phase 29's serves
 and K1 and K4 on the MoE paths of phases 30-33, per expert, K1, K4
-and K2 on the audio and vision paths of phases 34-36, and K1 and K4 on
-the recurrent paths of phases 38-39), the total
+and K2 on the audio and vision paths of phases 34-36, K1 and K4 on
+the recurrent paths of phases 38-39, and K2 at head dim 256 on
+recurrentgemma's flash forward), the total
 seconds
 and each phase's, the
 card's nvidia-smi line
@@ -367,6 +391,8 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.comm import dispatch as comm  # noqa: E402
+from repro_torch.comm.spec import CollectivePlan  # noqa: E402
+from repro_torch.comm.spec import CollectiveSpec  # noqa: E402
 from repro_torch.comm.spec import parse_collective  # noqa: E402
 from repro_torch.comm.wire import wire_params  # noqa: E402
 from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
@@ -458,6 +484,21 @@ FLASH_EDGES = [(1, 2, 100, 100, 128, True, None),
                (2, 2, 300, 70, 64, False, None),
                (1, 2, 2048, 2048, 32, True, None),
                (1, 2, 2048, 2048, 64, True, None)]
+#: recurrentgemma-2b's local attention in its forward: 10 heads of 256
+#: after the MQA repeat, S = T = 2048 (its 2048-token window is then the
+#: causal mask itself)
+FLASH_REC = (1, 10, 2048, 256, True, None)
+#: head dim 256 on its own tiling (64-query blocks, 32-key tiles): S not a
+#: multiple of either, a window below one tile and one across tiles, S !=
+#: T, and recurrentgemma's shape with its window
+FLASH_EDGES_256 = [(1, 2, 100, 100, 256, True, None),
+                   (2, 2, 77, 77, 256, False, None),
+                   (1, 2, 300, 300, 256, True, 16),
+                   (1, 2, 300, 300, 256, True, 80),
+                   (1, 2, 300, 300, 256, False, 80),
+                   (1, 2, 100, 300, 256, False, None),
+                   (2, 2, 300, 70, 256, False, None),
+                   (1, 10, 2048, 2048, 256, True, 2048)]
 #: tolerance of a kernel against its plain version, (relative to
 #: max|ref|, absolute): the GEMMs' float32 sums in another order, or one
 #: bf16 ulp of the output; flash as the reference's own tests
@@ -618,6 +659,9 @@ REC_BUDGET = 32
 REC_MAX_SEQ = REC_BUDGET + 16 + 1
 REC_REUSE_NEW = (4, 16, 6, 12, 8, 10)
 REC_FORWARD_S = 64
+#: recurrentgemma's flash forward (phase 39): one sequence past its
+#: 2048-token window, so the window masks
+REC_FLASH_S = 4096
 #: the collectives of the TP phases
 TP_SERVE = "quant-int8:fused"
 TP_PAIRS = (("quant-int8:fused", "quant-int8"),
@@ -692,6 +736,38 @@ def _wire_smem(lib, bits: int, blk: int) -> int:
     return sizes[2]
 
 
+def _ptxas_instances(log: str, tag: str) -> dict:
+    """Registers and spill bytes of each K2 instance whose mangled name
+    holds ``tag`` (its head dim), from a build's ``ptxas -v`` lines, keyed
+    by its element type."""
+    types_ = {"If": "float32", "I13__nv_bfloat16": "bfloat16",
+              "I6__half": "float16"}
+    out, name = {}, None
+    for text in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", text)
+        if m:
+            name = m.group(1)
+            continue
+        if name is None or tag not in name:
+            continue
+        key = types_.get(name.split("flash_attention_kernel", 1)[-1]
+                         .split(tag)[0], name)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      text)
+        if m:
+            out.setdefault(key, {})["spill_stores"] = int(m.group(1))
+            out[key]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", text)
+        if m:
+            out.setdefault(key, {})["registers"] = int(m.group(1))
+    if len(out) != len(fa.KERNEL_DTYPES) or any(
+            len(r) != 3 for r in out.values()):
+        raise AssertionError(f"ptxas: expected registers and spills of "
+                             f"{len(fa.KERNEL_DTYPES)} {tag} instances, "
+                             f"read {out}")
+    return out
+
+
 def phase_build() -> dict:
     kernels = dk.KERNELS + (fa.FLASH,)
     t0 = time.perf_counter()
@@ -718,8 +794,9 @@ def phase_build() -> dict:
             for name, k, n, gs in (UP, DOWN)},
         dk.DEQUANTIZE.name: 0,
         fa.FLASH.name: {
-            str(dt): libs[fa.FLASH.name].flash_attention_smem_bytes(
-                128, fa.KERNEL_DTYPES[dt]) for dt in FLASH_TOL}}
+            f"{dt} D{d}": libs[fa.FLASH.name].flash_attention_smem_bytes(
+                d, fa.KERNEL_DTYPES[dt]) for dt in FLASH_TOL
+            for d in (128, 256)}}
     out = {"wall_seconds": wall, "kernels": {}}
     for k in kernels:
         info = kbuild.info[k.name]
@@ -731,6 +808,12 @@ def phase_build() -> dict:
         line("build", f"{k.name}: {info['seconds']:.1f}s -> "
                       f"{out['kernels'][k.name]['path']}; dynamic smem "
                       f"{smem[k.name]}; ptxas: {' || '.join(regs)}")
+    out["flash_d256"] = d256 = _ptxas_instances(
+        kbuild.info[fa.FLASH.name]["ptxas"], "Li256E")
+    line("build", "flash_attention at head dim 256, ptxas: " + "; ".join(
+        f"{name}: {r['registers']} registers, spill stores "
+        f"{r['spill_stores']} B, loads {r['spill_loads']} B"
+        for name, r in d256.items()))
     line("build", f"{len(kernels)} kernels, nvcc in parallel: {wall:.1f}s")
     return out
 
@@ -816,7 +899,8 @@ def _check_flash(gen) -> dict:
     rows, worst, main, main_rel = [], {}, 0.0, 0.0
     cases = [(b, h, s, s, d, causal, window)
              for b, h, s, d, causal, window in FLASH_SWEEP] + FLASH_EDGES
-    for case in cases:
+    worst_256, rec = {}, 0.0
+    for case in cases + FLASH_EDGES_256:
         b, h, s, t, d, causal, window = case
         for dtype, (rtol, atol) in FLASH_TOL.items():
             q = torch.randn(b, h, s, d, generator=gen, device="cuda").to(dtype)
@@ -830,11 +914,14 @@ def _check_flash(gen) -> dict:
             rel = _within(rows, err, ref, rtol, atol, "flash_attention",
                           shape=[b, h, s, t, d], causal=causal,
                           window=window, dtype=str(dtype))
-            worst[str(dtype)] = max(worst.get(str(dtype), 0.0), rel)
+            into = worst_256 if d == 256 else worst
+            into[str(dtype)] = max(into.get(str(dtype), 0.0), rel)
             if (b, h, s, d, causal, window) == FLASH_FULL and (
                     dtype == torch.float32):
                 main = err
                 main_rel = rel
+            if case == FLASH_EDGES_256[-1] and dtype == torch.float32:
+                rec = err
             del q, k, v, y, ref
     line("check", f"flash_attention: {len(rows)} cases (the reference's, "
                   f"{len(FLASH_EDGES)} tiling edges, the full-width shape) "
@@ -843,8 +930,15 @@ def _check_flash(gen) -> dict:
                   f"{worst['torch.bfloat16']:.3g}; f32 max_abs_err at the "
                   f"full-width shape {main:.3g} ({main_rel:.3g} of max|ref|); "
                   f"tol f32 1e-5*max|ref|+1e-5, bf16 2e-2*max|ref|")
+    line("check", f"flash_attention at head dim 256 (64-query blocks, "
+                  f"32-key tiles): {len(FLASH_EDGES_256)} tiling edges x 2 "
+                  f"dtypes within the same tolerance; max err / max|ref|: "
+                  f"f32 {worst_256['torch.float32']:.3g}, bf16 "
+                  f"{worst_256['torch.bfloat16']:.3g}; f32 max_abs_err at "
+                  f"recurrentgemma's B1 H10 S2048 window 2048 {rec:.3g}")
     return {"worst_rel": worst, "main_max_abs_err": main,
-            "main_rel_err": main_rel, "cases": rows}
+            "main_rel_err": main_rel, "worst_rel_d256": worst_256,
+            "rec_max_abs_err": rec, "cases": rows}
 
 
 def _wire_values(p, s, z, bits, bs):
@@ -1600,6 +1694,7 @@ def phase_timing(gen) -> dict:
     gidx = _time_gemm(gen, "naive")
     deq = _time_dequantize(gen)
     flash = _time_flash(gen)
+    flash_rec = _time_flash(gen, FLASH_REC)
     flash_long = _time_flash_long(gen)
     wire = _time_wire(gen)
     large = _time_k1_large(gen)
@@ -1646,6 +1741,17 @@ def phase_timing(gen) -> dict:
              flash["ms"], flash["bound_ms"], flash["bound_by"],
              flash["flops"] / 1e9, flash["f32_cuda_core_bound_ms"],
              flash["plain_ms"], flash["library_ms"], sd["backend"],
+             ", ".join(k[:48] for k in sd["default_kernels"]),
+             sd["efficient_attention_ms"], sd["math_ms"]))
+    sd = flash_rec["sdpa"]
+    line("timing", "K2 f32 B1 H10 S=T=2048 D256 causal (recurrentgemma-2b's "
+         "forward): {:.4f} ms (bound {:.4f} by {}: 3 x {:.3g} GFLOP at the "
+         "TF32 tensor-core rate; plain {:.4f}); "
+         "scaled_dot_product_attention {:.4f} [library; backend {}, kernels "
+         "{}] (EFFICIENT_ATTENTION alone {:.4f}, MATH alone {:.4f})".format(
+             flash_rec["ms"], flash_rec["bound_ms"], flash_rec["bound_by"],
+             flash_rec["flops"] / 1e9, flash_rec["plain_ms"],
+             flash_rec["library_ms"], sd["backend"],
              ", ".join(k[:48] for k in sd["default_kernels"]),
              sd["efficient_attention_ms"], sd["math_ms"]))
     for bits in (8, 4):
@@ -1713,6 +1819,7 @@ def phase_timing(gen) -> dict:
             "gidx_over_ordered_per_layer": ratio,
             "gidx_naive_over_ordered_layout_per_layer": in_kernel,
             "dequantize_ordered": deq, "flash_attention": flash,
+            "flash_attention_rec": flash_rec,
             "flash_attention_long": flash_long,
             "dequant_matmul_wire_ordered": wire, "archs": archs,
             "moe": moe_timing}
@@ -2798,8 +2905,113 @@ def _artifact_tp_rank(ctx, cfg, path, greedy_tokens, greedy_plen,
             "trace": (ids.cpu(), logits.cpu())}
 
 
+def _src_env() -> dict:
+    """This process's environment with the repository's ``src`` on the
+    path, for the CLIs it starts."""
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")]
+        + [p for p in (os.environ.get("PYTHONPATH"),) if p]))
+
+
+def _verify_start(path: str) -> tuple:
+    """Start ``python -m repro_torch.launch.serve verify --artifact path``
+    as a user runs it (its contracts' tp ranks on the card), in the
+    background: the phase's own work goes on beside it until
+    ``_verify_finish``."""
+    fd, report = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "verify",
+         "--artifact", path, "--json", report], cwd=ROOT, env=_src_env(),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, report, time.perf_counter()
+
+
+def _verify_finish(started: tuple, phase: str, what: str,
+                   want_exit: int = 0, want: dict | None = None) -> dict:
+    """Wait for a ``_verify_start``: its exit code must be ``want_exit``
+    and its findings, counted by rule and severity, exactly ``want``
+    (none by default); its seconds from start to exit (the phase's own
+    work ran beside it)."""
+    proc, report, t0 = started
+    try:
+        text, _ = proc.communicate(timeout=600)
+        seconds = time.perf_counter() - t0
+        with open(report) as f:
+            found = json.loads(f.read() or "null")
+    finally:
+        _verify_stop(started)
+    if found is None:
+        raise AssertionError(f"{phase}: serve verify {what} wrote no "
+                             f"report (exit {proc.returncode})\n"
+                             f"{text[-4000:]}")
+    by_rule: dict = {}
+    for x in found["findings"]:
+        key = f"{x['rule']}/{x['severity']}"
+        by_rule[key] = by_rule.get(key, 0) + 1
+    out = {"exit": proc.returncode, "findings": len(found["findings"]),
+           "errors": found["counts"]["error"], "by_rule": by_rule,
+           "seconds": seconds,
+           "summary": [t for t in text.splitlines() if "verify " in t]}
+    line(phase, f"serve verify {what}: exit {proc.returncode}, "
+                f"{out['findings']} finding(s)"
+                f"{f' {by_rule}' if by_rule else ''}, {out['errors']} "
+                f"error(s), {seconds:.1f}s (beside the phase's ranks)")
+    if proc.returncode != want_exit or by_rule != (want or {}):
+        raise AssertionError(f"{phase}: serve verify {what}: exit "
+                             f"{proc.returncode}, findings {by_rule}; "
+                             f"expected exit {want_exit} and {want or {}}"
+                             f"\n{text[-4000:]}")
+    return out
+
+
+def _verify_stop(*started) -> None:
+    """Stop every ``_verify_start`` still running (a phase that failed
+    before it waited for them) and remove its report."""
+    for proc, report, _ in started:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        if os.path.exists(report):
+            os.unlink(report)
+
+
+def _planted_copy(path: str) -> str:
+    """A copy of the tp=2 artifact at ``path`` (rank files hard-linked,
+    the manifest copied) with rank_01.npz renamed rank_05.npz and an
+    unreachable glob first in its plan.  The caller removes it."""
+    planted = tempfile.mkdtemp(prefix="artifact-planted-")
+    for name in os.listdir(path):
+        src, dst = os.path.join(path, name), os.path.join(planted, name)
+        if name.endswith(".npz"):
+            os.link(src, dst)
+        else:
+            shutil.copy2(src, dst)
+    os.rename(os.path.join(planted, "rank_01.npz"),
+              os.path.join(planted, "rank_05.npz"))
+    mpath = os.path.join(planted, "manifest.json")
+    with open(mpath) as f:
+        man = json.load(f)
+    plan = CollectivePlan.parse(man["policy"]["collective"])
+    plan = CollectivePlan(entries=(("bogus.*", CollectiveSpec()),)
+                          + plan.entries, default=plan.default)
+    man["policy"]["collective"] = plan.shorthand()
+    man["collective_plan"] = {
+        "entries": [[p, c.shorthand()] for p, c in plan.entries],
+        "default": plan.default.shorthand()}
+    with open(mpath, "w") as f:
+        json.dump(man, f, indent=1, sort_keys=True)
+    return planted
+
+
+#: what ``serve verify`` must find in the planted copy: the missing and
+#: the stray rank file, the unreachable glob
+PLANTED = {"MF004/error": 2, "MF001/error": 1}
+
+
 def phase_artifact_tp(cfg, serve_tp: dict | None, tp_traces: list | None,
-                      phase: str = "artifact-tp") -> dict:
+                      phase: str = "artifact-tp",
+                      verify: bool = False) -> dict:
     """Phase 17 (and 20): prepare at tp=2, save the rank files, and serve
     them on two rank processes that each read only their own, held to
     ``serve_tp``'s ids and ``tp_traces`` (or, given None, to each rank's
@@ -2810,6 +3022,7 @@ def phase_artifact_tp(cfg, serve_tp: dict | None, tp_traces: list | None,
     path, nbytes, files, prepare_s, save_s, peak = _prepare_and_save(
         tcfg, TP, phase)
     greedy_tokens, greedy_plen = _greedy_inputs(cfg)
+    started = None
     try:
         shards = DeploymentArtifact.load_manifest(path)["leaf_shards"]
         embed = {k: shards[f"embed||{k}"] for k in ("embedding", "lm_head")}
@@ -2818,10 +3031,15 @@ def phase_artifact_tp(cfg, serve_tp: dict | None, tp_traces: list | None,
                                  f"embedding and head {embed}, the model "
                                  f"{cm.embed_specs(cfg, TP)}")
         torch.cuda.empty_cache()
+        started = _verify_start(path) if verify else None
         ranks = mesh.run(_artifact_tp_rank, TP, tcfg, path, greedy_tokens,
                          greedy_plen, serve_tp is None, device_type="cuda",
                          timeout=600)
+        checked = (_verify_finish(started, phase, f"{describe(cfg)} tp=2 "
+                                  f"{TP_SERVE}") if verify else None)
     finally:
+        if started is not None:
+            _verify_stop(started)
         shutil.rmtree(path)
     k3_per, k1_per = cfg.num_layers, mlp_launches(cfg) - cfg.num_layers
     for r in ranks:
@@ -2861,7 +3079,8 @@ def phase_artifact_tp(cfg, serve_tp: dict | None, tp_traces: list | None,
            "resident_fraction": [r["resident_fraction"] for r in ranks],
            "decode_steps": r0["decode_steps"],
            "counts": [r["counts"] for r in ranks], "embed_split": embed,
-           "ids_equal": True, "greedy_logits_bit_equal": True}
+           "ids_equal": True, "greedy_logits_bit_equal": True,
+           "verify": checked}
     line(phase, "{} tp=2 {} prepared on the card in "
          "{:.2f}s (max_memory_allocated {:.2f} GiB), saved in {:.2f}s as "
          "two rank files ({} GB; {:.3f} GB of leaves; embedding and head "
@@ -3848,6 +4067,7 @@ def phase_fold_tp(tp1: tuple) -> dict:
             s["status"] != "tuned" for s in report):
         raise AssertionError(f"fold-tp: tuner report {report}")
     path, nbytes = _artifact_dir(list(art.rank_params) + [art.aux])
+    planted, started = None, ()
     try:
         t0 = time.perf_counter()
         art.save(path)
@@ -3856,10 +4076,22 @@ def phase_fold_tp(tp1: tuple) -> dict:
         torch.cuda.empty_cache()
         files = {f: os.path.getsize(os.path.join(path, f))
                  for f in sorted(os.listdir(path))}
+        planted = _planted_copy(path)
+        started = (_verify_start(path), _verify_start(planted))
         ranks = mesh.run(_fold_tp_rank, TP, cfg, path, tp1[0],
                          device_type="cuda", timeout=600)
+        verify = {
+            "clean": _verify_finish(started[0], "fold-tp",
+                                    f"{describe(cfg)} tp=2 tuned fold"),
+            "planted": _verify_finish(
+                started[1], "fold-tp", "of a planted copy (rank files "
+                "linked; rank_01.npz renamed rank_05.npz, plan glob "
+                "'bogus.*' added)", want_exit=1, want=PLANTED)}
     finally:
+        _verify_stop(*started)
         shutil.rmtree(path)
+        if planted is not None:
+            shutil.rmtree(planted, ignore_errors=True)
     fused = sites["layers.mlp"]["fused"]
     k3_per = cfg.num_layers if fused else 0
     k1_per = fold_launches(cfg) - k3_per
@@ -3890,7 +4122,7 @@ def phase_fold_tp(tp1: tuple) -> dict:
            "counts": [r["counts"] for r in ranks],
            "load_stats": [r["stats"] for r in ranks],
            "fold_shapes": r0["fold_shapes"], "outputs": r0["outputs"],
-           "layerwise": lw}
+           "layerwise": lw, "verify": verify}
     line("fold-tp", "{} tp=2 tuned ({}) prepared on the card in {:.2f}s, "
          "saved in {:.2f}s ({}); each rank read its own file and the whole "
          "aux.npz ({} bytes) and kept its heads of the fold (V {} and O {} "
@@ -5453,18 +5685,26 @@ def phase_fold_whisper() -> dict:
                     device=torch.device("cuda"), max_seq=AV_MAX_SEQ,
                     aux=art.aux, row_block=4)
     path, nbytes = _artifact_dir(list(art.rank_params) + [art.aux])
+    started = None
     try:
         t0 = time.perf_counter()
         art.save(path)
         save_s = time.perf_counter() - t0
         files = {f: os.path.getsize(os.path.join(path, f))
                  for f in sorted(os.listdir(path))}
+        started = _verify_start(path)
         t0 = time.perf_counter()
         served = make_engine(cfg, device="cuda", max_seq=AV_MAX_SEQ,
                              artifact=path, row_block=4)
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
+        # the encoder's and the cross folds are waived: info, not errors
+        verify = _verify_finish(started, "fold-whisper",
+                                f"{describe(cfg)} fold",
+                                want={"MF005/info": 2})
     finally:
+        if started is not None:
+            _verify_stop(started)
         shutil.rmtree(path)
     del art
     for eng in (memory, served):
@@ -5502,7 +5742,7 @@ def phase_fold_whisper() -> dict:
            "decode_steps": steps, "bit_equal": True,
            "steady_ms_per_step": b["steady_ms_per_step"],
            "first_step_ms": b["first_step_ms"], "trace": tr,
-           "ids": b["ids"].tolist()}
+           "ids": b["ids"].tolist(), "verify": verify}
     line("fold-whisper", "{} with attn_tp_aware: prepared on the card in "
          "{:.1f}s (peak {:.2f} GiB; aux folds {}), saved in {:.1f}s "
          "({:.2f} GB of files, aux.npz {:.3f} GB), loaded in {:.1f}s; the "
@@ -5818,26 +6058,106 @@ def _rec_forward(engine, cfg, arch: str) -> dict:
     return out
 
 
-def _flash_refused(engine, arch: str) -> dict:
-    """recurrentgemma's flash forward: its head dim 256 is not one of
-    K2's, so ``prefill_logits`` with ``attn_backend="flash"`` raises the
-    ValueError and takes no other path."""
-    toks = torch.zeros((1, 8), dtype=torch.int64, device="cuda")
-    reset_counts()
-    try:
-        dataclasses.replace(engine, attn_backend="flash").prefill_logits(toks)
-    except ValueError as e:
-        if "head dims" not in str(e):
-            raise
-        message = str(e)
-    else:
-        raise AssertionError(f"flash {arch}: the flash forward at head dim "
-                             f"{engine.model.cfg.head_dim} did not raise")
-    if read_counts()["flash_attention"]:
-        raise AssertionError(f"flash {arch}: K2 launched")
-    line(f"flash {arch}", f"attn_backend='flash' at head dim "
-         f"{engine.model.cfg.head_dim} raised, as it must: {message}")
-    return {"raised": True, "message": message}
+@torch.inference_mode()
+def _rec_attention_layers(engine, toks) -> tuple[list, list]:
+    """recurrentgemma's forward over ``toks`` in float32 activations, one
+    superblock at a time on the einsum forward's carries: for each local
+    attention layer (its attention, then its MLP, on the residual), the
+    float32 output through the flash kernel and through the einsum path
+    on the same input."""
+    from repro_torch.models import rglru
+
+    cfg = engine.model.cfg.with_(dtype="float32")
+    params, policy = engine.params, engine.policy
+    x = cm.embed_tokens(cfg, params["embed"], toks)
+    outs = {"flash": [], "xla": []}
+    for sp in rglru.blocks(params["super"]):
+        y, _ = rglru.rec_layer_forward(cfg, sp["rec1"], x, policy,
+                                       rglru.REC1_PATH)
+        y, _ = rglru.rec_layer_forward(cfg, sp["rec2"], y, policy,
+                                       rglru.REC2_PATH)
+        ap = sp["attn"]
+        xn = cm.apply_norm(cfg, ap["ln1"], y)
+        for backend, into in outs.items():
+            h = cm.attention_forward(cfg, ap["attn"], xn,
+                                     window=cfg.local_window,
+                                     attn_backend=backend, policy=policy)
+            into.append(rglru._attn_mlp(cfg, ap, y, h, policy, None))
+        x = outs["xla"][-1].to(x.dtype)
+    return outs["flash"], outs["xla"]
+
+
+def _rec_flash_forward(engine, cfg, arch: str) -> dict:
+    """recurrentgemma's full-sequence forward of ``REC_FLASH_S`` tokens
+    (past its 2048-token window) with ``attn_backend="flash"``, K2 at head
+    dim 256 once per superblock, against the einsum forward on the same
+    params, in the config's bf16 carry, in turns (einsum, flash, flash,
+    einsum: the first forward of a length pays the allocator's warm-up):
+    each forward's wall, the counted launches (K1 once per MLP weight, on
+    its tensor-core loop at M = ``REC_FLASH_S``), the logits finite; the
+    whole-model gap and the
+    greedy ids reported, not held (the random 26-layer model amplifies
+    the two attentions' float32 sum order through its bf16 carry).  Then
+    each local attention layer on the einsum forward's float32 carries,
+    flash against einsum, held to ``layerwise``."""
+    what = f"flash {arch}"
+    s, per = REC_FLASH_S, mlp_launches(cfg)
+    ns = cfg.num_layers // 3
+    toks = torch.from_numpy(np.random.default_rng(31).integers(
+        0, cfg.vocab_size, (1, s))).cuda()
+    res = {b: {"wall_ms": []} for b in ("flash", "xla")}
+    logits = {}
+    for backend in ("xla", "flash", "flash", "xla"):
+        eng = dataclasses.replace(engine, attn_backend=backend)
+        logits.pop(backend, None)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits[backend] = eng.prefill_logits(toks)
+        torch.cuda.synchronize()
+        res[backend]["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+        counts = read_counts()
+        expect_counts(counts, {
+            "dequant_matmul_ordered": per, TC: per,
+            "flash_attention": ns if backend == "flash" else 0},
+            f"{what}, {backend} forward of {s} tokens")
+        res[backend]["counts"] = counts
+    lf, lx = logits.pop("flash"), logits.pop("xla")
+    if tuple(lf.shape) != (1, s, cfg.vocab_size) or not (
+            torch.isfinite(lf).all() and torch.isfinite(lx).all()):
+        raise AssertionError(f"{what}: logits not finite of the expected "
+                             f"shape")
+    gap = (lf - lx).abs().max().item() / lx.abs().max().item()
+    ids_f, ids_x = lf[0].argmax(-1), lx[0].argmax(-1)
+    agree = (ids_f == ids_x).float().mean().item()
+    last = {"flash": ids_f[-8:].tolist(), "xla": ids_x[-8:].tolist()}
+    del lf, lx, ids_f, ids_x
+    torch.cuda.empty_cache()
+    outs, refs = _rec_attention_layers(engine, toks)
+    lw = layerwise(outs, refs, f"{what}: local attention flash vs einsum")
+    del outs, refs
+    torch.cuda.empty_cache()
+    out = dict(res, tokens=s, window=cfg.local_window,
+               flash_launches=res["flash"]["counts"]["flash_attention"],
+               max_logit_gap=gap, argmax_agree=agree, last_ids=last,
+               layerwise=lw)
+    line(what, "forward B1 S{} (window {}), in turns einsum, flash, flash, "
+         "einsum: flash {} ms, einsum {} ms wall; flash_attention launches "
+         "{} = {} superblocks a forward (head dim "
+         "{}), K1 {} on the tensor-core loop; each local attention layer "
+         "on the einsum forward's float32 carries, flash within {:.3g} "
+         "(max abs; {:.3g} of max|.|) of einsum, held at 1e-5 of max|.| + "
+         "1e-4; the whole bf16 forward free-running (reported): max logit "
+         "gap {:.3g} of max|logit|, argmax agrees at {:.2f}% of positions, "
+         "last 8 ids flash {} einsum {}".format(
+             s, cfg.local_window,
+             "/".join(f"{t:.1f}" for t in res["flash"]["wall_ms"]),
+             "/".join(f"{t:.1f}" for t in res["xla"]["wall_ms"]),
+             out["flash_launches"], ns,
+             cfg.head_dim, res["flash"]["counts"][TC], lw["max_abs_err"],
+             lw["max_rel_err"], gap, 100 * agree, last["flash"],
+             last["xla"]))
+    return out
 
 
 def phase_serve_recurrent(arch: str) -> dict:
@@ -5852,7 +6172,8 @@ def phase_serve_recurrent(arch: str) -> dict:
     (``_slot_reuse``); the forward against the decode replay
     (``_rec_forward``); rwkv6's tp=1 artifact (``phase_artifact``: ids
     and greedy logits bit-equal to the in-memory engine) or
-    recurrentgemma's flash forward refused; then naive-actorder (K4 once
+    recurrentgemma's flash forward against its einsum one
+    (``_rec_flash_forward``); then naive-actorder (K4 once
     per MLP weight a step, K1 never)."""
     cfg = rec_config(arch)
     per = mlp_launches(cfg)
@@ -5884,7 +6205,7 @@ def phase_serve_recurrent(arch: str) -> dict:
         out["artifact"] = phase_artifact(
             cfg, memory_reference(engine, cfg, serve), f"artifact {arch}")
     else:
-        out["flash"] = _flash_refused(engine, arch)
+        out["flash"] = _rec_flash_forward(engine, cfg, arch)
     del engine
     torch.cuda.empty_cache()
     naive = rec_config(arch, "naive-actorder")
@@ -6141,6 +6462,43 @@ def phase_train() -> dict:
     return res
 
 
+def phase_analysis(verified: dict) -> dict:
+    """Phase 41: ``python -m repro_torch.analysis --ast --contracts --tp 2``
+    as a user runs it, on the card (its AS rules over the port's sources;
+    CT002 in process, CT001 on two rank processes sharing the card over
+    gloo via host, CT003 and CT004 on every family's smoke model): exit
+    0, no finding.  Beside it the ``serve verify`` runs of phases 17, 26
+    and 36 (``verified``: name -> ``_verify_finish``'s result)."""
+    fd, report_path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.analysis", "--ast",
+             "--contracts", "--tp", "2", "--json", report_path],
+            cwd=ROOT, env=_src_env(), capture_output=True, text=True,
+            timeout=600)
+        seconds = time.perf_counter() - t0
+        with open(report_path) as f:
+            report = json.load(f) if proc.returncode == 0 else None
+    finally:
+        os.unlink(report_path)
+    counts = [text for text in proc.stdout.splitlines()
+              if "finding(s)" in text]
+    if proc.returncode != 0 or report["findings"]:
+        raise AssertionError(f"analysis: exit {proc.returncode}\n"
+                             f"{proc.stdout}\n{proc.stderr[-4000:]}")
+    out = {"exit": proc.returncode, "lines": counts, "seconds": seconds,
+           "rules_checked": report["rules_checked"], "verify": verified}
+    line("analysis", f"python -m repro_torch.analysis --ast --contracts "
+         f"--tp 2 on the card: exit 0 in {seconds:.1f}s ("
+         + "; ".join(counts) + f"; {len(report['rules_checked'])} rules in "
+         "the catalog); serve verify: " + "; ".join(
+             f"{k} exit {v['exit']} {v['by_rule'] or 'no finding'} "
+             f"{v['seconds']:.1f}s" for k, v in verified.items()))
+    return out
+
+
 def _entry(name, source, replaces, launches, max_abs_err, t: dict,
            library_ms=None) -> dict:
     return {"name": name, "route": "cuda", "source": source,
@@ -6215,7 +6573,7 @@ def main() -> int:
     serve_tp, tp_cross, tp_traces = phase_serve_tp(
         cfg, greedy_reference(engine, cfg), paged=True)
     artifact = phase_artifact(cfg, memory_reference(engine, cfg, serve))
-    artifact_tp = phase_artifact_tp(cfg, serve_tp, tp_traces)
+    artifact_tp = phase_artifact_tp(cfg, serve_tp, tp_traces, verify=True)
     serve_paged = phase_serve_paged(engine, cfg)
     serve_paged["naive"] = paged_naive
     serve_paged["tp2"] = serve_tp.pop("paged")
@@ -6252,6 +6610,11 @@ def main() -> int:
     rec_kernels = _check_time_rec(gen)
     serve_rec = {a: phase_serve_recurrent(a) for a in REC_ARCHS}
     train = phase_train()
+    analysis = phase_analysis({
+        "artifact-tp (qwen3-4b tp=2)": artifact_tp["verify"],
+        "fold-tp (clean)": fold_tp["verify"]["clean"],
+        "fold-tp (planted)": fold_tp["verify"]["planted"],
+        "fold-whisper": fold_whisper["verify"]})
 
     src = "src/repro_torch/csrc/"
     tpu = "src/repro/kernels/"
@@ -6516,6 +6879,15 @@ def main() -> int:
                    sr["serve_naive"]["launches"], rk["errs"][a]["K4"],
                    rk[a]["naive"]["layer"]),
         ]
+    # K2 at head dim 256 on recurrentgemma's flash forward (phase 39),
+    # timed at its S 2048 shape in phase 4
+    fr, rg = timing["flash_attention_rec"], serve_rec["recurrentgemma-2b"]
+    kernels.append(_entry(
+        f"flash_attention (recurrentgemma-2b D256, S{REC_FLASH_S} window "
+        f"2048 forward; timed at S2048)", src + "flash_attention.cu",
+        tpu + "flash_attention.py:107", rg["flash"]["flash_launches"],
+        checks["flash_attention"]["rec_max_abs_err"], fr,
+        fr["library_ms"]))
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"nvidia_smi": smi, "build": build, "check": checks,
@@ -6540,7 +6912,7 @@ def main() -> int:
                    "serve_vision": serve_vision,
                    "fold_whisper": fold_whisper,
                    "kernels_rec": rec_kernels, "serve_recurrent": serve_rec,
-                   "train": train,
+                   "train": train, "analysis": analysis,
                    "kernels": kernels,
                    "phase_seconds": phase_seconds(),
                    "seconds": time.perf_counter() - t_start}, f, indent=1)

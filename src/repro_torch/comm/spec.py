@@ -152,6 +152,10 @@ class CollectiveSpec:
         """A bare spec is a one-entry plan: every path resolves to it."""
         return self
 
+    def specs(self) -> tuple["CollectiveSpec", ...]:
+        """Distinct specs this plan can resolve to (just itself)."""
+        return (self,)
+
     def bytes_on_wire(self, shape, tp: int) -> float:
         """Per-rank bytes on the wire to close a row-TP layer whose
         per-rank partial output has ``shape``, over ``tp`` ranks (ring

@@ -20,7 +20,8 @@
 //
 // What bounds it: operations.  At the full-width forward (B 1, H 32,
 // S = T = 2048, D 128, causal) it does about 34 GFLOP against 64 MB of
-// q, k, v and output, far above the card's ridge.
+// q, k, v and output, far above the card's ridge; at recurrentgemma's
+// (B 1, H 10, S = T = 2048, D 256) about 21 GFLOP against 84 MB.
 //
 // Both products run on the tensor cores with mma.sync m16n8k8 TF32.  The
 // float32 policy holds the kernel to 1e-5 of max|ref|, and one TF32
@@ -69,6 +70,20 @@
 //    D + 4 floats or D + 8 16-bit elements (element [2c][g] at 8c + g
 //    mod 32 words).  At D 128 float32 that is 210 KB of shared memory:
 //    Q 72 KB, two stages of K and V 138 KB, one block an SM.
+//  * Head dim 256 has a tiling of its own (``Dims``): at 128 queries and
+//    64 keys, float32 would need 402 KB of the block's 227 KB, and a
+//    warp's 16 x 256 float32 accumulator alone is 128 registers a lane.
+//    A block holds 64 queries and 32-key tiles (still double-buffered:
+//    201 KB in float32, 101 KB in 16 bits), and its 8 warps pair up on
+//    the 4 groups of 16 query rows: both warps of a pair compute the
+//    rows' whole QK^T and online softmax, the same instructions on the
+//    same data, so their m, l and P agree bit for bit, and each runs P.V
+//    for one half of the output's columns only (64 accumulator registers
+//    a lane, as at D 128).  The pair's second QK^T makes the mma count
+//    1.5 times the minimum; a pair that split QK^T over d would have to
+//    add its partial scores through shared memory every tile.  The D
+//    32, 64 and 128 instances are the same code with one warp a row
+//    group, unchanged.
 //  * A warp skips the math of a key tile above its own diagonal (causal)
 //    and masks per element only in tiles that straddle one of its
 //    boundaries.
@@ -82,15 +97,22 @@
 
 namespace {
 
-constexpr int kBlockQ = 128;          // query rows per block
-constexpr int kBlockK = 64;           // keys per tile
-constexpr int kWarps = kBlockQ / 16;  // one warp per 16 query rows
-constexpr int kThreads = 32 * kWarps;
-constexpr int kKeyTiles = kBlockK / 8;  // n-tiles of S, k-steps of P.V
+constexpr int kThreads = 256;         // 8 warps a block at every D
 constexpr float kNegInf = -1e30f;     // the reference's NEG_INF
 
+// The tiling of head dim D in type T: D 32, 64 and 128 take 128-query
+// blocks (a warp per 16 query rows) and 64-key tiles; D 256 64-query
+// blocks, 32-key tiles and two warps per 16 query rows, each owning half
+// of the output's columns (see the note above).
 template <typename T, int D>
 struct Dims {
+  static constexpr int kBlockQ = D <= 128 ? 128 : 64;  // query rows a block
+  static constexpr int kBlockK = D <= 128 ? 64 : 32;   // keys a tile
+  static constexpr int kRowWarps = kBlockQ / 16;  // groups of 16 query rows
+  static constexpr int kColSplit = kThreads / 32 / kRowWarps;  // warps each
+  static constexpr int kOutCols = D / kColSplit;  // output columns a warp
+  static constexpr int kKeyTiles = kBlockK / 8;   // n-tiles of S, P.V steps
+  static_assert(kRowWarps * kColSplit * 32 == kThreads, "8 warps");
   // row strides (elements): Q and K are read 4 consecutive columns a lane,
   // V one column a lane from rows 2c and 2c + 1
   static constexpr int kStrideQK = D + 16;
@@ -227,18 +249,22 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        int Tk, int causal, int window, float scale) {
   constexpr bool kSplit = sizeof(T) == 4;
   using Dm = Dims<T, D>;
+  constexpr int kBlockQ = Dm::kBlockQ, kBlockK = Dm::kBlockK;
+  constexpr int kKeyTiles = Dm::kKeyTiles;
   constexpr int kSQ = Dm::kStrideQK, kSV = Dm::kStrideV;
-  constexpr int kSteps = D / 8;       // k-steps of QK^T, n-tiles of O
+  constexpr int kSteps = Dm::kOutCols / 8;  // n-tiles of this warp's O
   constexpr int kGroup = kSteps < 8 ? kSteps : 8;  // O n-tiles per pass
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* qs = reinterpret_cast<T*>(smem_raw);  // (128, kSQ)
-  T* kv = qs + kBlockQ * kSQ;  // 2 stages of K (64, kSQ) and V (64, kSV)
+  T* qs = reinterpret_cast<T*>(smem_raw);  // (kBlockQ, kSQ)
+  T* kv = qs + kBlockQ * kSQ;  // 2 stages of K (kBlockK, kSQ) and V
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
+  const int rw = warp % Dm::kRowWarps;    // this warp's 16 query rows
+  const int col0 = (warp / Dm::kRowWarps) * Dm::kOutCols;  // its O columns
   const int g = lane / 4, c = lane % 4;
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockQ;
-  const int r0 = q0 + 16 * warp;           // this warp's first query row
+  const int r0 = q0 + 16 * rw;             // this warp's first query row
   const T* qb = q + static_cast<size_t>(bh) * S * D;
   const T* kb = k + static_cast<size_t>(bh) * Tk * D;
   const T* vb = v + static_cast<size_t>(bh) * Tk * D;
@@ -267,7 +293,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
   }
-  const T* qw = qs + (16 * warp + g) * kSQ + 4 * c;
+  const T* qw = qs + (16 * rw + g) * kSQ + 4 * c;
 
   for (int t = t_begin; t < t_end; ++t) {
     const int k0 = t * kBlockK;
@@ -285,7 +311,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* ks = kv + stage * Dm::kStage;
     const T* vs = ks + Dm::kTileK;
 
-    // s = Q K^T for the warp's 16 rows and the tile's 64 keys:
+    // s = Q K^T for the warp's 16 rows and the tile's keys (all D):
     // s[n] holds rows (g, g+8) x keys (8n + 2c, 8n + 2c + 1).  The sum over
     // d runs in any order, so each pair of k-steps over columns 16kk..+15
     // gives lane c the 4 consecutive columns 16kk + 4c..+3 (one vector
@@ -392,7 +418,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       split(s[j][2], pb[1], ps[1]);
       split(s[j][1], pb[2], ps[2]);
       split(s[j][3], pb[3], ps[3]);
-      const T* vp = vs + (8 * j + 2 * c) * kSV + g;
+      const T* vp = vs + (8 * j + 2 * c) * kSV + col0 + g;
 #pragma unroll
       for (int n0 = 0; n0 < kSteps; n0 += kGroup) {
         uint32_t bb[kGroup][2], bs[kGroup][2];
@@ -422,7 +448,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int iq = r0 + g + 8 * h;
     if (iq >= S) continue;
     const float div = l[h] == 0.f ? 1.f : l[h];
-    T* orow = o + (static_cast<size_t>(bh) * S + iq) * D + 2 * c;
+    T* orow = o + (static_cast<size_t>(bh) * S + iq) * D + col0 + 2 * c;
 #pragma unroll
     for (int n = 0; n < kSteps; ++n) {
       Out<T>::store2(orow + 8 * n, acc[n][2 * h] / div,
@@ -435,7 +461,11 @@ template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int bh, int s, int t, int causal, int window, float scale,
                    cudaStream_t stream) {
-  constexpr int smem = Dims<T, D>::kSmemBytes;
+  using Dm = Dims<T, D>;
+  constexpr int smem = Dm::kSmemBytes;
+  if ((s + Dm::kBlockQ - 1) / Dm::kBlockQ > 65535) {
+    return cudaErrorInvalidValue;       // the grid's y limit
+  }
   static bool opted_in = false;
   if (smem > 48 * 1024 && !opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -444,7 +474,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
     if (err != cudaSuccess) return err;
     opted_in = true;
   }
-  const dim3 grid(bh, (s + kBlockQ - 1) / kBlockQ);
+  const dim3 grid(bh, (s + Dm::kBlockQ - 1) / Dm::kBlockQ);
   flash_attention_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), s, t, causal, window,
@@ -466,6 +496,9 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
     case 128:
       return launch<T, 128>(q, k, v, o, bh, s, t, causal, window, scale,
                             stream);
+    case 256:
+      return launch<T, 256>(q, k, v, o, bh, s, t, causal, window, scale,
+                            stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -477,6 +510,7 @@ int smem_bytes(int d) {
     case 32: return Dims<T, 32>::kSmemBytes;
     case 64: return Dims<T, 64>::kSmemBytes;
     case 128: return Dims<T, 128>::kSmemBytes;
+    case 256: return Dims<T, 256>::kSmemBytes;
     default: return 0;
   }
 }
@@ -485,14 +519,14 @@ int smem_bytes(int d) {
 
 // q (B*H, S, D), k and v (B*H, T, D), o (B*H, S, D), all of one type
 // (dtype 0: float32, 1: bfloat16, 2: float16), contiguous and 16-byte
-// aligned; D is 32, 64 or 128.  causal != 0 masks keys after the query;
+// aligned; D is 32, 64, 128 or 256.  causal != 0 masks keys after the query;
 // window > 0 masks keys at or before query - window (window <= 0: none).
 // Launches on `stream` and returns the CUDA error code (0 on success).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, int bh, int s, int t, int d,
                                int causal, int window, float scale, int dtype,
                                void* stream) {
-  if (bh <= 0 || s <= 0 || t <= 0 || (s + kBlockQ - 1) / kBlockQ > 65535) {
+  if (bh <= 0 || s <= 0 || t <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

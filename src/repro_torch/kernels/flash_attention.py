@@ -4,7 +4,7 @@
 The kernel is CUDA C++ (``src/repro_torch/csrc/flash_attention.cu``; its
 source note says what bounds it and how it is built up: both products on
 the tensor cores, float32 split 3xTF32, K/V tiles double-buffered with
-``cp.async``), compiled by ``kernels/build.py`` the first time a CUDA
+``cp.async``; head dim 256 on a tiling of its own), compiled by ``kernels/build.py`` the first time a CUDA
 tensor reaches the wrapper.
 
 Layout as in the reference: q (B, H, S, D), k and v (B, H, T, D); GQA
@@ -25,7 +25,7 @@ from repro_torch.kernels import build
 #: the reference's masked score (``NEG_INF``), not -inf
 NEG_INF = -1e30
 #: head dimensions the kernel is instantiated for
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 FLASH = build.Kernel("flash_attention", (

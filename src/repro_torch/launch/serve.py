@@ -20,6 +20,13 @@ one-shot lifecycle, and prepare-once / serve-many).
     PYTHONPATH=src python -m repro_torch.launch.serve --artifact DIR \
         [--tp 2] [--backend auto] [--requests 8 ...] [--device cpu]
 
+* the offline audit of an artifact (``repro_torch.analysis``'s MF rules,
+  then the collective contracts of the specs its plan resolves, at tp=1
+  and its TP degree); exits 1 on an error finding:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve verify \
+        --artifact DIR [--json OUT] [--device cpu]
+
 * a grid of data-parallel replicas of a TP plan (the reference's
   multi-process launch):
 
@@ -431,6 +438,47 @@ def _run_mesh(args, device) -> list:
     return rows
 
 
+def verify(argv=None) -> int:
+    """``serve verify --artifact DIR``: the offline audit of a prepared
+    artifact (``repro_torch.analysis``'s MF rules), then the collective
+    contracts (CT001, CT002) for exactly the specs the artifact's plan
+    resolves, at tp=1 and at the artifact's TP degree (its rank processes
+    on ``--device``).  Prints every finding and ``verify DIR: N
+    finding(s), E error(s)``; returns 1 on error findings, else 0."""
+    from repro_torch.analysis import contracts, manifest_lint
+    from repro_torch.analysis.findings import has_errors, to_json_text
+
+    ap = argparse.ArgumentParser(prog="repro_torch.launch.serve verify")
+    ap.add_argument("--artifact", required=True,
+                    help="prepared DeploymentArtifact directory")
+    ap.add_argument("--json", default=None, metavar="OUT",
+                    help="write the findings as JSON")
+    ap.add_argument("--device", default=None,
+                    help="where the contracts' ranks run (default: the "
+                         "CUDA card)")
+    args = ap.parse_args(argv)
+    device = _device(args)
+    manifest = DeploymentArtifact.load_manifest(args.artifact)
+    findings = manifest_lint.run(artifact=args.artifact)
+    try:
+        specs = parse_collective(manifest["policy"]["collective"]).specs()
+    except ValueError:
+        specs = ()              # MF006 reports the unparseable plan
+    if specs:
+        findings += contracts.lint_collectives(
+            specs=[s.shorthand() for s in specs],
+            tps=(1, int(manifest["tp"])), device=device)
+    for f in findings:
+        print(f"  {f}")
+    errs = sum(1 for f in findings if f.severity == "error")
+    print(f"verify {args.artifact}: {len(findings)} finding(s), "
+          f"{errs} error(s)")
+    if args.json:
+        with open(args.json, "w") as fh:
+            fh.write(to_json_text(findings))
+    return 1 if has_errors(findings) else 0
+
+
 def serve_parser() -> argparse.ArgumentParser:
     """The serve command's arguments."""
     ap = argparse.ArgumentParser(prog="repro_torch.launch.serve")
@@ -475,6 +523,8 @@ def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] == "prepare":
         return prepare(argv[1:])
+    if argv and argv[0] == "verify":
+        return verify(argv[1:])
     args = serve_parser().parse_args(argv)
 
     device = _device(args)
@@ -518,4 +568,8 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+
+    # ``verify`` returns its exit code; the other commands return output
+    result = main()
+    sys.exit(result if isinstance(result, int) else 0)

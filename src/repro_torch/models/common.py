@@ -295,8 +295,8 @@ def _flash_sdpa(q, k, v, *, causal: bool, window):
     q: (B, S, H, D); k/v: (B, T, KV, D).  The KV heads are repeated to the
     full head grid (``jnp.repeat`` == ``repeat_interleave``) and the
     kernel runs on (B, H, S, D); returns (B, S, H * D).  A head dim the
-    kernel lacks raises, on the CPU too (whose plain version would take
-    it).
+    kernel lacks (``HEAD_DIMS``) raises, on the CPU too (whose plain
+    version would take it).
     """
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import HEAD_DIMS
@@ -305,8 +305,7 @@ def _flash_sdpa(q, k, v, *, causal: bool, window):
     if hd not in HEAD_DIMS:
         # on every device, so a forward never takes another path quietly
         raise ValueError(f"attn_backend='flash': the flash kernel takes "
-                         f"head dims {HEAD_DIMS}, not {hd} (ROADMAP.md "
-                         f"queue 2, K2)")
+                         f"head dims {HEAD_DIMS}, not {hd}")
     g = h // k.shape[2]
     qt = q.transpose(1, 2).contiguous()
     kt = k.transpose(1, 2).repeat_interleave(g, dim=1).contiguous()

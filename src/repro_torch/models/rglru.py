@@ -12,10 +12,11 @@ conv and the float32 projections are library ops, as the reference
 computes them outside any kernel; the MLP pairs are the quantized pairs
 (``MLP_PATHS``).  Local attention is ``cm.attention_forward`` and
 ``cm.attention_decode`` with ``window=cfg.local_window`` over a ring of
-``min(max_seq, local_window)`` rows.  The flash kernel takes head dims
-32, 64 and 128, and this family attends at 256 (MQA): its flash forward
-raises (``cm.attention_forward``), it never takes the einsum path
-instead.
+``min(max_seq, local_window)`` rows.  With ``attn_backend="flash"`` the
+forward's local attention (10 heads of 256 over one KV head, MQA, at full
+width) runs the flash kernel at head dim 256 with
+``window=cfg.local_window``, as the reference's flash path does: one
+launch per superblock.
 
 Layers are lists of per-layer dicts (``super``: one dict of ``rec1``,
 ``rec2``, ``attn`` per superblock; ``extra``: the remaining recurrent

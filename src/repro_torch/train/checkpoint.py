@@ -1,6 +1,7 @@
 """npz checkpoints in the reference's template-free format; port of
 ``repro/train/checkpoint.py`` (``save``, ``load``, ``restore``,
-``latest``, ``flatten_keys``).
+``latest``, ``flatten_keys``), and ``leaf_shapes``, a file's leaf shapes
+read from its schema alone.
 
 A file holds one array per tensor leaf, under its ``||``-joined key path,
 and under ``__tree__`` a JSON schema of the tree: dicts, lists, tuples,
@@ -170,18 +171,50 @@ def save(path: str, tree: Any, *, step: int | None = None) -> str:
     return path
 
 
+def _schema(data, path: str) -> dict:
+    """The tree schema of an open npz file, its version checked."""
+    if _TREE_KEY not in data:
+        raise ValueError(f"{path} has no embedded tree schema")
+    meta = json.loads(str(data[_TREE_KEY][()]))
+    if meta["version"] != _SCHEMA_VERSION:
+        raise ValueError(f"{path}: schema v{meta['version']} != "
+                         f"supported v{_SCHEMA_VERSION}")
+    return meta["tree"]
+
+
 def load(path: str) -> Any:
     """The tree ``save`` (the port's or the reference's) wrote, as torch
     tensors on the CPU, with the file's structure."""
     with np.load(path) as data:
-        if _TREE_KEY not in data:
-            raise ValueError(f"{path} has no embedded tree schema")
-        meta = json.loads(str(data[_TREE_KEY][()]))
-        if meta["version"] != _SCHEMA_VERSION:
-            raise ValueError(f"{path}: schema v{meta['version']} != "
-                             f"supported v{_SCHEMA_VERSION}")
+        schema = _schema(data, path)
         leaves = {k: data[k] for k in data.files if k != _TREE_KEY}
-    return _decode(meta["tree"], leaves)
+    return _decode(schema, leaves)
+
+
+def leaf_shapes(path: str) -> dict[str, tuple]:
+    """``{key: shape}`` of every leaf ``load`` would return (the keys of
+    ``flatten_keys``), from the file's schema alone: no array is read.
+    Raises ``ValueError`` where the file's arrays are not the schema's
+    leaves."""
+    shapes: dict[str, tuple] = {}
+
+    def walk(node: dict, key: tuple):
+        if node["t"] == "array":
+            shapes[SEP.join(key)] = tuple(node["shape"])
+        for k, v in node.get("fields", {}).items():
+            walk(v, key + (k,))
+        for k, v in node.get("keys", {}).items():
+            walk(v, key + (k,))
+        for i, v in enumerate(node.get("items", ())):
+            walk(v, key + (str(i),))
+
+    with np.load(path) as data:
+        walk(_schema(data, path), ())
+        files = set(data.files) - {_TREE_KEY}
+    if files != set(shapes):
+        raise ValueError(f"{path}: arrays {sorted(files ^ set(shapes))[:5]} "
+                         f"are not both in the file and in its schema")
+    return shapes
 
 
 def restore(path: str, template: Any) -> Any:

@@ -1,8 +1,9 @@
 """Port parity of the flash-attention kernel (K2): ``ops.flash_attention``
 on the CPU against the JAX Pallas kernel in interpret mode, at the shapes
 of ``tests/test_kernels.py`` (causal, non-causal, windowed, uneven JAX
-blocks), in float32 (rtol/atol 1e-5, the reference's own) and bfloat16
-(2e-2).  On the card, the CUDA kernel against its plain version (``gpu``
+blocks) and at head dim 256 (causal, windowed, S != T), in float32
+(rtol/atol 1e-5, the reference's own) and bfloat16 (2e-2); the head dims
+the models' flash path takes.  On the card, the CUDA kernel against its plain version (``gpu``
 marker; skips without a card).
 
 JAX is imported inside the parity tests only, so the ``gpu`` tests also
@@ -77,6 +78,54 @@ def test_flash_dtypes_match_jax_kernel(dtype):
                                atol=tol)
 
 
+#: head dim 256 (recurrentgemma's local attention): (b, h, s, t, causal,
+#: window, JAX block_q, JAX block_k): causal, windowed inside and across
+#: the JAX blocks, S != T
+SWEEP_256 = [
+    (1, 2, 64, 64, True, None, 32, 32),
+    (1, 2, 64, 64, True, 8, 32, 32),
+    (1, 1, 64, 64, True, 40, 32, 32),
+    (1, 2, 32, 64, False, None, 32, 32),
+]
+
+
+@pytest.mark.parametrize("b,h,s,t,causal,window,bq,bk", SWEEP_256)
+def test_flash_head_dim_256_matches_jax_kernel(b, h, s, t, causal, window,
+                                               bq, bk):
+    """The port at D 256 (the plain version on the CPU) against the
+    reference's Pallas kernel in interpret mode, float32, within the
+    reference's own 1e-5."""
+    import jax.numpy as jnp
+
+    from repro.kernels import ops as jops
+
+    rng = np.random.default_rng(b * s + t)
+    q = rng.standard_normal((b, h, s, 256)).astype(np.float32)
+    k, v = (rng.standard_normal((b, h, t, 256)).astype(np.float32)
+            for _ in range(2))
+    want = np.asarray(jops.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        window=window, block_q=bq, block_k=bk))
+    got = ops.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                              causal=causal, window=window)
+    assert got.shape == (b, h, s, 256)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_head_dims_take_256_and_refuse_others():
+    """K2 is built for D 32, 64, 128 and 256; the flash path of the
+    models refuses any other head dim on every device, the CPU included."""
+    from repro_torch.models import common as cm
+
+    assert tfa.HEAD_DIMS == (32, 64, 128, 256)
+    q = torch.zeros(1, 8, 2, 96)
+    with pytest.raises(ValueError, match=r"head dims \(32, 64, 128, 256\), "
+                                         r"not 96"):
+        cm._flash_sdpa(q, q, q, causal=True, window=None)
+    q = torch.zeros(1, 8, 2, 256)
+    assert cm._flash_sdpa(q, q, q, causal=True, window=4).shape == (1, 8, 512)
+
+
 def test_flash_refuses_empty_window():
     q = torch.zeros(1, 1, 8, 32)
     with pytest.raises(ValueError, match="window must be >= 1"):
@@ -127,7 +176,8 @@ def test_3xtf32_split_holds_the_float32_tolerance():
 
 #: (b, h, s, t, d, causal, window) of the card's test: the reference's
 #: sweep, ragged S = T, windows inside and across a 64-key tile, S != T,
-#: every head dim at S 2048, and 8 heads of the full-width forward
+#: every head dim at S 2048, 8 heads of the full-width forward, and the
+#: same edges at head dim 256
 CUDA_CASES = [(b, h, s, s, d, causal, window)
               for b, h, s, d, causal, window, _, _ in SWEEP] + [
     (1, 3, 100, 100, 64, True, None),       # ragged S = T
@@ -143,7 +193,16 @@ CUDA_CASES = [(b, h, s, s, d, causal, window)
     (2, 2, 300, 70, 64, False, None),
     (1, 2, 2048, 2048, 32, True, None),     # every head dim at S 2048
     (1, 2, 2048, 2048, 64, True, None),
-    (1, 8, 2048, 2048, 128, True, None)]
+    (1, 8, 2048, 2048, 128, True, None),
+    # head dim 256 on its own tiling (64-query blocks, 32-key tiles): S
+    # not a multiple of either, windows below and across a tile, S != T,
+    # and recurrentgemma's forward (10 heads, its 2048-token window)
+    (1, 2, 100, 100, 256, True, None),
+    (2, 2, 77, 77, 256, False, None),
+    (1, 2, 300, 300, 256, True, 16),
+    (1, 2, 300, 300, 256, True, 80),
+    (1, 2, 100, 300, 256, False, None),
+    (1, 10, 2048, 2048, 256, True, 2048)]
 
 
 @pytest.mark.gpu

@@ -20,8 +20,9 @@ the reference's, and the serving stack over the family.
   zeroes one lane of every leaf (the K/V ring's too) in place, and the
   continuous scheduler with slot reuse gives each request its solo
   ``Engine.generate`` ids (and at one slot its logits bit for bit).
-* The flash forward at head dim 256 raises (the kernel's head dims are
-  32, 64 and 128), and at the smoke head dim 64 equals the einsum one.
+* The flash forward (``attn_backend="flash"``, the window of 8) at head
+  dim 256 and 64 against the reference's flash forward within 5e-3 of
+  max|logit|, and against the einsum one.
 * A JAX-prepared tp=1 artifact served by the port, bit-equal to the
   in-memory plan; the port's manifest lists the reference's pair sites
   (stacked ``[0]`` at 2 layers) and leaf shards; ``quantize_model``
@@ -514,24 +515,36 @@ def test_step_and_the_serving_loop_accept_the_family(carried):
     EngineLoop(Scheduler(teng, max_batch=2))
 
 
-def test_flash_forward_refuses_head_dim_256():
-    """At the config's head dim 256 (MQA) the flash forward raises, never
-    falling back to the einsum path; at the smoke head dim 64 it is the
-    einsum forward within 5e-3 of max|logit|."""
-    cfg = get_smoke_config(ARCH).with_(num_layers=3)
-    eng = make_engine(cfg.with_(head_dim=256), 0, device=CPU,
-                      max_seq=MAX_SEQ)
-    toks = torch.from_numpy(np.random.default_rng(2).integers(
-        0, cfg.vocab_size, (1, 8)))
-    eng.prefill_logits(toks)
-    with pytest.raises(ValueError, match=r"head dims \(32, 64, 128\), not "
-                                         r"256"):
-        dataclasses.replace(eng, attn_backend="flash").prefill_logits(toks)
-    eng = make_engine(cfg, 0, device=CPU, max_seq=MAX_SEQ)
-    xla = eng.prefill_logits(toks).numpy()
-    flash = dataclasses.replace(eng, attn_backend="flash").prefill_logits(
-        toks).numpy()
-    assert _rel_gap(flash, xla) <= REL_TOL
+@pytest.mark.parametrize("over", [dict(WRAP, head_dim=256),
+                                  dict(WRAP, head_dim=64)],
+                         ids=["3L-window8-d256", "3L-window8-d64"])
+def test_flash_forward_matches_jax_flash_forward(carried, over):
+    """The forward with ``attn_backend="flash"`` at the config's head dim
+    256 (MQA) and at 64, 12 tokens past the window of 8, in bf16 and
+    float32 activations, against the reference's flash forward (its Pallas
+    kernel in interpret mode) within 5e-3 of max|logit|, as the einsum
+    forward is held; the flash forward also equals the port's einsum one
+    within that bound."""
+    import jax.numpy as jnp
+    from repro.models import rglru as jax_rglru
+
+    jeng, teng = carried(**over)
+    cfg = teng.model.cfg
+    jctx = dataclasses.replace(jeng.ctx, attn_backend="flash")
+    toks = np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 12)).astype(np.int32)
+    for dtype in ("bfloat16", "float32"):
+        ref = np.asarray(jax_rglru.forward(
+            jeng.model.cfg.with_(dtype=dtype), jeng.params,
+            {"tokens": jnp.asarray(toks)}, jctx))
+        batch = {"tokens": torch.from_numpy(toks).long()}
+        got = rglru.forward(cfg.with_(dtype=dtype), teng.params, batch,
+                            teng.policy, attn_backend="flash").numpy()
+        assert got.shape == ref.shape
+        assert _rel_gap(got, ref) <= REL_TOL, dtype
+        xla = rglru.forward(cfg.with_(dtype=dtype), teng.params, batch,
+                            teng.policy).numpy()
+        assert _rel_gap(got, xla) <= REL_TOL, dtype
 
 
 # ---------------------------------------------------------------------------
