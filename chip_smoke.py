@@ -8,7 +8,8 @@ Phases, one line each:
   2. build: nvcc of the five kernels for sm_90a, all started together;
      each one's build seconds, ptxas registers and shared memory (K2's at
      head dims 128 and 256), and the registers and spill bytes of K2's
-     head-dim-256 instances
+     head-dim-256 instances and of K1's float32 decode loop's instances
+     in K1 and K3 (none may spill)
   3. check: each CUDA kernel against its plain torch version, float32 and
      bfloat16: the ordered dequant-GEMM (K1) and the g_idx dequant-GEMM
      (K4) at the reference's test shapes, gs=76, ragged edges, the
@@ -19,7 +20,10 @@ Phases, one line each:
      of M=4 and M=17 calls bit-equal to M=1 calls, and its 16- and
      32-column tiles bit-equal), and K1 at large M (its tensor-core
      loop in float32: the full-width shapes at M=2048, ragged M around the
-     loop's threshold, ragged N and K); the dequantize kernel (K5)
+     loop's threshold, ragged N and K) and K1's float32 batch invariance
+     (rows of M 4, 8, 17, 64 and 255 calls bit-equal to M=1 calls at both
+     full-width shapes: its decode loop on the tensor cores); the
+     dequantize kernel (K5)
      bit-equal (also at granite's shapes, gs 100);
      flash attention (K2) at the reference's test shapes, the edges of
      its 128-query, 64-key tiling (ragged S, windows, S != T, every head
@@ -61,7 +65,8 @@ Phases, one line each:
      kernel (torch.profiler) against their wall time: the device's busy
      share, and K1's and the split-add's time and launches per step (108
      K1 kernels a step among the kernel nodes of the step's CUDA graph,
-     the trace's count beside); the eager step's wall time and
+     every one of them the float32 decode loop on the tensor cores, the
+     trace's count beside); the eager step's wall time and
      busy share beside them
   7. capture: the captured step against ``Engine.decode_eager`` at full
      width: logits and the whole KV cache bit for bit over 16 decode
@@ -218,8 +223,9 @@ Phases, one line each:
      microbatch's ring window (post to wait) holds a down-GEMM kernel,
      and no window of the synchronous ring does; the steps' wall time
      with and without ``:overlap`` in alternating blocks; K1 and K3 at a
-     microbatch pair's halves bit-equal to the whole at M 2, 4 and 600,
-     and M 300 (whole on the tensor-core loop, halves not) not split;
+     microbatch pair's halves bit-equal to the whole at M 2, 4 and
+     2 kTcMinM + 88, and kTcMinM + 44 (whole on the large-M loop, halves
+     not) not split;
      the library GEMM's rows at M 2 against M 4
  28. mesh-dp: the ``dp2xtp2`` grid, four processes on the card, from
      phase 27's tp=2 rank files: each process reads only its model-axis
@@ -768,6 +774,30 @@ def _ptxas_instances(log: str, tag: str) -> dict:
     return out
 
 
+def _decode_loop_ptxas(log: str) -> dict:
+    """Registers and spill bytes of each instance of K1's float32 decode
+    loop (``dequant_matmul_decode_tc_kernel``) in a build's ``ptxas -v``
+    lines, keyed by its mangled name's template arguments."""
+    out, name = {}, None
+    for text in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", text)
+        if m:
+            name = m.group(1)
+            continue
+        if name is None or "dequant_matmul_decode_tc_kernel" not in name:
+            continue
+        key = name.split("dequant_matmul_decode_tc_kernel", 1)[1]
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      text)
+        if m:
+            out.setdefault(key, {})["spill_stores"] = int(m.group(1))
+            out[key]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", text)
+        if m:
+            out.setdefault(key, {})["registers"] = int(m.group(1))
+    return out
+
+
 def phase_build() -> dict:
     kernels = dk.KERNELS + (fa.FLASH,)
     t0 = time.perf_counter()
@@ -814,6 +844,24 @@ def phase_build() -> dict:
         f"{name}: {r['registers']} registers, spill stores "
         f"{r['spill_stores']} B, loads {r['spill_loads']} B"
         for name, r in d256.items()))
+    # K1's float32 decode loop in K1 (4 and 8 rows, N a multiple of 4 or
+    # not: 4 instances) and in K3 (the same with each wire's epilogue: 8)
+    out["decode_loop"] = dec = {
+        k.name: _decode_loop_ptxas(kbuild.info[k.name]["ptxas"])
+        for k in (dk.ORDERED, dk.WIRE)}
+    for lib, inst in dec.items():
+        if len(inst) < 4 or any(len(r) != 3 or r["spill_stores"]
+                                or r["spill_loads"] for r in inst.values()):
+            raise AssertionError(f"{lib}: expected the float32 decode loop's "
+                                 f"instances without spills, ptxas says "
+                                 + "; ".join(f"{key[:12]}..{key[-40:]}: {r}"
+                                             for key, r in inst.items()))
+    line("build", "the float32 decode loop (dequant_matmul_decode_tc_kernel), "
+                  "ptxas: " + "; ".join(
+                      f"{lib}: {len(inst)} instances, " + "/".join(
+                          str(r["registers"]) for r in inst.values())
+                      + " registers" for lib, inst in dec.items())
+                  + "; no spill stores or loads")
     line("build", f"{len(kernels)} kernels, nvcc in parallel: {wall:.1f}s")
     return out
 
@@ -1252,37 +1300,77 @@ def _arch_errs(rows: list) -> dict:
             for a in shapes for name, k, n, gs in shapes[a]}
 
 
-def phase_check(gen) -> dict:
-    full = [(m, k, n, gs) for _, k, n, gs in (UP, DOWN) for m in (1, 4, 32)]
-    # the other archs' full-width shapes at decode M
+def _arch_cases() -> list:
+    """(M, K, N, gs) of the other archs' full-width MLP shapes at decode M
+    (1 and 4), and of the MoE experts' at an expert's decode capacity (4)
+    and a data rank's share under expert parallelism at dp=2 (8)."""
     archs = [(m, k, n, gs) for a in ARCHS for _, k, n, gs in ARCH_SHAPES[a]
              for m in (1, 4)]
-    # the MoE experts' shapes at an expert's decode capacity (4) and a
-    # data rank's share under expert parallelism at dp=2 (8)
-    archs += [(m, k, n, gs) for a in MOE_ARCHS
-              for _, k, n, gs in MOE_SHAPES[a] for m in (4, 8)]
-    t = dk.tensor_core_min_m()
-    large = _large_m_cases(t)
-    # the attention fold's V and O at decode M and the forward's
+    return archs + [(m, k, n, gs) for a in MOE_ARCHS
+                    for _, k, n, gs in MOE_SHAPES[a] for m in (4, 8)]
+
+
+def k1_cases(t: int) -> list:
+    """K1's check cases (M, K, N, gs) around a tensor-core threshold ``t``:
+    the sweep, qwen3-4b's full-width shapes at M 1, 4 and 32, the large-M
+    cases, the other archs' and the experts' shapes, and the attention
+    fold's V and O at decode M and the forward's."""
+    full = [(m, k, n, gs) for _, k, n, gs in (UP, DOWN) for m in (1, 4, 32)]
     fold = [(m, k, n, gs) for _, k, n, gs in FOLD for m in (4, 2048)]
+    return SWEEP + full + _large_m_cases(t) + _arch_cases() + fold
+
+
+def _check_k1_invariance(gen) -> list:
+    """K1's float32 sum order depends on N, K, the group size and the card,
+    never on M: at both full-width shapes the rows of calls at M 4, 8, 17,
+    64 and 255 (every M below the large-M loop's threshold takes the
+    decode loop on the tensor cores) are bit-equal to the same rows run
+    one at a time (M = 1)."""
+    t = dk.tensor_core_min_m()
+    ms = (4, 8, 17, 64, 255)
+    if max(ms) >= t:
+        raise AssertionError(f"the batch invariance check needs M < {t}")
+    rows = []
+    for name, k, n, gs in (UP, DOWN):
+        ql = _quantized(gen, k, n, gs).ordered
+        x = torch.randn(max(ms), k, generator=gen, device="cuda")
+        solo = torch.cat([ops.dequant_matmul(x[i:i + 1], ql)
+                          for i in range(max(ms))])
+        row = {"shape": name, **{f"m{m}_rows_equal_m1": bool(torch.equal(
+            ops.dequant_matmul(x[:m], ql), solo[:m])) for m in ms}}
+        torch.cuda.synchronize()
+        rows.append(row)
+        if not all(v for v in row.values() if isinstance(v, bool)):
+            raise AssertionError(f"dequant_matmul_ordered's float32 rows "
+                                 f"depend on the batch: {row}")
+    line("check", f"dequant_matmul_ordered: batch invariance at both "
+                  f"full-width shapes, float32: rows of M "
+                  f"{'/'.join(map(str, ms))} calls bit-equal to M=1 calls "
+                  f"({len(rows)} shapes)")
+    return rows
+
+
+def phase_check(gen) -> dict:
+    archs = _arch_cases()
+    t = dk.tensor_core_min_m()
+    cases = k1_cases(t)
     wire = _check_wire(gen)
     tc0 = dk.dequant_matmul_ordered.tensor_core_launches
     ordered = _check_gemm(
-        gen, "dequant_matmul_ordered", SWEEP + full + large + archs + fold,
-        "ordered",
+        gen, "dequant_matmul_ordered", cases, "ordered",
         lambda x, ql, dt: ops.dequant_matmul(x, ql, compute_dtype=dt),
         lambda x, ql, dt: dk.dequant_matmul_ordered_torch(
             x, ql.qweight, ql.scales, ql.zeros,
             group_size=ql.group_size, compute_dtype=dt))
     tc = dk.dequant_matmul_ordered.tensor_core_launches - tc0
-    want = sum(m >= t for m, *_ in SWEEP + full + large + archs
-               + fold)  # f32
+    want = sum(m >= t for m, *_ in cases)  # f32
     if tc != want:
         raise AssertionError(f"K1's tensor-core loop ran {tc} times in the "
                              f"check, expected {want} (float32, M >= {t})")
     ordered["tensor_core_min_m"] = t
     ordered["tensor_core_launches"] = tc
     ordered["arch_max_abs_err"] = _arch_errs(ordered["cases"])
+    ordered["batch_invariance"] = _check_k1_invariance(gen)
     ordered["fold_max_abs_err"] = {
         f"{name} M={m}": max(r["max_abs_err"] for r in ordered["cases"]
                              if (r["k"], r["n"], r["m"]) == (k, n, m)
@@ -2135,7 +2223,13 @@ def _is_k3(name: str) -> bool:
 
 def _is_k1(name: str) -> bool:
     return ("dequant_matmul_ordered_kernel" in name
+            or "dequant_matmul_decode_tc_kernel" in name
             or "dequant_matmul_tc_kernel" in name) and not _is_k3(name)
+
+
+def _is_k1_decode(name: str) -> bool:
+    """K1's float32 decode loop (on the tensor cores)."""
+    return "dequant_matmul_decode_tc_kernel" in name and not _is_k3(name)
 
 
 def _is_k4(name: str) -> bool:
@@ -4185,16 +4279,19 @@ def _mesh_batch(cfg) -> tuple[np.ndarray, np.ndarray]:
 def _check_halves(gen) -> dict:
     """K1 and K3 (int8 and int4 wires) at the tp=2 down shard on a
     microbatch pair's halves against the whole call, at M 2 and 4 (the
-    decode loop: phase 28's and phase 27's steps), 600 (tensor-core loop)
-    and 300 (whole on the tensor-core loop, halves on the decode loop:
-    ``split_rows`` must refuse it; whether the halves would have
-    differed is reported)."""
+    decode loop: phase 28's and phase 27's steps), 2 t + 88 (the large-M
+    loop from t = kTcMinM, halves too) and t + 44 (whole on the large-M
+    loop, halves on the decode loop: ``split_rows`` must refuse it;
+    whether the halves would have differed is reported).  Returns each
+    M's record and which M are the straddling and the large one."""
     _, k, n, gs = DOWN_TP
     ql = _quantized(gen, k, n, gs).ordered
     pol = ExecutionPolicy(backend="cuda")
     loop = kdispatch.main_loop(ql, pol, torch.device("cuda"))
+    t = dk.tensor_core_min_m()
+    straddle, large = t + 44, 2 * t + 88
     out = {}
-    for m in (2, 4, 300, 600):
+    for m in (2, 4, straddle, large):
         x = torch.randn(m, k, generator=gen, device="cuda")
         split = overlap.split_rows((m,), loop)
         m0 = m // 2 if split is None else split[1]
@@ -4216,10 +4313,10 @@ def _check_halves(gen) -> dict:
         if split is not None and not all(equal.values()):
             raise AssertionError(f"overlap-tp: M={m} split at {m0}: "
                                  f"halves differ from the whole: {equal}")
-    if out[300]["split"] is not None or any(
-            out[m]["split"] is None for m in (2, 4, 600)):
+    if out[straddle]["split"] is not None or any(
+            out[m]["split"] is None for m in (2, 4, large)):
         raise AssertionError(f"overlap-tp: split rule {out}")
-    return out
+    return {"cases": out, "straddle": straddle, "large": large}
 
 
 def _library_rows(gen) -> dict:
@@ -4319,28 +4416,42 @@ def _ring_windows(engine, ctx, kind: str) -> dict | None:
     """``OVERLAP_TRACE_STEPS`` decode steps of ``engine`` on every rank,
     rank 0 under torch.profiler (CPU and CUDA), after a warm-up run; the
     run is repeated (at most three times) only while rank 0's trace
-    lacks a window's ranges (profiler sessions have dropped events),
-    which rank 0 tells the others through the ring's group.  Rank 0
-    returns ``_windows``'."""
+    lacks a window's ranges (profiler sessions have dropped events) or,
+    for ``:overlap``, shows a pipelined window without a down GEMM, which
+    rank 0 tells the others through the ring's group.  On the device
+    mb1's GEMM ends before the host's copy of its payload in
+    ``overlap.post mb1``, so before ``overlap.wait mb0`` starts: a trace
+    that places it outside the window misplaces the device's timestamps
+    against the host's.  Rank 0
+    returns ``_windows``' of its last trace, with the traces taken and
+    each earlier one's record."""
     from torch.profiler import ProfilerActivity, profile
 
     run = _steps(engine)
     run()
-    out = None
+    out, earlier = None, []
     for _ in range(3):
         if ctx.rank == 0:
+            if out is not None:
+                earlier.append(out)
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 run()
             out = _windows(prof, kind)
         else:
             run()
-        have = torch.tensor([float(out is not None)], device=ctx.device)
+        whole = out is not None and (
+            kind != "overlap"
+            or out["spanning_per_step"] == out["pipelined_sites_per_step"])
+        have = torch.tensor([float(whole)], device=ctx.device)
         if comm.raw_psum(have, ctx.group).item() > 0:
             break
     if ctx.rank == 0 and out is None:
         raise AssertionError(f"overlap-tp: no {kind} trace held every "
                              f"window's ranges")
+    if ctx.rank == 0:
+        out["traces"] = len(earlier) + 1
+        out["earlier"] = earlier
     return out
 
 
@@ -4544,6 +4655,7 @@ def phase_overlap_tp(gen) -> tuple[dict, str, dict]:
                - (2 if cfg.mlp_gated else 1) * cfg.num_layers * steps_greedy
                for name in ("overlap unfused", "sync unfused")}
     walls = [_wall_summary(r["wall"]) for r in ranks]
+    straddled = halves["cases"][halves["straddle"]]["halves_bit_equal"]
     out = {"layers": cfg.num_layers, "full_layers": full,
            "prepare_s": prepare_s, "save_s": save_s, "file_bytes": files,
            "reckoned_bytes": nbytes, "tuner": report,
@@ -4577,13 +4689,14 @@ def phase_overlap_tp(gen) -> tuple[dict, str, dict]:
          "{} pipelined sites of the serve (ranks 0/1) and {} of {} of the "
          "timed steps; greedy {}x{} lockstep batch: logits bit-equal to the "
          "plan without :overlap, fused and unfused (K1's down launches {} "
-         "and {}), and two rows at a time; ring windows a traced step: "
+         "and {}), and two rows at a time; ring windows a traced step "
+         "(trace {} of at most 3; earlier ones' holding {}): "
          "{:.0f} pipelined sites, {:.0f} holding a down GEMM, the "
          "synchronous ring's {:.0f} windows holding {:.0f}; wall ms a step "
          "(no profiler, {} alternating blocks of {} steps) sync {:.1f}, "
          "overlap {:.1f}: overlap/sync {:.3f}, overlap slower in {} of {} "
          "block pairs (rank 0; rank 1 {:.3f}, {} of {}); halves bit-equal "
-         "at M 2, 4 and 600 (K1, K3), M 300 not split (its halves {})".format(
+         "at M 2, 4 and {} (K1, K3), M {} not split (its halves {})".format(
              describe(cfg), r0["collective"], prepare_s, save_s,
              ", ".join(f"{f} {b / 1e9:.3f} GB" for f, b in files.items()
                        if b > 2**20), r0["transport"],
@@ -4598,6 +4711,8 @@ def phase_overlap_tp(gen) -> tuple[dict, str, dict]:
              "/".join(str(r["wall"]["sites"]) for r in ranks),
              MESH_BATCH, MESH_PLEN,
              k1_down["overlap unfused"], k1_down["sync unfused"],
+             ov["traces"], "/".join(f"{e['spanning_per_step']:.0f}"
+                                    for e in ov["earlier"]) or "none",
              ov["pipelined_sites_per_step"], ov["spanning_per_step"],
              sy["windows_per_step"], sy["spanning_per_step"],
              OVERLAP_WALL_BLOCKS, OVERLAP_TRACE_STEPS,
@@ -4605,10 +4720,10 @@ def phase_overlap_tp(gen) -> tuple[dict, str, dict]:
              walls[0]["ratio"], walls[0]["pairs_overlap_slower"],
              walls[0]["pairs"], walls[1]["ratio"],
              walls[1]["pairs_overlap_slower"], walls[1]["pairs"],
-             "bit-equal" if all(halves[300]["halves_bit_equal"].values())
+             halves["large"], halves["straddle"],
+             "bit-equal" if all(straddled.values())
              else "would differ: " + ", ".join(
-                 k for k, v in halves[300]["halves_bit_equal"].items()
-                 if not v)))
+                 k for k, v in straddled.items() if not v)))
     line("overlap-tp", "the step's own dependence on M (phase 28's "
          "witness): the plan without :overlap, two rows at a time against "
          "four: ids {}, logit gap {:.3g} (max|logit| {:.3g}); the library's "
@@ -6538,12 +6653,16 @@ def main() -> int:
     cfg = base.with_quant(mode="mlp", scheme="tp-aware", backend="auto")
     engine, serve = phase_serve(cfg, "dequant_matmul_ordered")
     per = mlp_launches(cfg)
-    trace = phase_trace(engine, {"K1": _is_k1, "split-add": _is_split_add,
+    trace = phase_trace(engine, {"K1": _is_k1,
+                                 "K1 decode loop": _is_k1_decode,
+                                 "split-add": _is_split_add,
                                  "sgemm": _is_sgemm}, expect={"K1": per})
-    k1 = trace["kernels"]["K1"]["launches_per_step"]
-    if k1 != per:
+    k1, k1_decode = (trace["kernels"][label]["launches_per_step"]
+                     for label in ("K1", "K1 decode loop"))
+    if k1 != per or k1_decode != per:
         raise AssertionError(f"captured decode step: {k1} K1 kernels per "
-                             f"step on the device, expected {per}")
+                             f"step on the device, {k1_decode} of them the "
+                             f"float32 decode loop's; expected {per} each")
     capture = phase_capture(engine, cfg, serve)
     cross = phase_crosscheck(engine, cfg)
     naive_cfg = base.with_quant(mode="mlp", scheme="naive-actorder",

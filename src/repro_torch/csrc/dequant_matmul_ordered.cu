@@ -11,17 +11,86 @@
 // bfloat16) before the multiply, the sum kept in float32, and y written in
 // the compute type.
 //
-// Two main loops, chosen by M, the group size and the compute type
-// (tensor_core_path in the header):
+// Three main loops, chosen by M, the group size and the compute type
+// (tensor_core_path and dec_tiles in the header):
 //
-// The decode loop (M < kTcMinM, every bfloat16 call, and groups of fewer
-// than kTcMinGroup rows).  What bounds it: in decode M is 1..32, so the
+// The float32 decode loop (M < kTcMinM; groups of a multiple of 4 rows,
+// at least 8, as every configuration's are; else the call is refused).
+// It computes
+//   y[m, n] = sum_g s[g, n] * sum_{k in g} x[m, k] * (q[k, n] - z[g, n])
+// with the products on the tensor cores: mma.sync m16n8k8 TF32 with the
+// weight on the A side (yT = WT xT), so 16 columns of N fill the A rows
+// and the batch rows the B side's 8 columns.
+//  * The weight operand is q - z, an integer in [-15, 15], exact in TF32:
+//    the nibble q at bits 4c..4c + 3 of a float whose exponent is
+//    2^(23 - 4c) makes the float 2^(23 - 4c) + q with one LOP3 (no shift
+//    for the low half of a word), and one subtraction of 2^(23 - 4c) + z
+//    leaves q - z.  This rests on integer zero-points in 0..15, which the
+//    quantizer writes and the C API requires: a fractional z would not be
+//    exact, and neither would q - z.
+//  * x goes in two TF32 parts: big = x rounded to TF32 (nearest, ties
+//    away, as cvt.rna.tf32.f32, here by integer adds on the bits) and
+//    small = the remainder x - big rounded to TF32.  big * (q - z) and
+//    small * (q - z) are exact in float32 (an 11-bit significand times a
+//    5-bit integer), and their sum carries x to about 22 bits; big alone
+//    misses the float32 limit (1e-5 * max|ref| + 1e-4) by more than 4x
+//    at the full-width shapes (tests/test_torch_kernels.py, emulated).  With at
+//    most 4 rows the B tile holds the 4 rows' big parts in its columns
+//    0-3 and their small parts in 4-7, so one mma a tile takes both; 5-8
+//    rows take two tiles.
+//  * The scale comes after the group's sum: each 64-k chunk of a warp
+//    sums one 8-k step at a time, per x part, into a zeroed fragment for
+//    each group it touches, and s[g, n] times that fragment is added to
+//    the warp's float32 sum with a fused multiply-add.  Scaling inside
+//    the product would need (q - z) * s split in two TF32 parts too (the
+//    large-M loop's form, 4 more operations a weight).  The tensor cores
+//    truncate as they accumulate, and over all of K one accumulator
+//    gathers a bias above the limit (5e-3 at K 2560: tools/k1_tc_cost.py,
+//    no_part); at most 8 steps a fragment the emulated error is within
+//    it (tests/test_torch_kernels.py).  A group boundary at a step's
+//    start closes the fragment; one between a step's nibbles 3 and 4
+//    (groups of 4 (2i + 1) rows, such as qwen3-4b's down projection's 76)
+//    runs the step as two m16n8k4 halves, one for each group.
+//
+// What bounds it, by count: at M <= 8 a weight costs about 2.6 CUDA-core
+// instructions (the LOP3, the subtraction, a shift a high nibble, and a
+// share of x's split, the group's zero and scale) and 1/128 of an mma;
+// at the served decode shapes that issue stream is below the bytes (at
+// qwen3-4b's up/gate, 24.9 M weights: about 2.5 us of issue on 528 warp
+// schedulers against the 4.2 us the 12.5 MB of packed weight and 1.6 MB
+// of metadata take at 3.35 TB/s).  As measured on an H100 the loop is
+// still held by that issue stream, which runs far below one instruction
+// a cycle with 3-5 warps a scheduler, and by each stage's copy issue
+// (PERF.md; tools/k1_time.py).
+//
+// Design (no TMA, no wgmma yet):
+//  * One block of 4 warps per (4 or 8 rows x 128 columns) output tile and
+//    K split; warp (wn, wk) owns columns 64 wn..+63 and the 64-k chunks
+//    wk, wk + 2, ... of the split's K range.  Its sums live in registers;
+//    the two warps' sums of a column (big parts, then small parts) are
+//    added in a fixed order at the end.  Lane (g, c) takes nibbles c and
+//    c + 4 of each word, so the mma's k order is the word's and x needs
+//    no permutation.
+//  * A 2-stage cp.async ring of 256-k stages: 32 packed rows, x's rows
+//    and the scale and zero rows of every group the stage touches; each
+//    thread copies 16 bytes a row at a fixed column (single words where
+//    N is not a multiple of 4).  Lanes split x themselves, a k-step at a
+//    time.  Per-stage work is what the loop spends besides the products:
+//    256-k stages in 2 slots beat 128-k stages in 3 at mistral-large's
+//    down projection (tools/k1_decode_forms.py), and each thread's copy
+//    addresses are worked out once, before the loop.
+//  * The K split and the split-add pass are the bfloat16 loop's
+//    (choose_split: N, K and the card, never M).
+//  * Registers: 4 blocks a SM (128 registers) at 4 rows, 3 (168) at 8, no
+//    spill (phase 2 of chip_smoke.py prints ptxas's lines).
+//
+// The bfloat16 decode loop (M < kTcMinM in bfloat16, and every bfloat16
+// call: the large-M loop is float32 only).  In decode M is 1..32, so the
 // kernel does ~2*M*K*N flops against ~K*N/2 bytes of packed weight; at
 // M = 4 that is 16 flops per byte, far below the card's ridge, so its
 // floor is the bytes it reads from device memory (packed weight + scales
-// + zeros).  Under the float32 policy each weight element also costs M
-// CUDA-core FMAs plus its unpack and dequantize; at M = 4 that instruction
-// stream, not the memory, is what this loop runs into.
+// + zeros).  Each weight also costs M CUDA-core FMAs plus its unpack and
+// dequantize.
 //
 // Design (no TMA, no wgmma yet):
 //  * One thread block per (BM rows x 128 columns) output tile and K range,
@@ -49,11 +118,12 @@
 // kTcMinGroup rows: the full-sequence forward's MLP, M = 2048 tokens).
 // What bounds it: operations; at the full-width shapes one launch is
 // 2 * 2048 * 2560 * 9728 = 102 GFLOP against about 100 MB.  On CUDA cores that
-// is 1.52 ms at the float32 rate, which the decode loop's design missed by
-// 5.5x.  So the products run on the tensor cores with mma.sync m16n8k8
-// TF32.  The float32 policy holds the kernel to 1e-5 of max|ref| + 1e-4,
-// and one TF32 product (10 mantissa bits) misses that by 26-32x at these
-// K, so both operands are split 3xTF32 as in flash_attention.cu:
+// is 1.52 ms at the float32 rate, which the CUDA-core decode loop's design
+// (the bfloat16 loop's) missed by 5.5x.  So the products run on the
+// tensor cores with mma.sync m16n8k8 TF32.  The float32 policy holds the
+// kernel to 1e-5 of max|ref| + 1e-4, and one TF32 product (10 mantissa
+// bits) misses that by 26-32x at these K, so both operands are split
+// 3xTF32 as in flash_attention.cu:
 // v = big + small with big = cvt.rna.tf32(v) and small =
 // cvt.rna.tf32(v - big); each
 // k-step adds small*big, big*small and big*big.  The floor is then 3 x 102
@@ -105,11 +175,16 @@
 // Sum order: within each loop a row's float32 sum depends on N, K, the
 // group size and the card, never on M, so a row's result does not depend
 // on the batch it runs in as long as the batch stays on one side of
-// kTcMinM.  The two loops sum in different orders.  K3
+// kTcMinM.  In the float32 decode loop an mma's output element depends
+// only on its own A row, B column and accumulator, each row's big and
+// small parts sit in the same columns of a 4-row tile whatever M is, and
+// the K split, the chunks, the steps and every add are fixed by N, K, gs
+// and the card; blocks of 4 or 8 rows and the rows past M change none of
+// them.  The loops sum in different orders.  K3
 // (dequant_matmul_wire_ordered.cu) takes the same loop at the same M, so
 // its sums are K1's bit for bit.
 //
-// Both loops: the group of each row is k / gs per row, never per word:
+// Every loop: the group of each row is k / gs per row, never per word:
 // with gs = 76 a packed word straddles two groups.  A nibble q becomes the
 // float 2^23 + q by OR-ing it into the mantissa of 2^23; subtracting
 // 2^23 + z (exact for the integer zero-points 0..15 that the quantizer
@@ -119,19 +194,72 @@
 
 namespace {
 
-// K1: the GEMM, then, when K is split, the split-add pass.
-template <typename T, int BM>
-cudaError_t launch(const void* x, const void* qweight, const void* scales,
-                   const void* zeros, void* y, void* partial, int m, int n,
-                   int k, int gs, int bk, Split split, cudaStream_t stream) {
-  float* part = split.splits == 1 ? nullptr : static_cast<float*>(partial);
-  cudaError_t err = launch_gemm<T, BM>(x, qweight, scales, zeros, y, part, m,
-                                       n, k, gs, bk, split, stream);
-  if (err != cudaSuccess || part == nullptr) return err;
-  const int mn = m * n;
-  add_splits_kernel<T><<<(mn + 255) / 256, 256, 0, stream>>>(
-      part, static_cast<T*>(y), split.splits, mn);
+// Launch the float32 decode loop on `stream`, as launch_gemm does the
+// bfloat16 one.  Here, not in the header: K3 launches its own instances.
+template <int R4, bool kVec>
+cudaError_t launch_decode_tc_as(const void* x, const void* qweight,
+                                const void* scales, const void* zeros,
+                                float* y, float* partial, int m, int n, int k,
+                                int gs, int bk, Split split,
+                                cudaStream_t stream) {
+  const int smem = dec_smem_bytes(gs, R4);
+  const cudaError_t err = decode_tc_opt_in<R4, kVec>(smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + kBlockN - 1) / kBlockN, (m + 4 * R4 - 1) / (4 * R4),
+                  split.splits);
+  dequant_matmul_decode_tc_kernel<R4, kVec><<<grid, kThreads, smem,
+                                              stream>>>(
+      static_cast<const float*>(x), static_cast<const uint32_t*>(qweight),
+      static_cast<const float*>(scales), static_cast<const float*>(zeros), y,
+      partial, m, n, k, gs, bk, split.steps_per_split);
   return cudaGetLastError();
+}
+
+cudaError_t launch_decode_tc(const void* x, const void* qweight,
+                             const void* scales, const void* zeros, float* y,
+                             float* partial, int m, int n, int k, int gs,
+                             int bk, Split split, cudaStream_t stream) {
+  auto* launch = n % 4 == 0 ? (dec_tiles(m) == 1
+                                    ? launch_decode_tc_as<1, true>
+                                    : launch_decode_tc_as<2, true>)
+                             : (dec_tiles(m) == 1
+                                    ? launch_decode_tc_as<1, false>
+                                    : launch_decode_tc_as<2, false>);
+  return launch(x, qweight, scales, zeros, y, partial, m, n, k, gs, bk, split,
+                stream);
+}
+
+// The split-add pass, when K is split.
+template <typename T>
+cudaError_t add_splits(const float* part, void* y, int splits, int mn,
+                       cudaStream_t stream) {
+  add_splits_kernel<T><<<(mn + 255) / 256, 256, 0, stream>>>(
+      part, static_cast<T*>(y), splits, mn);
+  return cudaGetLastError();
+}
+
+// K1 on either decode loop: the GEMM, then, when K is split, the
+// split-add pass.
+cudaError_t launch_decode(const void* x, const void* qweight,
+                          const void* scales, const void* zeros, void* y,
+                          void* partial, int m, int n, int k, int gs, int bk,
+                          bool bf16, Split split, cudaStream_t stream) {
+  float* part = split.splits == 1 ? nullptr : static_cast<float*>(partial);
+  cudaError_t err;
+  if (!bf16) {
+    err = launch_decode_tc(x, qweight, scales, zeros, static_cast<float*>(y),
+                           part, m, n, k, gs, bk, split, stream);
+  } else if (block_m(m) == 4) {
+    err = launch_gemm<__nv_bfloat16, 4>(x, qweight, scales, zeros, y, part,
+                                        m, n, k, gs, bk, split, stream);
+  } else {
+    err = launch_gemm<__nv_bfloat16, 16>(x, qweight, scales, zeros, y, part,
+                                         m, n, k, gs, bk, split, stream);
+  }
+  if (err != cudaSuccess || part == nullptr) return err;
+  return bf16 ? add_splits<__nv_bfloat16>(part, y, split.splits, m * n,
+                                          stream)
+              : add_splits<float>(part, y, split.splits, m * n, stream);
 }
 
 }  // namespace
@@ -142,7 +270,8 @@ cudaError_t launch(const void* x, const void* qweight, const void* scales,
 extern "C" long long dequant_matmul_partial_floats(int m, int n, int k,
                                                    int group_size,
                                                    int block_k, int bf16) {
-  if (!valid_shape(m, n, k, group_size, block_k)) {
+  if (!valid_shape(m, n, k, group_size, block_k) ||
+      !takes_group(m, group_size, bf16 != 0)) {
     return -static_cast<long long>(cudaErrorInvalidValue);
   }
   Split split;
@@ -157,6 +286,8 @@ extern "C" long long dequant_matmul_partial_floats(int m, int n, int k,
 // x (M, K) and y (M, N) in the compute type (bf16 != 0: bfloat16, else
 // float32), qweight (K/8, N) 32-bit words, scales and zeros (K/gs, N)
 // float32 with integer zero-points, all contiguous and 16-byte aligned.
+// float32 calls below kTcMinM take groups of a multiple of 4 rows, at
+// least kDecMinGroup.
 // `partial` holds `partial_floats` floats of scratch, at least what
 // dequant_matmul_partial_floats asks for.  Launches on `stream` and
 // returns the CUDA error code (0 on success).
@@ -166,7 +297,8 @@ extern "C" int dequant_matmul_ordered(const void* x, const void* qweight,
                                       long long partial_floats, int m, int n,
                                       int k, int group_size, int block_k,
                                       int bf16, void* stream) {
-  if (!valid_shape(m, n, k, group_size, block_k)) {
+  if (!valid_shape(m, n, k, group_size, block_k) ||
+      !takes_group(m, group_size, bf16 != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -183,39 +315,27 @@ extern "C" int dequant_matmul_ordered(const void* x, const void* qweight,
        partial_floats < static_cast<long long>(split.splits) * m * n)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool small = block_m(m) == 4;
-  if (bf16) {
-    return static_cast<int>(
-        small ? launch<__nv_bfloat16, 4>(x, qweight, scales, zeros, y,
-                                         partial, m, n, k, group_size,
-                                         block_k, split, s)
-              : launch<__nv_bfloat16, 16>(x, qweight, scales, zeros, y,
-                                          partial, m, n, k, group_size,
-                                          block_k, split, s));
-  }
-  return static_cast<int>(
-      small ? launch<float, 4>(x, qweight, scales, zeros, y, partial, m, n,
-                               k, group_size, block_k, split, s)
-            : launch<float, 16>(x, qweight, scales, zeros, y, partial, m, n,
-                                k, group_size, block_k, split, s));
+  return static_cast<int>(launch_decode(x, qweight, scales, zeros, y,
+                                        partial, m, n, k, group_size,
+                                        block_k, bf16 != 0, split, s));
 }
 
 // Dynamic shared memory of one block for an (M, N) output, or minus a
 // CUDA error code.
 extern "C" int dequant_matmul_smem_bytes(int m, int n, int group_size,
                                          int block_k, int bf16) {
+  if (!takes_group(m, group_size, bf16 != 0)) {
+    return -static_cast<int>(cudaErrorInvalidValue);
+  }
   if (tensor_core_path(m, group_size, bf16 != 0)) {
     int bytes = 0;
     const cudaError_t err = tc_block_smem(m, n, group_size, &bytes);
     return err == cudaSuccess ? bytes : -static_cast<int>(err);
   }
-  const bool small = block_m(m) == 4;
-  if (bf16) {
-    return small ? smem_bytes<__nv_bfloat16, 4>(block_k, group_size)
-                 : smem_bytes<__nv_bfloat16, 16>(block_k, group_size);
-  }
-  return small ? smem_bytes<float, 4>(block_k, group_size)
-               : smem_bytes<float, 16>(block_k, group_size);
+  if (!bf16) return dec_smem_bytes(group_size, dec_tiles(m));
+  return block_m(m) == 4 ? smem_bytes<__nv_bfloat16, 4>(block_k, group_size)
+                         : smem_bytes<__nv_bfloat16, 16>(block_k,
+                                                         group_size);
 }
 
 // 1 when an M-row call with this group size and compute type takes the
@@ -226,6 +346,13 @@ extern "C" int dequant_matmul_tensor_cores(int m, int group_size, int bf16) {
 
 // The smallest M that takes the tensor-core path in float32.
 extern "C" int dequant_matmul_tensor_core_min_m() { return kTcMinM; }
+
+// 1 when an M-row call with this group size and compute type has a main
+// loop that takes it (the float32 decode loop: multiples of 4 rows, at
+// least kDecMinGroup).
+extern "C" int dequant_matmul_takes_group(int m, int group_size, int bf16) {
+  return takes_group(m, group_size, bf16 != 0) ? 1 : 0;
+}
 
 extern "C" const char* dequant_matmul_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

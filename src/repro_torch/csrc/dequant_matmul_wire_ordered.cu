@@ -21,8 +21,9 @@
 // The contract is bit-identity with K1 followed by the collective's own
 // quantizer (repro_torch/comm/dispatch.py _blockwise_quantize[_int4]):
 //  * The GEMM is K1's main loop (dequant_matmul_ordered.cuh), the one K1
-//    takes for the same M and compute type: the decode loop with the
-//    split K1 takes for the same (N, K), or, at large M in float32, the
+//    takes for the same M and compute type: a decode loop (float32: the
+//    one on the tensor cores; bfloat16: the CUDA-core one) with the split
+//    K1 takes for the same (N, K), or, at large M in float32, the large-M
 //    tensor-core loop, which takes no split.  Each block writes its float32
 //    partial tile as K1's split blocks do, also when K is not split, and
 //    the epilogue adds the splits in the order of K1's split-add pass
@@ -35,11 +36,11 @@
 //
 // What bounds it: the packed weight and metadata bytes the GEMM reads, as
 // for K1 (7.6 MB at the tp=2 down projection, K 4864, N 2560: 0.0023 ms
-// at 3.35 TB/s).  At decode M the decode loop runs into its instruction
-// stream first (K1's note).  The epilogue adds one read of the splits'
-// partial tiles from L2 (640 KB at M 4) and M * n_pad bytes of int8
-// payload (half that for int4), but mostly latency: the quantize of a
-// unit starts when the last of its blocks is in.
+// at 3.35 TB/s).  At decode M the decode loops run into their
+// instruction streams first (K1's note).  The epilogue adds one read of
+// the splits' partial tiles from L2 (640 KB at M 4) and M * n_pad bytes
+// of int8 payload (half that for int4), but mostly latency: the quantize
+// of a unit starts when the last of its blocks is in.
 //
 // Design: one launch a call.  The epilogue runs in the tail of the GEMM's
 // own blocks, through the main loops' epilogue hook, and the last block
@@ -76,11 +77,12 @@
 //    of every tile it covers has landed.  A word may hold values of two
 //    quant blocks (bs need not be a multiple of 8): each value uses its
 //    own block's scale and zero.
-//  * The decode loop's registers: K3's instantiations are cut for 4
-//    blocks per SM (128 registers a thread; WireEpilogue::kMinBlocks,
-//    which the header's hook reads), not K1's 6 (80): at 80 the
-//    epilogue's loads spill.  The rank shape's 320 blocks still fit one
-//    wave on 132 SMs.
+//  * The bfloat16 decode loop's registers: K3's instantiations are cut
+//    for 4 blocks per SM (128 registers a thread;
+//    WireEpilogue::kMinBlocks, which the header's hook reads), not K1's 6
+//    (80): at 80 the epilogue's loads spill.  The rank shape's 320 blocks
+//    still fit one wave on 132 SMs.  The float32 decode loop keeps its
+//    own bounds (K1's: 4 blocks at 4 rows, 3 at 8).
 //  * Counters: one int32 per (row tile, unit), in a zeroed buffer that the
 //    wrapper keeps per device and stream, not in the per-call scratch.
 //    The last block resets its counter to 0, so the buffer is zero again
@@ -174,9 +176,9 @@ inline int slab_rows(int bm, int gemm_smem, const Units& u) {
 template <typename T, int BITS, int NT, int BM>
 struct WireEpilogue {
   static constexpr int kWarpsPer = NT / 32;
-  // The decode loop's blocks per SM: 4 (128 registers a thread) where K1
-  // takes 6 (80), so that kLoadsInFlight float4 loads stay in registers.
-  // The tensor-core loop keeps its own bounds.
+  // The bfloat16 decode loop's blocks per SM: 4 (128 registers a thread)
+  // where K1 takes 6 (80), so that kLoadsInFlight float4 loads stay in
+  // registers.  The float32 loops keep their own bounds.
   static constexpr int kMinBlocks = 4;
 
   const float* partial;   // splits x M x N, split z at partial + z * M * N
@@ -454,8 +456,10 @@ bool valid_wire(const WireShape& w) {
 // How a call runs: the main loop (and its rows per block), the K split,
 // the units, the counters and the dynamic shared memory of its launch.
 struct Plan {
-  bool tc;                                  // the tensor-core loop
-  int bm, mt;                               // rows per block; m16 tiles (tc)
+  bool tc;                                  // the large-M tensor-core loop
+  int bm, mt;                               // rows per block; m16 tiles
+                                            // (tc) or row tiles of 4
+                                            // (the float32 decode loop)
   Split split;
   Units units;
   int slab;                                 // rows the quantize holds
@@ -476,13 +480,15 @@ cudaError_t make_plan(const WireShape& w, bool bf16, Plan* p) {
     p->mt = tc_mtiles(w.m, w.n, sms);
     p->bm = kTcWarpsM * 16 * p->mt;
     gemm = tc_smem_bytes(w.gs, p->bm);
+  } else if (!bf16) {
+    p->mt = dec_tiles(w.m);
+    p->bm = 4 * p->mt;
+    gemm = dec_smem_bytes(w.gs, p->mt);
   } else {
     p->mt = 0;
     p->bm = block_m(w.m);
-    gemm = p->bm == 4 ? (bf16 ? smem_bytes<__nv_bfloat16, 4>(w.bk, w.gs)
-                              : smem_bytes<float, 4>(w.bk, w.gs))
-                      : (bf16 ? smem_bytes<__nv_bfloat16, 16>(w.bk, w.gs)
-                              : smem_bytes<float, 16>(w.bk, w.gs));
+    gemm = p->bm == 4 ? smem_bytes<__nv_bfloat16, 4>(w.bk, w.gs)
+                      : smem_bytes<__nv_bfloat16, 16>(w.bk, w.gs);
   }
   p->slab = slab_rows(p->bm, gemm, p->units);
   const int epi = p->slab * slab_row_bytes(p->units) + 16;  // + the flag
@@ -507,7 +513,7 @@ Epi make_epilogue(const WireOut& o, const WireShape& w, const Plan& p) {
              w.bs, p.units, p.slab};
 }
 
-// The decode loop with the wire epilogue: one launch.
+// The bfloat16 decode loop with the wire epilogue: one launch.
 template <typename T, int BM, int BITS>
 cudaError_t launch_decode(const void* x, const void* qweight,
                           const void* scales, const void* zeros,
@@ -527,6 +533,26 @@ cudaError_t launch_decode(const void* x, const void* qweight,
   dequant_matmul_ordered_kernel<T, BM, Epi><<<grid, kThreads, p.smem,
                                               stream>>>(
       static_cast<const T*>(x), static_cast<const uint32_t*>(qweight),
+      static_cast<const float*>(scales), static_cast<const float*>(zeros),
+      nullptr, o.partial, w.m, w.n, w.k, w.gs, w.bk,
+      p.split.steps_per_split, make_epilogue<Epi>(o, w, p));
+  return cudaGetLastError();
+}
+
+// The float32 decode loop with the wire epilogue: one launch.
+template <int R4, bool kVec, int BITS>
+cudaError_t launch_decode_tc_wire(const void* x, const void* qweight,
+                                  const void* scales, const void* zeros,
+                                  const WireOut& o, const WireShape& w,
+                                  const Plan& p, cudaStream_t stream) {
+  using Epi = WireEpilogue<float, BITS, kThreads, 4 * R4>;
+  const cudaError_t err = decode_tc_opt_in<R4, kVec, Epi>(p.smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((w.n + kBlockN - 1) / kBlockN, (w.m + p.bm - 1) / p.bm,
+                  p.split.splits);
+  dequant_matmul_decode_tc_kernel<R4, kVec, Epi><<<grid, kThreads, p.smem,
+                                                   stream>>>(
+      static_cast<const float*>(x), static_cast<const uint32_t*>(qweight),
       static_cast<const float*>(scales), static_cast<const float*>(zeros),
       nullptr, o.partial, w.m, w.n, w.k, w.gs, w.bk,
       p.split.steps_per_split, make_epilogue<Epi>(o, w, p));
@@ -569,17 +595,23 @@ cudaError_t launch_bits(const void* x, const void* qweight,
                : launch_tc_wire<4, BITS>(x, qweight, scales, zeros, o, w, p,
                                          s);
   }
-  if (bf16) {
-    return p.bm == 4 ? launch_decode<__nv_bfloat16, 4, BITS>(
-                           x, qweight, scales, zeros, o, w, p, s)
-                     : launch_decode<__nv_bfloat16, 16, BITS>(
-                           x, qweight, scales, zeros, o, w, p, s);
+  if (!bf16) {
+    const bool vec = w.n % 4 == 0;
+    if (p.mt == 1) {
+      return vec ? launch_decode_tc_wire<1, true, BITS>(x, qweight, scales,
+                                                        zeros, o, w, p, s)
+                 : launch_decode_tc_wire<1, false, BITS>(x, qweight, scales,
+                                                         zeros, o, w, p, s);
+    }
+    return vec ? launch_decode_tc_wire<2, true, BITS>(x, qweight, scales,
+                                                      zeros, o, w, p, s)
+               : launch_decode_tc_wire<2, false, BITS>(x, qweight, scales,
+                                                       zeros, o, w, p, s);
   }
-  return p.bm == 4
-             ? launch_decode<float, 4, BITS>(x, qweight, scales, zeros, o, w,
-                                             p, s)
-             : launch_decode<float, 16, BITS>(x, qweight, scales, zeros, o, w,
-                                              p, s);
+  return p.bm == 4 ? launch_decode<__nv_bfloat16, 4, BITS>(
+                         x, qweight, scales, zeros, o, w, p, s)
+                   : launch_decode<__nv_bfloat16, 16, BITS>(
+                         x, qweight, scales, zeros, o, w, p, s);
 }
 
 // The plan of a call from the C arguments, or an error.
@@ -587,7 +619,9 @@ cudaError_t plan_of(int m, int n, int k, int group_size, int block_k,
                     int n_pad, int wire_block, int bits, int bf16,
                     WireShape* w, Plan* p) {
   *w = WireShape{m, n, k, group_size, block_k, n_pad, wire_block, bits};
-  if (!valid_wire(*w)) return cudaErrorInvalidValue;
+  if (!valid_wire(*w) || !takes_group(m, group_size, bf16 != 0)) {
+    return cudaErrorInvalidValue;
+  }
   return make_plan(*w, bf16 != 0, p);
 }
 

@@ -2,9 +2,11 @@
 ``repro/kernels/dequant_matmul.py``.
 
 * ``dequant_matmul_ordered`` (K1): the ordered-groups dequant-GEMM,
-  ``csrc/dequant_matmul_ordered.cu``: a decode loop on the CUDA cores,
-  and for float32 at ``M >= tensor_core_min_m()`` a loop on the tensor
-  cores (3xTF32 ``mma.sync``).
+  ``csrc/dequant_matmul_ordered.cu``: in float32 a decode loop on the
+  tensor cores (the exact integer weight ``q - z`` times x in two TF32
+  parts, each group's scale applied to that group's sum) and at
+  ``M >= tensor_core_min_m()`` a large-M loop (3xTF32 ``mma.sync``); in
+  bfloat16 a decode loop on the CUDA cores.
 * ``dequant_matmul_gidx`` (K4): the naive act-order dequant-GEMM, each row
   gathering its group through ``g_idx``, ``csrc/dequant_matmul_gidx.cu``:
   one launch a call, the whole metadata table read once per column tile,
@@ -50,6 +52,7 @@ ORDERED = build.Kernel("dequant_matmul_ordered", (
     ("dequant_matmul_smem_bytes", (_I,) * 5, _I),
     ("dequant_matmul_tensor_cores", (_I,) * 3, _I),
     ("dequant_matmul_tensor_core_min_m", (), _I),
+    ("dequant_matmul_takes_group", (_I,) * 3, _I),
     ("dequant_matmul_error_string", (_I,), _STR)))
 GIDX = build.Kernel("dequant_matmul_gidx", (
     ("dequant_matmul_gidx", (_P,) * 6 + (_I,) * 6 + (_P,), _I),
@@ -219,9 +222,11 @@ def dequant_matmul_ordered(
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (counted in ``dequant_matmul_ordered.launches``; those that take its
-    tensor-core loop, float32 at ``M >= tensor_core_min_m()`` with groups
-    of at least 4 rows, also in
-    ``dequant_matmul_ordered.tensor_core_launches``) or raise.
+    large-M tensor-core loop, float32 at ``M >= tensor_core_min_m()`` with
+    groups of at least 4 rows, also in
+    ``dequant_matmul_ordered.tensor_core_launches``) or raise, also for a
+    float32 call below that M whose group size the float32 decode loop
+    does not take (it takes multiples of 4 rows, at least 8).
     """
     if x.device.type == "cpu":
         return dequant_matmul_ordered_torch(
@@ -243,6 +248,7 @@ def dequant_matmul_ordered(
         return y
     lib = build.load(ORDERED)
     bf16 = _KERNEL_DTYPES[compute_dtype]
+    _check_group(lib, m, group_size, bf16)
     with torch.cuda.device(x.device):
         # the kernel splits K from the card's SM count (never on its
         # tensor-core loop); it says how much float32 scratch that takes
@@ -269,6 +275,16 @@ def dequant_matmul_ordered(
 
 dequant_matmul_ordered.launches = 0
 dequant_matmul_ordered.tensor_core_launches = 0
+
+
+def _check_group(lib, m: int, group_size: int, bf16: int):
+    """Raise where a float32 call would take the decode loop with a group
+    size it does not take."""
+    if not lib.dequant_matmul_takes_group(m, group_size, bf16):
+        raise ValueError(f"K1's float32 decode loop (M={m} < "
+                         f"{lib.dequant_matmul_tensor_core_min_m()}) takes "
+                         f"groups of a multiple of 4 rows, at least 8, got "
+                         f"group_size={group_size}")
 
 
 def tensor_core_min_m() -> int:
@@ -468,6 +484,8 @@ def dequant_matmul_wire_ordered(
     wzeros = torch.empty_like(wscales) if wire_bits == 4 else None
     if m == 0:
         return payload, wscales, wzeros
+    _check_group(build.load(ORDERED), m, group_size,
+                 _KERNEL_DTYPES[compute_dtype])
     lib = build.load(WIRE)
     shape = (m, n, k, group_size, bk, n_pad, wire_block, wire_bits,
              _KERNEL_DTYPES[compute_dtype])

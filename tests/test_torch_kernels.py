@@ -213,7 +213,10 @@ def test_cuda_kernel_matches_plain_version(dtype, tol):
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     edges = [(5, 256, 102, 64), (33, 608, 200, 76)]   # ragged M and N
-    full = [(4, 2560, 9728, 128), (4, 9728, 2560, 76)]  # qwen3-4b MLP
+    # qwen3-4b MLP at decode M, an EP data rank's 8 rows and 64 rows
+    full = [(m, k, n, gs) for k, n, gs in ((2560, 9728, 128),
+                                           (9728, 2560, 76))
+            for m in (4, 8, 64)]
     for m, k, n, gs in SHAPES + edges + full:
         w = torch.randn(k, n, generator=gen, device="cuda")
         ql = tqz.quantize(w, gs, generator=gen).ordered
@@ -228,6 +231,53 @@ def test_cuda_kernel_matches_plain_version(dtype, tol):
         err = (y.float() - ref.float()).abs().max().item()
         assert err <= tol * ref.float().abs().max().item() + 1e-4, \
             (m, k, n, gs, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_k1_rows_do_not_depend_on_the_batch(dtype):
+    """K1's sum order depends on N, K, the group size and the card, never
+    on M: at the full-width shapes the rows of calls at M 4, 8, 17, 64 and
+    255 (every M below the large-M loop's threshold takes the decode loop)
+    are bit-equal to the same rows run one at a time (M = 1)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    assert tdk.tensor_core_min_m() > 255
+    for k, n, gs in ((2560, 9728, 128), (9728, 2560, 76)):
+        ql = _cuda_quantized(gen, k, n, gs).ordered
+        args = (ql.qweight, ql.scales, ql.zeros)
+        x = torch.randn(255, k, generator=gen, device="cuda")
+        solo = torch.cat([tdk.dequant_matmul_ordered(
+            x[i:i + 1], *args, group_size=gs, compute_dtype=dtype)
+            for i in range(255)])
+        for m in (4, 8, 17, 64, 255):
+            assert torch.equal(tdk.dequant_matmul_ordered(
+                x[:m], *args, group_size=gs, compute_dtype=dtype),
+                solo[:m]), (k, n, m)
+
+
+@pytest.mark.gpu
+def test_cuda_decode_loop_refuses_a_group_size_it_does_not_take():
+    """K1's float32 decode loop takes groups of a multiple of 4 rows, at
+    least 8 (every configuration's): K1 and K3 raise on others in
+    float32, and bfloat16 takes them on its own loop."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for k, gs in ((80, 10), (64, 4)):
+        ql = _cuda_quantized(gen, k, 128, gs).ordered
+        x = torch.randn(4, k, generator=gen, device="cuda")
+        with pytest.raises(ValueError, match="multiple of 4 rows"):
+            ops.dequant_matmul(x, ql)
+        with pytest.raises(ValueError, match="multiple of 4 rows"):
+            ops.dequant_matmul_wire(x, ql, tp=2, wire_bits=8, wire_block=32)
+        y = ops.dequant_matmul(x, ql, compute_dtype=torch.bfloat16)
+        ref = tdk.dequant_matmul_ordered_torch(
+            x, ql.qweight, ql.scales, ql.zeros, group_size=gs,
+            compute_dtype=torch.bfloat16)
+        assert (y.float() - ref.float()).abs().max().item() <= \
+            1e-2 * ref.float().abs().max().item(), (k, gs)
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:
@@ -264,6 +314,135 @@ def test_3xtf32_split_holds_the_float32_tolerance(k, gs):
     err1 = (xb @ wb - want).abs().max().item()
     assert err3 <= limit, (err3, limit)
     assert err1 > 4 * limit, (err1, limit)
+
+
+def _split_of(n: int, k: int, bk: int, sms: int = 132) -> tuple:
+    """K1's K split (``choose_split`` in the kernel's header) on a card of
+    ``sms`` SMs: (K steps of bk a split, splits)."""
+    nsteps = k // bk
+    splits = min(max(-(-4 * sms // -(-n // 128)), 1), nsteps)
+    per = -(-nsteps // splits)
+    return per, -(-nsteps // per)
+
+
+def _round_to_zero(v: torch.Tensor) -> torch.Tensor:
+    """float64 to float32, rounded toward zero."""
+    r = v.float()
+    over = r.double().abs() > v.abs()
+    return torch.where(over, torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def _decode_loop_in_kernel_order(x, qweight, scales, zeros, gs,
+                                 big_only=False):
+    """The float32 decode loop's arithmetic, emulated: x in two TF32 parts
+    (big, then the remainder's TF32 rounding), each product with the exact
+    integer q - z exact; per K split of a 132-SM card, per 128-k stage,
+    each of the two 64-k chunks of a stage (a warp's) summed one 8-k step
+    at a time per group it touches, into a zeroed sum per x part that the
+    tensor cores round toward zero at every step; each such sum times the
+    group's scale added to the warp's float32 sum (a fused multiply-add);
+    then the two warps' big parts and their small parts added in order,
+    then the splits in order.  ``big_only``: x's big part alone."""
+    k, n = qweight.shape[0] * 8, qweight.shape[1]
+    qz = (qz_unpack(qweight).double()
+          - zeros.double().repeat_interleave(gs, 0))
+    sk = scales.double()
+    x = x.float()
+    xb = _tf32(x)
+    xs = torch.zeros_like(x) if big_only else _tf32(x - xb)
+    xb, xs = xb.double(), xs.double()
+    m = x.shape[0]
+    bk = tdk.pick_block_k(k, gs)
+    per, splits = _split_of(n, k, bk)
+    y = torch.zeros(m, n, dtype=torch.float32)
+    for z in range(splits):
+        kb = z * per * bk
+        ke = min(kb + per * bk, k)
+        warps = [[torch.zeros(m, n, dtype=torch.float32) for _ in range(2)]
+                 for _ in range(2)]              # [wk][big, small]
+        for k0 in range(kb, ke, 128):
+            for wk in range(2):
+                kc = k0 + 64 * wk
+                if kc >= ke:
+                    continue
+                for g in range(kc // gs, (min(kc + 64, ke) - 1) // gs + 1):
+                    parts = [torch.zeros(m, n, dtype=torch.float32)
+                             for _ in range(2)]
+                    for ks in range(kc, min(kc + 64, ke), 8):
+                        lo, hi = max(ks, g * gs), min(ks + 8, (g + 1) * gs)
+                        if lo >= hi:
+                            continue
+                        for p, xp in enumerate((xb, xs)):
+                            parts[p] = _round_to_zero(
+                                parts[p].double() + xp[:, lo:hi]
+                                @ qz[lo:hi])
+                    for p in range(2):
+                        warps[wk][p] = (warps[wk][p].double()
+                                        + sk[g] * parts[p].double()).float()
+        ysplit = torch.zeros(m, n, dtype=torch.float32)
+        for p in range(2):
+            for wk in range(2):
+                ysplit = ysplit + warps[wk][p]
+        y = y + ysplit
+    return y
+
+
+def qz_unpack(qweight: torch.Tensor) -> torch.Tensor:
+    from repro_torch.core import quantization as tqz
+
+    return tqz.unpack_int4(qweight)
+
+
+#: the full-width qwen3-4b up/gate and down projections (K, gs) at M 8,
+#: N 256
+FULL_TF32 = [(8, 2560, 256, 128), (8, 9728, 256, 76)]
+
+
+@pytest.mark.parametrize("m,k,n,gs", SHAPES + FULL_TF32)
+def test_decode_loop_tf32_form_holds_the_float32_tolerance(m, k, n, gs):
+    """The numeric design of K1's float32 decode loop, emulated on the CPU
+    in the kernel's order: x in two TF32 parts times the exact integer
+    q - z, each group's sum (per 8-k step into a zeroed sum per x part,
+    truncated as the tensor cores accumulate) times its scale.  Within
+    the float32 limit the kernel is held to (1e-5 * max|ref| + 1e-4) of
+    the JAX kernel (interpret mode) at the reference's shapes, and of the
+    plain version at the full-width up/gate and down projections (gs 76:
+    groups straddle packed words and chunks); x's big part alone lies
+    more than 4x above the limit there, which is why x is split."""
+    if (m, k, n, gs) in FULL_TF32:
+        from repro_torch.core import quantization as tqz
+
+        rng = np.random.default_rng(k + gs)
+        ql = tqz.quantize(torch.from_numpy(rng.standard_normal(
+            (k, n)).astype(np.float32)), gs,
+            generator=torch.Generator().manual_seed(k)).ordered
+        xt = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+        ref = tdk.dequant_matmul_ordered_torch(
+            xt, ql.qweight, ql.scales, ql.zeros, group_size=gs).numpy()
+    else:
+        import jax.numpy as jnp
+
+        from repro.kernels import dequant_matmul as jdk
+
+        jql = _ordered(m * 3 + k, k, n, gs)
+        x = np.random.default_rng(m + k).standard_normal((m, k)).astype(
+            np.float32)
+        ref = np.asarray(jdk.dequant_matmul_ordered(
+            jnp.asarray(x), jql.qweight, jql.scales, jql.zeros,
+            group_size=gs, compute_dtype=jnp.float32), np.float32)
+        ql = _port(jql)
+        xt = torch.from_numpy(x)
+    limit = 1e-5 * np.abs(ref).max() + 1e-4
+    got = _decode_loop_in_kernel_order(xt, ql.qweight, ql.scales, ql.zeros,
+                                       gs)
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    err = np.abs(got.numpy() - ref).max()
+    assert err <= limit, (err, limit)
+    if (m, k, n, gs) in FULL_TF32:
+        big = _decode_loop_in_kernel_order(xt, ql.qweight, ql.scales,
+                                           ql.zeros, gs, big_only=True)
+        err1 = np.abs(big.numpy() - ref).max()
+        assert err1 > 4 * limit, (err1, limit)
 
 
 @pytest.mark.gpu

@@ -588,8 +588,8 @@ def test_in_flight_witness(rank_runs):
 
 def test_split_rows_follows_the_kernel_loop():
     """The reference's split (the largest leading dim at half), kept only
-    where both halves take the whole call's loop (as K1's: the
-    tensor-core loop from 256 rows)."""
+    where both halves take the whole call's loop (as K1's: a large-M loop
+    from a threshold of rows, 256 here)."""
     def k1(m):
         return m >= 256
 
@@ -771,25 +771,29 @@ def test_cuda_overlap_pair_bit_equal_at_tp2():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m", [4, 300, 600])
-def test_cuda_halves_bit_equal_to_whole(m):
+@pytest.mark.parametrize("rows", ["decode", "straddle", "large"])
+def test_cuda_halves_bit_equal_to_whole(rows):
     """K1 and K3 (int8 and int4 wires) on a microbatch pair's halves
     against the whole call's rows, where the split rule splits (M 4 on
-    the decode loop, 600 on the tensor-core loop); at M 300 (whole on the
-    tensor-core loop, halves of 150 on the decode loop) it does not."""
+    the decode loop, 2 t + 88 on the large-M loop, which K1 takes from
+    t = ``tensor_core_min_m()`` rows); at M t + 44 (whole on the large-M
+    loop, halves on the decode loop) it does not."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from repro_torch.core.policy import ExecutionPolicy
     from repro_torch.core.quantization import quantize
+    from repro_torch.kernels import dequant_matmul as tdk
     from repro_torch.kernels import dispatch as kdispatch
 
+    t = tdk.tensor_core_min_m()
+    m = {"decode": 4, "straddle": t + 44, "large": 2 * t + 88}[rows]
     gen = torch.Generator(device="cuda").manual_seed(0)
     w = torch.randn(4864, 2560, device="cuda", generator=gen)
     ql = quantize(w, 76, generator=gen).ordered
     x = torch.randn(m, 4864, device="cuda", generator=gen)
     pol = ExecutionPolicy(backend="cuda")
     split = overlap.split_rows((m,), kdispatch.main_loop(ql, pol, x.device))
-    if m == 300:
+    if rows == "straddle":
         assert split is None
         return
     _, m0 = split

@@ -3,9 +3,10 @@
 
     python3 tools/k1_threshold.py          # from the repository root
 
-K1 (``src/repro_torch/csrc/dequant_matmul_ordered.cu``) has two main
-loops: the decode loop on the CUDA cores, and for float32 calls at
-``M >= kTcMinM`` (``dequant_matmul_ordered.cuh``) the tensor-core loop.
+K1 (``src/repro_torch/csrc/dequant_matmul_ordered.cu``) has two float32
+main loops: the decode loop (on the tensor cores), and for
+calls at ``M >= kTcMinM`` (``dequant_matmul_ordered.cuh``) the large-M
+tensor-core loop.
 This builds two copies of the source with that constant changed by text
 substitution, one that sends every float32 call to the decode loop and
 one that sends every call above M = 4 to the tensor-core loop, checks
@@ -14,11 +15,14 @@ replay: decode, tensor cores, tensor cores, decode) at the full-width
 qwen3-4b MLP shapes (up/gate: K 2560, N 9728, gs 128; down: K 9728,
 N 2560, gs 76) over a sweep of M.
 
-Prints, per M, both loops' ms at both shapes, and the smallest M of the
+Prints, per M, both loops' ms at both shapes, the smallest M of the
 sweep from which the tensor-core loop is faster at both shapes at every
-larger M of the sweep: the value ``kTcMinM`` should hold.  Then the
-card's name and power limit.  The numbers also go to
-``chiprun_out/k1_threshold.json``.
+larger M of the sweep, and the smallest from which it is faster per
+qwen3-4b layer (2 x up/gate + down) at every larger M: the value
+``kTcMinM`` holds (the float32 decode loop on the tensor cores wins at
+the up/gate shape at every M of the sweep but 1536).  Then each M's
+per-layer ms and the card's name and power limit.  The numbers also go
+to ``chiprun_out/k1_threshold.json``.
 """
 
 from __future__ import annotations
@@ -191,19 +195,37 @@ def main() -> int:
                   f"{row['tensor_cores_max_abs_err']:.3g}", flush=True)
     faster = {m: all(r["tensor_cores_ms"] < r["decode_ms"]
                      for r in rows if r["m"] == m) for m in SWEEP}
-    threshold = None
+
+    def layer(m, loop):
+        """One qwen3-4b layer's ms: up and gate (the first shape), down."""
+        up, down = (next(r[f"{loop}_ms"] for r in rows
+                         if r["m"] == m and r["shape"] == name)
+                    for name, *_ in SHAPES)
+        return 2 * up + down
+
+    faster_layer = {m: layer(m, "tensor_cores") < layer(m, "decode")
+                    for m in SWEEP}
+    threshold = layer_threshold = None
     for m in reversed(SWEEP):
         if not faster[m]:
             break
         threshold = m
+    for m in reversed(SWEEP):
+        if not faster_layer[m]:
+            break
+        layer_threshold = m
     print(f"smallest M of the sweep from which the tensor-core loop is "
-          f"faster at both shapes: {threshold} (the source holds "
+          f"faster at both shapes: {threshold}; per layer (2 x up/gate + "
+          f"down): {layer_threshold} (the source holds "
           f"{dk.tensor_core_min_m()})")
+    for m in SWEEP:
+        print(f"per layer M={m:5d}: decode loop {layer(m, 'decode'):.4f} ms, "
+              f"tensor cores {layer(m, 'tensor_cores'):.4f} ms")
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "k1_threshold.json"),
               "w") as f:
-        json.dump({"nvidia_smi": smi, "rows": rows, "threshold": threshold},
-                  f, indent=1)
+        json.dump({"nvidia_smi": smi, "rows": rows, "threshold": threshold,
+                   "layer_threshold": layer_threshold}, f, indent=1)
     print(f"nvidia-smi: {smi}")
     return 0
 
