@@ -91,7 +91,10 @@ Phases, one line each:
      through ``ops.dequantize`` (108 K5 launches), bit-equal to the plain
      dequantize
  14. serve-tp: full-width qwen3-4b at tp=2 with ``quant-int8:fused``, two
-     rank processes (``launch/mesh.py``; on one card: gloo via host), the
+     rank processes (``launch/mesh.py``'s group set-up; on one card: gloo
+     via host; started here, their start-up printed as ``rank-pool``,
+     and kept for the rank functions of phases 17, 19, 20, 26, 32 and
+     42, then stopped before phase 40), the
      same four requests, the decode step eager (no CUDA graph holds the
      gloo collectives); every decode step must launch K3 36 times and
      K1 72 times on each rank; then a few decode steps traced on rank 0
@@ -302,7 +305,10 @@ Phases, one line each:
      (rwkv6-3b's channel-mix pair 2560 -> 8960 -> 2560, ungated;
      recurrentgemma-2b's GeGLU 2560 -> 7680 -> 2560) against their plain
      versions at M 1, 4 and (K1) 64, and timed at M=4 against their bytes
-     bounds, per layer
+     bounds, per layer; for phase 42's tp=2 path, K1 at each rank's up
+     (and gate) shard (N 4480 and 3840) and K3 at its down shard (K 4480
+     and 3840, int8 wire: bit-equal to K1 + the quantizer, within one
+     level of its plain version), at M 1 and 4, timed at M=4
  38-39. serve rwkv6-3b (32 layers) and recurrentgemma-2b (26 layers), at
      full width and depth from seed 0: the four requests of phase 5
      through the continuous scheduler and the captured step (K1 64 and
@@ -351,6 +357,16 @@ Phases, one line each:
      the card over gloo, CT003 and CT004 on each family's smoke model):
      exit 0, no finding; its seconds beside those of phases 17, 26 and
      36's ``serve verify`` runs
+ 42. serve-tp-rec (run after phase 39): rwkv6-3b at 4 of 32 layers and
+     recurrentgemma-2b at 5 of 26 (one superblock and the two extra
+     RG-LRU layers: every layer kind) at full width and tp=2 with
+     quant-int8:fused on two rank processes over gloo via host, as phase
+     19: per rank and decode step K3 once a layer and K1 once per up (and
+     gate) weight (rwkv6 4 and 4, recurrentgemma 5 and 10), the ranks'
+     tokens equal, the fused ring bit-identical to the plain one, psum at
+     tp=2 held layer by layer to a tp=1 engine of the same cut config
+     and seed (``layerwise``), the greedy trace against it reported; the
+     eager tp=2 step's ms beside phases 38-39's captured tp=1 step
 
 then the per-kernel JSON line (after the first six: K2 on the long
 forward, the paged and HTTP serves' K1, K4 and K3 rows, the other
@@ -359,8 +375,9 @@ and O, K3 where phase 26's tuner fused the MLP, K3 and K1 on the
 ``:overlap`` paths of phases 27 and 28, then K1 on phase 29's serves
 and K1 and K4 on the MoE paths of phases 30-33, per expert, K1, K4
 and K2 on the audio and vision paths of phases 34-36, K1 and K4 on
-the recurrent paths of phases 38-39, and K2 at head dim 256 on
-recurrentgemma's flash forward), the total
+the recurrent paths of phases 38-39, K1 and K3 on their tp=2 paths of
+phase 42, and K2 at head dim 256 on recurrentgemma's flash forward),
+the total
 seconds
 and each phase's, the
 card's nvidia-smi line
@@ -379,7 +396,9 @@ import dataclasses
 import gc
 import json
 import math
+import multiprocessing
 import os
+import queue
 import re
 import shutil
 import statistics
@@ -387,6 +406,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -394,6 +414,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.comm import dispatch as comm  # noqa: E402
@@ -550,6 +571,13 @@ def mlp_shapes(cfg, tp: int = 1) -> list:
              ff // tp, d, gs_down)]
 
 
+def rec_tp_shapes(cfg) -> list:
+    """(name, K, N, gs) of one rank's MLP GEMMs at tp=``TP``: the up (and
+    gate) weight's column shard and the down weight's row shard."""
+    (name, d, ff, gs_up), down = mlp_shapes(cfg, TP)
+    return [(f"{name} tp={TP}", d, ff // TP, gs_up), down]
+
+
 def mlp_launches(cfg) -> int:
     """Dequant-GEMM launches of one decode step or forward: one for each
     MLP weight (up, gate where the MLP is gated, down) of every layer; in
@@ -668,6 +696,11 @@ REC_FORWARD_S = 64
 #: recurrentgemma's flash forward (phase 39): one sequence past its
 #: 2048-token window, so the window masks
 REC_FLASH_S = 4096
+#: phase 42 (the recurrent families at tp=2 over gloo): full width, the
+#: depth cut as phase 19 cuts its archs (the gloo step via the host
+#: dominates); recurrentgemma at one superblock and the two extra RG-LRU
+#: layers, so every layer kind runs
+REC_TP_LAYERS = {"rwkv6-3b": 4, "recurrentgemma-2b": 5}
 #: the collectives of the TP phases
 TP_SERVE = "quant-int8:fused"
 TP_PAIRS = (("quant-int8:fused", "quant-int8"),
@@ -996,6 +1029,46 @@ def _wire_values(p, s, z, bits, bs):
     return comm._blockwise_dequantize_int4(comm._unpack4_last(p), s, z, bs)
 
 
+def _wire_case(ql, x, shape, dtype) -> dict:
+    """K3 on one case (``shape``: k, n, gs, tp, bits, preferred block;
+    ``x`` its M rows) against K1 followed by the collective's quantizer
+    (bit-equal) and against its plain version (within one level beyond
+    the GEMM outputs' own difference); raises on a disagreement, else
+    returns the case's record."""
+    k, n, gs, tp, bits, blk = shape
+    n_pad, _, bs = wire_params(n, tp, bits, blk)
+    got = ops.dequant_matmul_wire(x, ql, tp=tp, wire_bits=bits,
+                                  wire_block=blk, compute_dtype=dtype)
+    y_k1 = ops.dequant_matmul(x, ql, compute_dtype=dtype)
+    unfused = dk.quantize_wire(y_k1, n_pad=n_pad, wire_block=bs,
+                               wire_bits=bits)
+    y_plain = dk.dequant_matmul_ordered_torch(
+        x, ql.qweight, ql.scales, ql.zeros, group_size=gs,
+        compute_dtype=dtype)
+    plain = dk.dequant_matmul_wire_ordered_torch(
+        x, ql.qweight, ql.scales, ql.zeros, group_size=gs, n_pad=n_pad,
+        wire_block=bs, wire_bits=bits, compute_dtype=dtype)
+    torch.cuda.synchronize()
+    equal = all((a is None and b is None) or torch.equal(a, b)
+                for a, b in zip(got, unfused))
+    vals, ref = (_wire_values(*t, bits, bs) for t in (got, plain))
+    step = torch.maximum(got[1], plain[1]).float().repeat_interleave(
+        bs, dim=-1)
+    diff = (vals - ref).abs()
+    gemm_gap = F.pad((y_k1.float() - y_plain.float()).abs(), (0, n_pad - n))
+    # an all-zero block's int8 scale is 0 in float16
+    levels = torch.where(diff == 0, 0.0, diff / step).max().item()
+    beyond = torch.where(diff <= gemm_gap, 0.0,
+                         (diff - gemm_gap) / step).max().item()
+    row = {"m": x.shape[0], "k": k, "n": n, "gs": gs, "tp": tp,
+           "bits": bits, "block": bs, "n_pad": n_pad, "dtype": str(dtype),
+           "bit_equal_to_k1": equal, "levels_from_plain": levels,
+           "levels_beyond_gemm_gap": beyond, "max_abs_err": diff.max().item()}
+    if not equal or not beyond <= 1.001:
+        raise AssertionError(f"dequant_matmul_wire_ordered disagrees: {row}")
+    return row
+
+
 def _check_wire(gen) -> dict:
     """K3 against K1 followed by the collective's quantizer (bit-equal:
     payload, scales, zeros) and against its plain version, whose
@@ -1011,50 +1084,14 @@ def _check_wire(gen) -> dict:
     for shape in WIRE_SWEEP:
         k, n, gs, tp, bits, blk = shape
         ql = _quantized(gen, k, n, gs).ordered
-        n_pad, _, bs = wire_params(n, tp, bits, blk)
         above = shape in WIRE_EDGES + WIRE_RANK
         for m in (1, 4, 64) + ((m_tc,) if above else ()):
             x = torch.randn(m, k, generator=gen, device="cuda")
             for dtype in TOL if m != m_tc else (torch.float32,):
-                got = ops.dequant_matmul_wire(x, ql, tp=tp, wire_bits=bits,
-                                              wire_block=blk,
-                                              compute_dtype=dtype)
-                y_k1 = ops.dequant_matmul(x, ql, compute_dtype=dtype)
-                unfused = dk.quantize_wire(y_k1, n_pad=n_pad, wire_block=bs,
-                                           wire_bits=bits)
-                y_plain = dk.dequant_matmul_ordered_torch(
-                    x, ql.qweight, ql.scales, ql.zeros, group_size=gs,
-                    compute_dtype=dtype)
-                plain = dk.dequant_matmul_wire_ordered_torch(
-                    x, ql.qweight, ql.scales, ql.zeros, group_size=gs,
-                    n_pad=n_pad, wire_block=bs, wire_bits=bits,
-                    compute_dtype=dtype)
-                torch.cuda.synchronize()
-                equal = all((a is None and b is None) or torch.equal(a, b)
-                            for a, b in zip(got, unfused))
-                vals, ref = (_wire_values(*t, bits, bs) for t in (got, plain))
-                step = torch.maximum(got[1], plain[1]).float(
-                    ).repeat_interleave(bs, dim=-1)
-                diff = (vals - ref).abs()
-                gemm_gap = F.pad((y_k1.float() - y_plain.float()).abs(),
-                                 (0, n_pad - n))
-                # an all-zero block's int8 scale is 0 in float16
-                levels = torch.where(diff == 0, 0.0, diff / step).max().item()
-                beyond = torch.where(diff <= gemm_gap, 0.0,
-                                     (diff - gemm_gap) / step).max().item()
-                err = diff.max().item()
-                rows.append({"m": m, "k": k, "n": n, "gs": gs, "tp": tp,
-                             "bits": bits, "block": bs, "n_pad": n_pad,
-                             "dtype": str(dtype), "bit_equal_to_k1": equal,
-                             "levels_from_plain": levels,
-                             "levels_beyond_gemm_gap": beyond,
-                             "max_abs_err": err})
-                if not equal or not beyond <= 1.001:
-                    raise AssertionError(f"dequant_matmul_wire_ordered "
-                                         f"disagrees: {rows[-1]}")
+                rows.append(_wire_case(ql, x, shape, dtype))
                 if (k, n, m, bits, dtype) == (DOWN_TP[1], DOWN_TP[2], 4, 8,
                                               torch.float32):
-                    main = err
+                    main = rows[-1]["max_abs_err"]
     worst = max(r["levels_from_plain"] for r in rows)
     beyond = max(r["levels_beyond_gemm_gap"] for r in rows)
     archs = {name: next(r["max_abs_err"] for r in rows if (
@@ -1761,7 +1798,9 @@ def _time_wire(gen, m: int = 4, shape=DOWN_TP) -> dict:
             n_pad=n_pad, wire_block=bs, wire_bits=bits), quants, reps=reps)
         plain_ms = _time(lambda qw, s, z: dk.dequant_matmul_wire_ordered_torch(
             x, qw, s, z, **kw), quants[:2], reps=10)
-        kernels = _kernel_launches(
+        # the kernel nodes of a captured call: late in the script the
+        # profiler has recorded no device event ten times in a row
+        work = _graph_work(
             lambda: dk.dequant_matmul_wire_ordered(x, *quants[0], **kw))
         out_bytes = m * n_pad * bits // 8 + m * (n_pad // bs) * 2 * (
             1 if bits == 8 else 2)
@@ -1769,7 +1808,7 @@ def _time_wire(gen, m: int = 4, shape=DOWN_TP) -> dict:
         bound, by = _bound(nbytes, 2 * m * k * n)
         res[f"int{bits}"] = {"m": m, "k": k, "n": n, "gs": gs, "tp": TP,
                              "block": bs, "n_pad": n_pad, "ms": ms,
-                             "device_kernels_per_call": sum(kernels.values()),
+                             "device_kernels_per_call": work.get("kernel", 0),
                              "plain_ms": plain_ms, "unfused_ms": unfused_ms,
                              "bytes": nbytes, "bound_ms": bound,
                              "bound_by": by, "weight_copies": len(quants)}
@@ -2143,33 +2182,67 @@ def _layer_folds(engine) -> list:
     return plans.get("layers.attn") or [None] * n
 
 
+def _layer_units(engine) -> list:
+    """The engine's layers in order, each as (a function of the carry
+    entering it that returns its float32 output before the cast to the
+    carry's dtype, whether the next layer takes that output cast): the
+    dense layers through each one's fold where the engine has one;
+    rwkv6's layers; recurrentgemma's recurrent layers and each
+    superblock's local attention with its MLP, rec2 and the attention
+    taking the previous layer's output uncast, as ``super_forward``
+    does."""
+    cfg, params = engine.model.cfg, engine.params
+    mod, policy, group = engine.model.module, engine.policy, engine.group
+    if cfg.family == "ssm":
+        return [(lambda x, lp=lp: mod.layer_forward(
+            cfg, lp, x, policy, group=group)[0], True)
+            for lp in params["layers"]]
+    if cfg.family == "hybrid":
+        def rec(lp, path):
+            return lambda x: mod.rec_layer_forward(cfg, lp, x, policy, path,
+                                                   group=group)[0]
+
+        def attn(ap):
+            return lambda x: mod._attn_mlp(
+                cfg, ap, x, cm.attention_forward(
+                    cfg, ap["attn"], cm.apply_norm(cfg, ap["ln1"], x),
+                    window=cfg.local_window, group=group, policy=policy),
+                policy, group)
+
+        units = []
+        for sp in mod.blocks(params["super"]):
+            units += [(rec(sp["rec1"], mod.REC1_PATH), False),
+                      (rec(sp["rec2"], mod.REC2_PATH), False),
+                      (attn(sp["attn"]), True)]
+        return units + [(rec(lp, mod.EXTRA_PATH), True)
+                        for lp in mod.blocks(params["extra"])]
+    return [(lambda x, lp=lp, vo=vo: mod.layer_forward(
+        cfg, lp, x, policy, group=group, vo=vo), True)
+        for lp, vo in zip(params["layers"], _layer_folds(engine))]
+
+
 @torch.inference_mode()
 def layer_trace(engine, tokens) -> tuple[list, list]:
     """``engine``'s full-sequence forward over ``tokens`` one layer at a
-    time: the carry entering each layer and each layer's float32 output
-    (``layer_forward``, through the layer's fold where the engine has
-    one, before the cast to the carry's dtype)."""
+    time (``_layer_units``): the carry entering each layer and each
+    layer's float32 output."""
     cfg, params = engine.model.cfg, engine.params
     x = cm.embed_tokens(cfg, params["embed"], tokens, group=engine.group)
+    dtype = x.dtype
     carries, outputs = [], []
-    for lp, vo in zip(params["layers"], _layer_folds(engine)):
+    for fn, cast in _layer_units(engine):
         carries.append(x)
-        y = engine.model.module.layer_forward(cfg, lp, x, engine.policy,
-                                              group=engine.group, vo=vo)
+        y = fn(x)
         outputs.append(y)
-        x = y.to(x.dtype)
+        x = y.to(dtype) if cast else y
     return carries, outputs
 
 
 @torch.inference_mode()
 def layer_outputs(engine, carries) -> list:
     """Each layer's float32 output on ``carries[l]`` entering layer l."""
-    cfg = engine.model.cfg
-    return [engine.model.module.layer_forward(cfg, lp, x.to(engine.device),
-                                              engine.policy,
-                                              group=engine.group, vo=vo)
-            for lp, vo, x in zip(engine.params["layers"],
-                                 _layer_folds(engine), carries)]
+    return [fn(x.to(engine.device))
+            for (fn, _), x in zip(_layer_units(engine), carries)]
 
 
 def layerwise(outs: list, refs: list, what: str) -> dict:
@@ -2609,6 +2682,120 @@ def phase_dequantize(engine) -> dict:
             "launches": counts["dequantize_ordered"]}
 
 
+def _pool_rank(process: int, tp: int, init_file: str, jobs, done,
+               out_dir: str) -> None:
+    """One process of ``RankPool``: join the group as ``mesh.run``'s ranks
+    do, report ready, then run each job ``(fn, args)`` from ``jobs`` as
+    ``fn(ctx, *args)`` (its result saved under ``out_dir``, its
+    traceback reported on failure) until a None."""
+    ctx = mesh.init_rank(process, tp, init_file, "cuda")
+    try:
+        done.put((process, None))
+        for fn, args in iter(jobs.get, None):
+            try:
+                torch.save(fn(ctx, *args),
+                           os.path.join(out_dir, f"rank{process}.pt"))
+                err = None
+            except BaseException:
+                err = traceback.format_exc()
+            gc.collect()
+            torch.cuda.empty_cache()
+            done.put((process, err))
+    finally:
+        dist.destroy_process_group()
+
+
+class RankPool:
+    """``TP`` rank processes on the card, started once and kept until
+    ``close``, that run the TP phases' rank functions in turn: each
+    joins the group as ``mesh.run``'s ranks do (``mesh.init_rank``: on
+    one card gloo via host), so a phase pays no rank start-up (a
+    ``mesh.run`` of two ranks cost its phase 15-60 s on the H100's
+    host).  ``run`` keeps ``mesh.run``'s contract: ``fn(ctx, *args)`` on
+    every rank, the results in rank order; a rank that raises, dies, or
+    outlasts ``timeout`` makes it raise, and stops the ranks.  Every
+    rank function resets the launch counts (and the peak memory) before
+    what it measures, as it would in a fresh process.  Phases 27-28's
+    rank function, whose check reads profiler windows, runs in fresh
+    processes (``mesh.run``): in a pool rank one of its traces lost a
+    GEMM event and showed a GEMM inside a synchronous all-to-all."""
+
+    def __init__(self, tp: int = TP):
+        self.tp = tp
+        self.procs: list = []
+
+    def start(self, timeout: float = 300.0) -> float:
+        """Start the ranks and wait until each has joined the group: the
+        seconds that took."""
+        t0 = time.perf_counter()
+        spawn = multiprocessing.get_context("spawn")
+        self.dir = tempfile.mkdtemp(prefix="tp-pool-")
+        self.jobs = [spawn.Queue() for _ in range(self.tp)]
+        self.done = spawn.Queue()
+        self.procs = [spawn.Process(
+            target=_pool_rank, args=(r, self.tp,
+                                     os.path.join(self.dir, "group"),
+                                     self.jobs[r], self.done, self.dir))
+            for r in range(self.tp)]
+        for p in self.procs:
+            p.start()
+        self._wait(timeout, "joining the group")
+        return time.perf_counter() - t0
+
+    def _wait(self, timeout: float, what: str) -> None:
+        deadline = time.monotonic() + timeout
+        left = set(range(self.tp))
+        try:
+            while left:
+                try:
+                    rank, err = self.done.get(timeout=1.0)
+                except queue.Empty:
+                    dead = [p.exitcode for p in self.procs
+                            if not p.is_alive()]
+                    if dead:
+                        raise RuntimeError(f"a pool rank exited (codes "
+                                           f"{dead}) while {what}")
+                    if time.monotonic() >= deadline:
+                        raise TimeoutError(f"{self.tp} pool ranks did not "
+                                           f"finish {what} within "
+                                           f"{timeout:.0f} s")
+                    continue
+                if err:
+                    raise RuntimeError(f"pool rank {rank}, {what}:\n{err}")
+                left.discard(rank)
+        except BaseException:
+            self.close()
+            raise
+
+    def run(self, fn, *args, timeout: float = 600.0) -> list:
+        if not self.procs:
+            self.start()
+        for q in self.jobs:
+            q.put((fn, args))
+        self._wait(timeout, fn.__name__)
+        return [torch.load(os.path.join(self.dir, f"rank{r}.pt"),
+                           weights_only=False) for r in range(self.tp)]
+
+    def close(self) -> None:
+        """Stop the ranks (a rank stuck in a collective is killed)."""
+        for q, p in zip(self.jobs if self.procs else [], self.procs):
+            if p.is_alive():
+                q.put(None)
+        for p in self.procs:
+            p.join(timeout=10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if self.procs:
+            shutil.rmtree(self.dir, ignore_errors=True)
+        self.procs = []
+
+
+#: the TP phases' two rank processes (``RankPool``), from phase 14 to
+#: phase 42
+POOL = RankPool()
+
+
 def _serve_tp_rank(ctx, cfg, greedy_tokens, greedy_plen, specs,
                    carries=None, paged: bool = False) -> dict:
     """One rank of phases 14 and 15 (and 19): build this rank's slices of
@@ -2713,9 +2900,9 @@ def phase_serve_tp(cfg, tp1_trace, pairs=TP_PAIRS, phase: str = "serve-tp",
     greedy_tokens, greedy_plen = _greedy_inputs(cfg)
     specs = [c for pair in pairs for c in pair] + ["psum"]
     torch.cuda.empty_cache()
-    ranks = mesh.run(_serve_tp_rank, TP, cfg, greedy_tokens, greedy_plen,
+    ranks = POOL.run(_serve_tp_rank, cfg, greedy_tokens, greedy_plen,
                      specs, tp1_layers and tp1_layers[0], paged,
-                     device_type="cuda", timeout=600)
+                     timeout=600)
     steps = ranks[0]["decode_steps"]
     k3_per, k1_per = cfg.num_layers, mlp_launches(cfg) - cfg.num_layers
     for r in ranks:
@@ -3126,9 +3313,8 @@ def phase_artifact_tp(cfg, serve_tp: dict | None, tp_traces: list | None,
                                  f"{cm.embed_specs(cfg, TP)}")
         torch.cuda.empty_cache()
         started = _verify_start(path) if verify else None
-        ranks = mesh.run(_artifact_tp_rank, TP, tcfg, path, greedy_tokens,
-                         greedy_plen, serve_tp is None, device_type="cuda",
-                         timeout=600)
+        ranks = POOL.run(_artifact_tp_rank, tcfg, path, greedy_tokens,
+                         greedy_plen, serve_tp is None, timeout=600)
         checked = (_verify_finish(started, phase, f"{describe(cfg)} tp=2 "
                                   f"{TP_SERVE}") if verify else None)
     finally:
@@ -4172,8 +4358,7 @@ def phase_fold_tp(tp1: tuple) -> dict:
                  for f in sorted(os.listdir(path))}
         planted = _planted_copy(path)
         started = (_verify_start(path), _verify_start(planted))
-        ranks = mesh.run(_fold_tp_rank, TP, cfg, path, tp1[0],
-                         device_type="cuda", timeout=600)
+        ranks = POOL.run(_fold_tp_rank, cfg, path, tp1[0], timeout=600)
         verify = {
             "clean": _verify_finish(started[0], "fold-tp",
                                     f"{describe(cfg)} tp=2 tuned fold"),
@@ -5298,8 +5483,7 @@ def phase_moe_tp(engine) -> dict:
     outputs = [o.cpu() for o in outputs]
     del ref
     t0 = time.perf_counter()
-    ranks = mesh.run(_moe_tp_rank, TP, cfg, carries, device_type="cuda",
-                     timeout=600)
+    ranks = POOL.run(_moe_tp_rank, cfg, carries, timeout=600)
     wall_s = time.perf_counter() - t0
     fused, plain = MOE_TP_PLANS[-1], MOE_TP_UNFUSED
     per = mlp_launches(cfg)
@@ -6010,9 +6194,48 @@ def _check_time_rec(gen) -> dict:
                    if r["m"] == 4 and r["dtype"] == str(torch.float32)
                    and (r["k"], r["n"]) in kn)
 
+    # the tp=2 path of phase 42: K1 at each rank's up (and gate) shard, K3
+    # at its down shard with the int8 wire
+    tp_shapes = {a: rec_tp_shapes(rec_config(a)) for a in REC_ARCHS}
+    ordered_tp = _check_gemm(
+        gen, f"dequant_matmul_ordered (recurrent tp={TP} up shards)",
+        [(m, k, n, gs) for a in REC_ARCHS for _, k, n, gs in tp_shapes[a][:1]
+         for m in (1, 4)], "ordered", kernel,
+        lambda x, ql, dt: dk.dequant_matmul_ordered_torch(
+            x, ql.qweight, ql.scales, ql.zeros, group_size=ql.group_size,
+            compute_dtype=dt), phase="kernels-rec")
+    wire = []
+    for a in REC_ARCHS:
+        _, k, n, gs = tp_shapes[a][1]
+        ql = _quantized(gen, k, n, gs).ordered
+        for m in (1, 4):
+            x = torch.randn(m, k, generator=gen, device="cuda")
+            wire += [dict(_wire_case(ql, x, (k, n, gs, TP, 8, 128), dtype),
+                          arch=a) for dtype in TOL]
+    line("kernels-rec", "dequant_matmul_wire_ordered at the recurrent "
+         f"tp={TP} down shards (K N gs: " + ", ".join(
+             "{} {} {}".format(*tp_shapes[a][1][1:]) for a in REC_ARCHS)
+         + f"; int8 wire, M 1/4, f32 and bf16): {len(wire)} cases bit-equal "
+         "to K1 + the collective's quantizer, at most {:.3g} quantization "
+         "levels beyond the GEMM outputs' own difference from the plain "
+         "version (tol 1)".format(
+             max(r["levels_beyond_gemm_gap"] for r in wire)))
+
+    def err_tp(a):
+        (_, k, n, _), (_, kd, nd, _) = tp_shapes[a]
+        f32 = str(torch.float32)
+        return {"K1": max(r["max_abs_err"] for r in ordered_tp["cases"]
+                          if (r["m"], r["k"], r["n"], r["dtype"]) ==
+                          (4, k, n, f32)),
+                "K3": max(r["max_abs_err"] for r in wire
+                          if (r["m"], r["k"], r["n"], r["dtype"]) ==
+                          (4, kd, nd, f32))}
+
     out = {"errs": {a: {"K1": err(ordered, a), "K4": err(gidx, a)}
                     for a in REC_ARCHS},
-           "check": {"ordered": ordered, "gidx": gidx}}
+           "errs_tp": {a: err_tp(a) for a in REC_ARCHS},
+           "check": {"ordered": ordered, "gidx": gidx,
+                     "ordered_tp": ordered_tp, "wire_tp": wire}}
     for a in REC_ARCHS:
         gated = rec_config(a).mlp_gated
         out[a] = {}
@@ -6032,6 +6255,27 @@ def _check_time_rec(gen) -> dict:
                     r["layer"]["ms"], r["layer"]["bound_ms"],
                     r["layer"]["plain_ms"]))
             torch.cuda.empty_cache()
+        (up, k, n, gs), down = tp_shapes[a]
+        r = _time_gemm(gen, "ordered", shapes=[tp_shapes[a][0]])[up]
+        # one rank's layer: the up (and gate) shard's K1 launches
+        n_up = 2 if gated else 1
+        r["layer"] = {key: n_up * r[key]
+                      for key in ("ms", "plain_ms", "bound_ms")}
+        r["layer"]["bound_by"] = r["bound_by"]
+        w = _time_wire(gen, shape=down)
+        out[a]["tp2"] = {"up": r, "wire": w}
+        w8 = w["int8"]
+        line("kernels-rec", f"f32 M=4 {a} tp={TP}, one rank, CUDA-graph "
+             f"replay: K1 up shard (K {k} N {n} gs {gs}) {r['ms']:.4f} ms "
+             f"(bound {r['bound_ms']:.4f} by {r['bound_by']}; plain "
+             f"{r['plain_ms']:.4f}), x{n_up} a layer; K3 down shard (K "
+             f"{down[1]} N {down[2]} gs {down[3]}) int8 {w8['ms']:.4f} ms in "
+             f"{w8['device_kernels_per_call']} device kernel(s) a call "
+             f"(bound {w8['bound_ms']:.4f} by {w8['bound_by']}: "
+             f"{w8['bytes'] / 1e6:.2f} MB; plain {w8['plain_ms']:.4f}; K1 "
+             f"+ plain quantizer {w8['unfused_ms']:.4f}), int4 "
+             f"{w['int4']['ms']:.4f} ms; K1 alone {w['k1_alone_ms']:.4f}")
+        torch.cuda.empty_cache()
     return out
 
 
@@ -6334,6 +6578,50 @@ def phase_serve_recurrent(arch: str) -> dict:
                          serve["steady_ms_per_step"]))
     del nengine
     torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_tp_rec(serve_rec: dict) -> dict:
+    """Phase 42 (``serve-tp-rec``): each of ``REC_ARCHS`` at full width and
+    tp=2 on two rank processes, depth cut to ``REC_TP_LAYERS`` (printed),
+    through ``phase_serve_tp`` as phase 19 runs the dense archs: per rank
+    and decode step K3 once per layer and K1 once per up (and gate)
+    weight, the fused int8 ring bit-identical to the plain one, the
+    ranks' tokens equal, psum at tp=2 held layer by layer to a tp=1
+    engine of the same cut config and seed (recurrentgemma's block kinds
+    follow its depth, so the full engine's first layers are not its
+    reference), the greedy trace against tp=1 reported; then the eager
+    tp=2 step's ms beside phases 38-39's captured tp=1 step."""
+    out = {}
+    for arch in REC_ARCHS:
+        full = rec_config(arch)
+        cfg = full.with_(num_layers=REC_TP_LAYERS[arch])
+        what = f"serve-tp-rec {arch}"
+        line(what, f"full width, depth cut from {full.num_layers} to "
+             f"{cfg.num_layers} layers (the gloo step via host dominates); "
+             f"the reference is a tp=1 engine of the same cut config and "
+             f"seed")
+        one = make_engine(cfg, 0, device="cuda", max_seq=32 + 16 + 1)
+        trace = greedy_reference(one, cfg)
+        carries, outputs = layer_trace(
+            one, torch.from_numpy(_greedy_inputs(cfg)[0]).cuda())
+        layers = ([c.cpu() for c in carries], [o.cpu() for o in outputs])
+        del one, carries, outputs
+        torch.cuda.empty_cache()
+        serve, cross, _ = phase_serve_tp(
+            cfg, trace, TP_PAIRS[:1], what, f"tp-crosscheck-rec {arch}",
+            layers)
+        tp1 = serve_rec[arch]["serve"]["steady_ms_per_step"]
+        line(what, "the eager tp={} step over {}: {} ms a step (ranks 0/1, "
+             "{} layers, the serve's mean) against phases 38-39's captured "
+             "tp=1 step at {} layers: {:.2f} ms (steady median)".format(
+                 TP, serve["transport"], "/".join(
+                     f"{ms:.1f}" for ms in serve["ms_per_step"]),
+                 cfg.num_layers, full.num_layers, tp1))
+        out[arch] = {"layers": cfg.num_layers,
+                     "full_layers": full.num_layers, "serve_tp": serve,
+                     "tp_crosscheck": cross,
+                     "tp1_full_depth_steady_ms_per_step": tp1}
     return out
 
 
@@ -6689,6 +6977,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     forward = phase_forward_flash(engine, cfg)
     materialize = phase_dequantize(engine)
+    pool_s = POOL.start()
+    line("rank-pool", f"{TP} rank processes over "
+         f"{mesh.transport(TP, 'cuda')} up in {pool_s:.1f}s (imports, CUDA, "
+         f"the group); the TP phases' rank functions run in them in turn")
     serve_tp, tp_cross, tp_traces = phase_serve_tp(
         cfg, greedy_reference(engine, cfg), paged=True)
     artifact = phase_artifact(cfg, memory_reference(engine, cfg, serve))
@@ -6728,6 +7020,8 @@ def main() -> int:
     fold_whisper = phase_fold_whisper()
     rec_kernels = _check_time_rec(gen)
     serve_rec = {a: phase_serve_recurrent(a) for a in REC_ARCHS}
+    serve_tp_rec = phase_serve_tp_rec(serve_rec)
+    POOL.close()                        # the trainer takes the whole card
     train = phase_train()
     analysis = phase_analysis({
         "artifact-tp (qwen3-4b tp=2)": artifact_tp["verify"],
@@ -6998,6 +7292,27 @@ def main() -> int:
                    sr["serve_naive"]["launches"], rk["errs"][a]["K4"],
                    rk[a]["naive"]["layer"]),
         ]
+    # the recurrent families at tp=2 (phase 42), one rank: K1 on its up
+    # (and gate) shards per layer, K3 on its down shard (int8 wire), each
+    # timed at M=4
+    for a in REC_ARCHS:
+        rk, st = rec_kernels, serve_tp_rec[a]
+        counts, n = st["serve_tp"]["counts"][0], st["layers"]
+        kernels += [
+            _entry(f"dequant_matmul_ordered ({a} tp=2, {n} layers; one "
+                   "rank's up shards per layer, M=4)",
+                   src + "dequant_matmul_ordered.cu",
+                   tpu + "dequant_matmul.py:104",
+                   counts["dequant_matmul_ordered"], rk["errs_tp"][a]["K1"],
+                   rk[a]["tp2"]["up"]["layer"]),
+            _entry(f"dequant_matmul_wire_ordered ({a} tp=2, {n} layers; "
+                   f"down shard K {rec_tp_shapes(rec_config(a))[1][1]}, "
+                   "int8 wire, M=4)",
+                   src + "dequant_matmul_wire_ordered.cu",
+                   tpu + "dequant_matmul.py:229",
+                   counts["dequant_matmul_wire_ordered"],
+                   rk["errs_tp"][a]["K3"], rk[a]["tp2"]["wire"]["int8"]),
+        ]
     # K2 at head dim 256 on recurrentgemma's flash forward (phase 39),
     # timed at its S 2048 shape in phase 4
     fr, rg = timing["flash_attention_rec"], serve_rec["recurrentgemma-2b"]
@@ -7031,6 +7346,8 @@ def main() -> int:
                    "serve_vision": serve_vision,
                    "fold_whisper": fold_whisper,
                    "kernels_rec": rec_kernels, "serve_recurrent": serve_rec,
+                   "serve_tp_recurrent": serve_tp_rec,
+                   "rank_pool_startup_s": pool_s,
                    "train": train, "analysis": analysis,
                    "kernels": kernels,
                    "phase_seconds": phase_seconds(),
@@ -7047,4 +7364,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        POOL.close()

@@ -269,6 +269,13 @@ def raw_psum(y: torch.Tensor, group) -> torch.Tensor:
     return y if axis_size(group) == 1 else _all_reduce(y, group)
 
 
+def raw_psum_scatter(y: torch.Tensor, group) -> torch.Tensor:
+    """Full-precision reduce-scatter outside the strategy registry: the
+    sum over ranks of ``y``, of which this rank keeps its tiled shard of
+    the last dim (recurrentgemma's row-split gate products)."""
+    return y if axis_size(group) == 1 else _reduce_scatter_last(y, group)
+
+
 def all_gather_cols(y: torch.Tensor, group) -> torch.Tensor:
     """Gather last-dim shards into the full tensor (the exllama scheme's
     Algorithm-2 gather, the column-sharded logits)."""
@@ -433,9 +440,7 @@ class _PsumScatter(CollectiveStrategy):
     scatters_output = True
 
     def apply(self, y, group, spec, policy):
-        if axis_size(group) == 1:
-            return y
-        return _reduce_scatter_last(y, group)
+        return raw_psum_scatter(y, group)
 
     def bytes_on_wire(self, shape, tp, spec):
         return _full_bytes(shape, _wire_dtype(spec)) * (tp - 1) / tp

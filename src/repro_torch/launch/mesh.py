@@ -111,6 +111,10 @@ def init_rank(process: int, tp: int, init_file: str,
     elif dist.get_rank(group) != rank:
         raise RuntimeError(f"process {process}: rank {dist.get_rank(group)} "
                            f"of its row, expected {rank}")
+    # every process holds its connections before any returns: one that
+    # raised early (a mismatched plan) and exited would otherwise fail
+    # another's set-up, and that error would hide its own
+    dist.barrier()
     return RankContext(rank=rank, tp=tp, group=group, device=device, dp=dp,
                        dp_rank=dp_rank, data_group=data_group)
 

@@ -53,9 +53,9 @@ one-shot lifecycle, and prepare-once / serve-many).
   names (``plan/artifact.py``).
 
 The recurrent families (``--arch rwkv6-3b``, ``recurrentgemma-2b``) are
-served by the continuous scheduler, as the dense ones, at tp=1:
-``--tp`` above 1, or a ``--mesh`` whose model axis is above 1, exits 1
-naming the ROADMAP line that records what they still need.
+served by the continuous scheduler, as the dense ones, at any ``--tp``
+that splits their heads (and under ``--mesh``, from ``prepare --tp``'s
+artifacts too); each rank steps its share of the recurrent state.
 
 The audio and vision families (``--arch whisper-large-v3``,
 ``llama-3.2-vision-90b``) are served in-process by the scheduler's
@@ -166,17 +166,6 @@ def _device(args) -> torch.device:
         raise SystemExit(f"error: {e}") from None
 
 
-def _refuse_recurrent_tp(arch: str, tp: int) -> None:
-    """Exit 1 for a recurrent family (rwkv6, recurrentgemma) above one
-    model-axis rank: the port serves them at tp=1."""
-    from repro_torch.models.rwkv6 import TP_ROADMAP
-
-    family = get_config(arch).family
-    if tp > 1 and family in ("hybrid", "ssm"):
-        raise SystemExit(f"error: {arch} ({family}) is served at tp=1 only; "
-                         f"tp={tp} is not ported ({TP_ROADMAP})")
-
-
 def prepare(argv=None) -> str:
     """Offline compile: write a ``DeploymentArtifact`` directory."""
     from repro_torch.plan import compiler
@@ -205,7 +194,6 @@ def prepare(argv=None) -> str:
     args = ap.parse_args(argv)
     if args.overlap_collectives and not args.autotune_collectives:
         ap.error("--overlap-collectives requires --autotune-collectives")
-    _refuse_recurrent_tp(args.arch, args.tp)
     device = _device(args)
     cfg = _build_cfg(args)
     policy = ExecutionPolicy.from_config(cfg, device=device).with_(
@@ -531,9 +519,6 @@ def main(argv=None):
     manifest = (DeploymentArtifact.load_manifest(args.artifact)
                 if args.artifact else None)
     plan_tp = manifest["tp"] if manifest else args.tp
-    _refuse_recurrent_tp(manifest["arch_id"] if manifest else args.arch,
-                         max(plan_tp or 1, args.tp or 1,
-                             args.mesh.tp if args.mesh is not None else 1))
     if args.mesh is not None:
         tp = plan_tp or args.mesh.tp
         if args.mesh.tp != tp:

@@ -9,7 +9,11 @@ None runs on one device).
 Tensor parallelism follows the reference's sharding (``*_specs``, which
 name the dim of each leaf that is split over the ranks) with GSPMD's
 implicit collectives written out: attention runs this rank's heads and
-closes its row-sharded output projection with a float32 all-reduce; the
+closes its row-sharded output projection with a float32 all-reduce
+(where the KV heads are fewer than the ranks, or do not divide them,
+``wk`` and ``wv`` are still split by columns, cutting a head: each rank
+gathers K's and V's columns before the head norm, RoPE and the cache
+write, and its cache holds every KV head); the
 vocab-sharded embedding closes with an all-reduce and the column-sharded
 ``lm_head`` with an all-gather of the logits (when the padded vocab does
 not divide the ranks, the embedding is split by ``d_model`` columns and
@@ -325,11 +329,66 @@ Q_CHUNK = 2048
 Q_CHUNK_MIN_SEQ = 8192
 
 
-def _local_heads(cfg: ModelConfig, p) -> tuple[int, int]:
+def kv_cut(cfg: ModelConfig, tp: int) -> bool:
+    """The ``tp`` ranks' columns of ``wk`` and ``wv`` cut a KV head: the
+    padded KV heads do not split whole over the ranks (recurrentgemma's
+    one over two).  Each rank then gathers K's and V's columns
+    (``_gather_kv``) and its cache holds every KV head."""
+    return head_grid(cfg)[0] % tp != 0
+
+
+def kv_heads_per_rank(cfg: ModelConfig, tp: int) -> int:
+    """KV heads a rank's K/V cache holds: its ``1/tp`` of the padded grid,
+    or all of them where a head is cut (``kv_cut``)."""
+    kvp, _, _ = head_grid(cfg)
+    return kvp if kv_cut(cfg, tp) else kvp // tp
+
+
+def require_whole_kv(cfg: ModelConfig, tp: int) -> None:
+    """Raise where ``tp`` ranks cut a KV head (``kv_cut``): for the
+    families whose cross K/V, written at prefill from each rank's own
+    ``wk``/``wv`` columns, hold whole heads (audio, vision)."""
+    if kv_cut(cfg, tp):
+        raise ValueError(f"{cfg.arch_id}: {head_grid(cfg)[0]} KV heads do "
+                         f"not split over tp={tp} ranks (the cross K/V "
+                         f"cache holds a rank's whole heads)")
+
+
+def _local_heads(cfg: ModelConfig, p, group) -> tuple[int, int]:
     """(query heads, KV heads) this rank holds: the whole padded grid on
-    one device, its ``1/tp`` under TP."""
+    one device, its ``1/tp`` under TP (all KV heads where a head is cut,
+    once ``_gather_kv`` has gathered them)."""
     hd = cfg.head_dim
-    return p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
+    kvh = (head_grid(cfg)[0] if kv_cut(cfg, comm.axis_size(group))
+           else p["wk"].shape[-1] // hd)
+    return p["wq"].shape[-1] // hd, kvh
+
+
+def _gather_kv(cfg: ModelConfig, k, v, group, vo=None):
+    """K and V (..., this rank's columns) whole: where the columns cut a
+    KV head, every rank gathers the others' (before the head norm and
+    RoPE, whose rotate-half pairs dim i with i + D/2 across the cut, and
+    before the cache write), so each holds all KV heads."""
+    tp = comm.axis_size(group)
+    if not kv_cut(cfg, tp):
+        return k, v
+    if vo is not None:
+        raise ValueError(f"{cfg.arch_id}: a V->O fold with KV heads cut "
+                         f"over tp={tp} ranks is not supported")
+    return comm.all_gather_cols(k, group), comm.all_gather_cols(v, group)
+
+
+def _rank_kv(cfg: ModelConfig, h: int, group, k, v):
+    """Of all KV heads ``k``, ``v`` (B, T, KVp, D) that a rank holds where
+    a head is cut, the one its ``h`` query heads attend to (query head j
+    pairs with KV head ``j // g``; ``attention_specs`` admits a cut only
+    where each rank's query heads lie within one KV head).  Where the
+    heads split whole, ``k`` and ``v`` are already this rank's."""
+    if not kv_cut(cfg, comm.axis_size(group)):
+        return k, v
+    _, gp, _ = head_grid(cfg)
+    kv = comm.axis_index(group) * h // gp
+    return k[:, :, kv:kv + 1], v[:, :, kv:kv + 1]
 
 
 def _vo_project_v(vo: PlannedPair, src, policy) -> torch.Tensor:
@@ -379,11 +438,12 @@ def attention_forward(cfg: ModelConfig, p, x, *, positions=None,
     b, s, _ = x.shape
     t = src.shape[1]
     hd = cfg.head_dim
-    h, kvh = _local_heads(cfg, p)
+    h, kvh = _local_heads(cfg, p, group)
     q = matmul(x, p["wq"]).reshape(b, s, h, hd)
-    k = matmul(src, p["wk"]).reshape(b, t, kvh, hd)
-    v = (_vo_project_v(vo, src, policy) if vo is not None
-         else matmul(src, p["wv"])).reshape(b, t, kvh, hd)
+    k, v = _gather_kv(cfg, matmul(src, p["wk"]),
+                      _vo_project_v(vo, src, policy) if vo is not None
+                      else matmul(src, p["wv"]), group, vo)
+    k, v = k.reshape(b, t, kvh, hd), v.reshape(b, t, kvh, hd)
     if cfg.qk_norm:
         q = rms_head_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_head_norm(k, p["k_norm"], cfg.norm_eps)
@@ -392,6 +452,7 @@ def attention_forward(cfg: ModelConfig, p, x, *, positions=None,
             positions = torch.arange(s, device=x.device)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+    k, v = _rank_kv(cfg, h, group, k, v)
     if attn_backend == "flash" and not cross:
         return _out_proj(p, _flash_sdpa(q, k, v, causal=causal,
                                         window=window), group, vo, policy,
@@ -450,13 +511,14 @@ def attention_decode(cfg: ModelConfig, p, x, cache, pos, *, window=None,
     """
     b = x.shape[0]
     hd = cfg.head_dim
-    h, kvh = _local_heads(cfg, p)
+    h, kvh = _local_heads(cfg, p, group)
     per_slot = torch.is_tensor(pos) and pos.dim() == 1
 
     q = matmul(x, p["wq"]).reshape(b, 1, h, hd)
-    k = matmul(x, p["wk"]).reshape(b, 1, kvh, hd)
-    v = (_vo_project_v(vo, x, policy) if vo is not None
-         else matmul(x, p["wv"])).reshape(b, 1, kvh, hd)
+    k, v = _gather_kv(cfg, matmul(x, p["wk"]),
+                      _vo_project_v(vo, x, policy) if vo is not None
+                      else matmul(x, p["wv"]), group, vo)
+    k, v = k.reshape(b, 1, kvh, hd), v.reshape(b, 1, kvh, hd)
     if cfg.qk_norm:
         q = rms_head_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_head_norm(k, p["k_norm"], cfg.norm_eps)
@@ -486,6 +548,7 @@ def attention_decode(cfg: ModelConfig, p, x, cache, pos, *, window=None,
         kk, vv = paged_pool.gather(cache, pages, cap)   # (B, cap, KV, D)
         valid = torch.arange(cap, device=x.device)[None, :] <= pos[:, None]
         mask = valid[:, None, :].expand(b, 1, cap)
+        kk, vv = _rank_kv(cfg, h, group, kk, vv)
         out = row_stable(_sdpa_decode, q, kk.to(x.dtype), vv.to(x.dtype),
                          mask)
         return _out_proj(p, out, group, vo, policy, x.dtype), cache
@@ -509,6 +572,7 @@ def attention_decode(cfg: ModelConfig, p, x, cache, pos, *, window=None,
         # ring buffer: once pos >= cap every slot holds a live position
         valid = valid | (pb >= cap)
     mask = valid[:, None, :].expand(b, 1, cap)
+    ck, cv = _rank_kv(cfg, h, group, ck, cv)
     out = row_stable(_sdpa_decode, q, ck.to(x.dtype), cv.to(x.dtype), mask)
     return _out_proj(p, out, group, vo, policy, x.dtype), cache
 
@@ -521,7 +585,7 @@ def cross_attention_decode(cfg: ModelConfig, p, x, k, v, *, group=None):
     this rank's rows and the product closes with the all-reduce that
     closes self-attention.  Returns (B, 1, d)."""
     b = x.shape[0]
-    h, _ = _local_heads(cfg, p)
+    h, _ = _local_heads(cfg, p, group)
     q = matmul(x, p["wq"]).reshape(b, 1, h, cfg.head_dim)
     # a fill on the card, not a host tensor: a CUDA graph can hold it
     mask = torch.ones((b, 1, k.shape[1]), dtype=torch.bool, device=x.device)
@@ -533,10 +597,11 @@ def init_kv_cache(cfg: ModelConfig, num_layers: int, batch: int,
                   seq_len: int, *, window=None, dtype=torch.bfloat16,
                   device=None, tp: int = 1) -> dict:
     """Layer-stacked dense cache of this rank's KV heads:
-    {"k", "v": (L, B, C, KVp / tp, D)}."""
+    {"k", "v": (L, B, C, KVp / tp, D)} (all KVp where a head is cut,
+    ``kv_heads_per_rank``)."""
     cap = min(seq_len, window) if window else seq_len
-    kvp, _, _ = head_grid(cfg)
-    shape = (num_layers, batch, cap, kvp // tp, cfg.head_dim)
+    shape = (num_layers, batch, cap, kv_heads_per_rank(cfg, tp),
+             cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -546,13 +611,12 @@ def init_paged_kv_cache(cfg: ModelConfig, num_layers: int, n_pages: int,
                         device=None, tp: int = 1) -> dict:
     """Layer-stacked page pool of this rank's KV heads, replacing
     ``init_kv_cache``'s dense rows: leaves (L, N_pages, page_size,
-    KVp / tp, D) — see ``cache/paged.py``."""
+    KVp / tp, D) (all KVp where a head is cut) — see ``cache/paged.py``."""
     from repro_torch.cache import paged as paged_pool
 
-    kvp, _, _ = head_grid(cfg)
-    return paged_pool.init_pool((num_layers,), n_pages, page_size, kvp // tp,
-                                cfg.head_dim, dtype=dtype, bits=bits,
-                                device=device)
+    return paged_pool.init_pool((num_layers,), n_pages, page_size,
+                                kv_heads_per_rank(cfg, tp), cfg.head_dim,
+                                dtype=dtype, bits=bits, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -661,12 +725,21 @@ def norm_specs(p: dict) -> dict:
 
 
 def attention_specs(cfg: ModelConfig, p: dict, tp: int) -> dict:
-    """Q/K/V split by columns (whole heads), the output projection by
-    rows; the qk norms replicated."""
+    """The reference's ``attention_specs``: Q/K/V split by columns, the
+    output projection by rows, the qk norms replicated.  Query heads
+    split whole; K and V split by columns even where that cuts a KV head
+    (fewer KV heads than ranks), which the forward gathers back
+    (``_gather_kv``).  A cut is served only where each rank's query heads
+    lie within one KV head (the ranks a multiple of the KV heads)."""
     kvp, _, hp = head_grid(cfg)
-    if hp % tp or kvp % tp:
-        raise ValueError(f"{cfg.arch_id}: {hp} query and {kvp} KV heads "
-                         f"do not split over tp={tp} ranks")
+    if hp % tp:
+        raise ValueError(f"{cfg.arch_id}: {hp} query heads do not split "
+                         f"over tp={tp} ranks")
+    if kv_cut(cfg, tp) and tp % kvp:
+        raise ValueError(f"{cfg.arch_id}: {kvp} KV heads over tp={tp} ranks "
+                         f"give a rank query heads of two KV heads, the "
+                         f"second cut; the grouped attention cannot pair "
+                         f"them")
     spec = {"wq": 1, "wk": 1, "wv": 1, "wo": 0}
     return {k: spec.get(k) for k in p}
 

@@ -34,8 +34,18 @@ local attention's K/V ring in the cache dtype; every leaf is written in
 place, so a captured step keeps its addresses.  Every library product
 of a decode step runs through ``cm.row_stable``.
 
-Tensor parallelism is not ported for this family: the reference shards
-``w_rgate`` and ``w_igate`` by rows (``rwkv6.tp_refusal``).
+Under tensor parallelism (``group``) a recurrent block runs on the
+rank's ``W / tp`` LRU channels (the reference's split: ``w_x``,
+``w_gate`` and ``conv_w`` by columns, ``lam`` by its one dim): the conv
+is depthwise and the recurrence elementwise, so they need no
+collective; ``w_rgate`` and ``w_igate`` are split by rows, so the
+rank's products are partial sums of the whole gates, which a
+reduce-scatter sums, leaving the rank its channels; ``w_out``'s partial
+sums close with a float32 all-reduce.  The per-rank state is conv
+``(n, B, CW - 1, W / tp)`` and LRU ``(n, B, W / tp)``.  The local
+attention (one KV head at full width) splits ``wk`` and ``wv`` by
+columns, cutting the head: each rank gathers K's and V's columns and
+its ring holds the whole head (``cm.kv_heads_per_rank``).
 """
 
 from __future__ import annotations
@@ -45,11 +55,11 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.comm import dispatch as comm
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.policy import ExecutionPolicy
 from repro_torch.device import new_generator
 from repro_torch.models import common as cm
-from repro_torch.models.rwkv6 import tp_refusal
 from repro_torch.train.checkpoint import map_tensors
 
 _C = 8.0  # RG-LRU decay sharpness constant (Griffin paper)
@@ -125,19 +135,26 @@ def _rg_lru(h, r_gate, i_gate, lam, state=None):
     return torch.stack(outs, dim=1), cur
 
 
-def rec_block_forward(cfg: ModelConfig, p, x, state=None):
+def rec_block_forward(cfg: ModelConfig, p, x, state=None, group=None):
     """x: (B, S, d); ``state``: {"conv": (B, CW-1, W), "lru": (B, W)} or
-    None.  Returns (y float32, the new state)."""
+    None.  Returns (y float32, the new state).  Under TP (``group``) W is
+    the rank's ``W / tp`` channels: the gates' partial sums are
+    reduce-scattered to them, and y closes with an all-reduce."""
     xb = cm.matmul(x, p["w_x"])
     gate = F.gelu(cm.matmul(x, p["w_gate"]), approximate="tanh")
     xb, new_conv = _causal_conv(xb, p["conv_w"],
                                 None if state is None else state["conv"])
     r_gate = cm.matmul(xb, p["w_rgate"])
     i_gate = cm.matmul(xb, p["w_igate"])
+    if group is not None:
+        # (B, S, 2, W) partial sums -> the whole gates' (B, S, 2, W / tp)
+        r_gate, i_gate = comm.raw_psum_scatter(
+            torch.stack([r_gate, i_gate], dim=-2), group).unbind(-2)
     h, new_lru = _rg_lru(xb.float(), r_gate.float(), i_gate.float(),
                          p["lam"], None if state is None else state["lru"])
     h = h.to(x.dtype) * gate
-    return cm.matmul(h, p["w_out"]), {"conv": new_conv, "lru": new_lru}
+    return (comm.raw_psum(cm.matmul(h, p["w_out"]), group),
+            {"conv": new_conv, "lru": new_lru})
 
 
 # ---------------------------------------------------------------------------
@@ -202,10 +219,9 @@ def piece_specs(cfg: ModelConfig, key: str, node, tp: int, lead: int = 0):
     """The reference's TP split of one piece (``"embed"``, a superblock
     ``"super"``, an ``"extra"`` layer, ``"final_norm"``): ``w_x`` and
     ``w_gate`` by columns, ``w_out``, ``w_rgate`` and ``w_igate`` by rows,
-    attention and the MLP pairs as in every family; each dim after
-    ``lead`` stacked dims.  The port serves the family at tp=1 only (the
-    specs are the manifest's record); a larger ``tp`` raises."""
-    tp_refusal(cfg, tp)
+    attention (``wk`` and ``wv`` by columns within the one KV head) and
+    the MLP pairs as in every family; each dim after ``lead`` stacked
+    dims."""
     if key == "embed":
         return cm.embed_specs(cfg, tp)
     if key == "super":
@@ -243,7 +259,7 @@ def rec_layer_forward(cfg: ModelConfig, lp, x, policy: ExecutionPolicy,
     ``path``), each on the pre-normed residual.  Returns (the result, not
     cast, and the block's new state)."""
     h, ns = rec_block_forward(cfg, lp["rec"], cm.apply_norm(cfg, lp["ln1"], x),
-                              state)
+                              state, group=group)
     y = x + h
     return y + cm.mlp_forward(cfg, lp["mlp"], cm.apply_norm(cfg, lp["ln2"], y),
                               policy, group=group, path=path), ns
@@ -289,8 +305,9 @@ def forward(cfg: ModelConfig, params, batch: dict, policy: ExecutionPolicy,
     return cm.lm_head(cfg, params["embed"], x, group=group)
 
 
-def _rec_state(cfg: ModelConfig, n: int, batch: int, device) -> dict:
-    w = cfg.lru_width
+def _rec_state(cfg: ModelConfig, n: int, batch: int, device,
+               tp: int) -> dict:
+    w = cfg.lru_width // tp
     return {"conv": torch.zeros((n, batch, cfg.conv_width - 1, w),
                                 dtype=torch.float32, device=device),
             "lru": torch.zeros((n, batch, w), dtype=torch.float32,
@@ -300,16 +317,16 @@ def _rec_state(cfg: ModelConfig, n: int, batch: int, device) -> dict:
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *, window=None,
                dtype=torch.bfloat16, device=None, tp: int = 1) -> dict:
     """The fixed-size decode state of ``batch`` slots: each recurrent
-    layer's conv history and LRU state, each superblock's local K/V ring
-    of ``min(seq_len, local_window)`` rows in ``dtype``."""
-    tp_refusal(cfg, tp)
+    layer's conv history and LRU state (this rank's ``W / tp`` channels),
+    each superblock's local K/V ring of ``min(seq_len, local_window)``
+    rows in ``dtype`` (the whole KV head on every rank)."""
     ns, nx = _n_super(cfg)
-    return {"rec1": _rec_state(cfg, ns, batch, device),
-            "rec2": _rec_state(cfg, ns, batch, device),
+    return {"rec1": _rec_state(cfg, ns, batch, device, tp),
+            "rec2": _rec_state(cfg, ns, batch, device, tp),
             "attn": cm.init_kv_cache(cfg, ns, batch, seq_len,
                                      window=cfg.local_window, dtype=dtype,
-                                     device=device),
-            "extra": _rec_state(cfg, nx, batch, device) if nx else None}
+                                     device=device, tp=tp),
+            "extra": _rec_state(cfg, nx, batch, device, tp) if nx else None}
 
 
 def _layer_state(cache: dict, i: int) -> dict:

@@ -27,8 +27,16 @@ projections, the ddlerp's LoRA product, the wkv readout, the group norm,
 the head) runs through ``cm.row_stable``, so a row's bits do not depend
 on its company in the batch.
 
-Tensor parallelism is not ported for this family: the reference shards
-the wkv state over dk (``tp_refusal``).
+Under tensor parallelism (``group``) each rank owns the heads of its
+column block of ``w_r``, ``w_k``, ``w_v`` and ``w_g`` (the reference's
+split): it slices the replicated decay, bonus and group-norm scale to
+those columns, steps its heads' recurrence on its own (a head's state
+never leaves its rank) and closes ``w_o``'s partial sums with a float32
+all-reduce; the channel-mix pair runs the paper's schemes.  Its wkv
+state is ``(L, B, H / tp, dk, dv)``: whole heads.  The reference's
+``cache_specs`` places the state split over dk instead (40 heads do not
+split 16 ways); that places state on devices and does not change the
+function.  A ``tp`` that does not divide the heads raises.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.comm import dispatch as comm
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.policy import ExecutionPolicy
 from repro_torch.models import common as cm
@@ -52,17 +61,15 @@ MLP_PATH = "layers.cm.pair"
 #: leading dims each stacks (``interop``, the artifact's layout)
 LAYER_STACKS = {"layers": 1}
 
-#: where the port records what tensor parallelism of the recurrent
-#: families still needs
-TP_ROADMAP = "ROADMAP.md queue 1, item 9: tp > 1 of the recurrent families"
 
-
-def tp_refusal(cfg: ModelConfig, tp: int) -> None:
-    """Raise for ``tp > 1``: the port serves the recurrent families on
-    one rank."""
-    if tp > 1:
-        raise ValueError(f"{cfg.arch_id} ({cfg.family}) is served at tp=1 "
-                         f"only; tp={tp} is not ported ({TP_ROADMAP})")
+def check_heads(cfg: ModelConfig, tp: int) -> None:
+    """Raise unless the time-mix heads split whole over ``tp`` ranks: a
+    rank's column block would otherwise cut a head, whose state and
+    group norm span all its channels."""
+    h = cfg.d_model // cfg.rwkv_head_dim
+    if h % tp:
+        raise ValueError(f"{cfg.arch_id}: {h} time-mix heads do not split "
+                         f"over tp={tp} ranks")
 
 
 def _shifted(prev: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -132,13 +139,18 @@ def _group_norm(o: torch.Tensor) -> torch.Tensor:
     return (o - mu) * torch.rsqrt(var + 1e-5)
 
 
-def time_mix_forward(cfg: ModelConfig, p, x, state=None):
+def time_mix_forward(cfg: ModelConfig, p, x, state=None, group=None):
     """x: (B, S, d); ``state``: {"shift": (B, d), "wkv": (B, H, dk, dv)}
     or None (zeros).  Returns (y (B, S, d) float32, the new state); the
-    wkv recurrence steps the S tokens in order."""
+    wkv recurrence steps the S tokens in order.  Under TP (``group``)
+    the rank's heads only (H / tp, its columns of r, k, v, g), and y
+    closes with an all-reduce of ``w_o``'s rows."""
     b, s, d = x.shape
     hd = cfg.rwkv_head_dim
-    h = d // hd
+    dl = p["w_r"].shape[-1]                 # this rank's columns
+    h = dl // hd
+    lo = comm.axis_index(group) * dl
+    cols = slice(lo, lo + dl)
     prev = state["shift"] if state is not None else x.new_zeros((b, d))
     xx = _shifted(prev, x)
     m = _ddlerp(p, x, xx)
@@ -147,10 +159,10 @@ def time_mix_forward(cfg: ModelConfig, p, x, state=None):
     k = cm.matmul(m["k"], p["w_k"]).reshape(b, s, h, hd)
     v = cm.matmul(m["v"], p["w_v"]).reshape(b, s, h, hd)
     g = F.silu(cm.matmul(m["g"], p["w_g"]))
-    decay = p["decay_base"] + cm.matmul(
-        torch.tanh(cm.matmul(m["w"], p["decay_w1"])), p["decay_w2"])
+    decay = p["decay_base"][cols] + cm.matmul(
+        torch.tanh(cm.matmul(m["w"], p["decay_w1"])), p["decay_w2"][:, cols])
     w = torch.exp(-torch.exp(decay.float())).reshape(b, s, h, hd)
-    u = p["bonus_u"].reshape(h, hd).float()
+    u = p["bonus_u"][cols].reshape(h, hd).float()
 
     cur = (state["wkv"] if state is not None
            else torch.zeros((b, h, hd, hd), dtype=torch.float32,
@@ -161,9 +173,11 @@ def time_mix_forward(cfg: ModelConfig, p, x, state=None):
                                  v[:, t].float(), w[:, t], u))
         outs.append(o)
     out = torch.stack(outs, dim=1).reshape(b * s, h, hd)
-    out = cm.row_stable(_group_norm, out).reshape(b, s, d) * p["ln_scale"]
+    out = cm.row_stable(_group_norm, out).reshape(b, s, dl) * \
+        p["ln_scale"][cols]
     out = out.to(x.dtype) * g
-    return cm.matmul(out, p["w_o"]), {"shift": x[:, -1], "wkv": cur}
+    return (comm.raw_psum(cm.matmul(out, p["w_o"]), group),
+            {"shift": x[:, -1], "wkv": cur})
 
 
 # ---------------------------------------------------------------------------
@@ -227,10 +241,9 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
 def piece_specs(cfg: ModelConfig, key: str, node, tp: int):
     """The reference's TP split of one piece (``"embed"``, one of
     ``"layers"``, ``"final_norm"``): the time-mix's r, k, v, g by columns
-    and its output by rows, the channel-mix pair as every MLP pair.  The
-    port serves the family at tp=1 only (the specs are the manifest's
-    record); a larger ``tp`` raises."""
-    tp_refusal(cfg, tp)
+    and its output by rows, the channel-mix pair as every MLP pair; a
+    ``tp`` that does not divide the time-mix heads raises."""
+    check_heads(cfg, tp)
     if key == "embed":
         return cm.embed_specs(cfg, tp)
     if key == "layers":
@@ -261,7 +274,7 @@ def layer_forward(cfg: ModelConfig, lp, x, policy: ExecutionPolicy, *,
     tm_state = None if state is None else {"shift": state["shift"],
                                            "wkv": state["wkv"]}
     h, tm = time_mix_forward(cfg, lp["tm"], cm.apply_norm(cfg, lp["ln1"], x),
-                             tm_state)
+                             tm_state, group=group)
     y = x + h
     h, cs = channel_mix_forward(cfg, lp["cm"],
                                 cm.apply_norm(cfg, lp["ln2"], y), policy,
@@ -285,16 +298,17 @@ def forward(cfg: ModelConfig, params, batch: dict, policy: ExecutionPolicy,
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *, window=None,
                dtype=torch.bfloat16, device=None, tp: int = 1) -> dict:
     """The fixed-size decode state of ``batch`` slots (``seq_len`` and
-    ``window`` unused: there is no KV sequence)."""
-    tp_refusal(cfg, tp)
+    ``window`` unused: there is no KV sequence); ``wkv`` of this rank's
+    ``H / tp`` heads."""
+    check_heads(cfg, tp)
     d, hd, n = cfg.d_model, cfg.rwkv_head_dim, cfg.num_layers
     # the layer's normed input: the carry's dtype
     shift = torch.promote_types(dtype, torch.bfloat16 if cfg.dtype ==
                                 "bfloat16" else torch.float32)
     return {
         "tm_shift": torch.zeros((n, batch, d), dtype=shift, device=device),
-        "wkv": torch.zeros((n, batch, d // hd, hd, hd), dtype=torch.float32,
-                           device=device),
+        "wkv": torch.zeros((n, batch, d // hd // tp, hd, hd),
+                           dtype=torch.float32, device=device),
         "cm_shift": torch.zeros((n, batch, d), dtype=torch.float32,
                                 device=device),
     }

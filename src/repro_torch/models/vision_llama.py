@@ -113,6 +113,7 @@ def piece_specs(cfg: ModelConfig, key: str, node, tp: int):
     if key == "embed":
         return cm.embed_specs(cfg, tp)
     if key in (SELF_KEY, CROSS_KEY):
+        cm.require_whole_kv(cfg, tp)
         return {k: (cm.attention_specs(cfg, v, tp) if k in ("attn", "xattn")
                     else cm.mlp_specs(v) if k == "mlp"
                     else None if k.startswith("gate_")

@@ -122,6 +122,7 @@ def piece_specs(cfg: ModelConfig, key: str, node, tp: int):
     if key == "embed":
         return cm.embed_specs(cfg, tp)
     if key in LAYER_STACKS:
+        cm.require_whole_kv(cfg, tp)
         return {k: (cm.attention_specs(cfg, v, tp) if k in ("attn", "xattn")
                     else cm.mlp_specs(v) if k == "mlp"
                     else cm.norm_specs(v)) for k, v in node.items()}

@@ -22,7 +22,9 @@ The recurrent families' state has no mask: a slot's lane is dirty once a
 decode step has run over it (a request's, or the filler of an idle
 slot), and a request admitted into a dirty lane has it zeroed first
 (``Engine.reset_slot``, in place), the fresh cache's state, so its
-tokens are those of a solo run through slot reuse too.
+tokens are those of a solo run through slot reuse too.  Under tensor
+parallelism every rank runs the same scheduler over the same tokens, so
+each resets the same lanes of its own share of the state.
 
 Paged mode (``engine.uses_page_table``): a ``PagedCacheManager`` owns
 per-slot page tables over a shared page pool.  Admission reserves each

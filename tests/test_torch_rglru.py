@@ -27,7 +27,9 @@ the reference's, and the serving stack over the family.
   in-memory plan; the port's manifest lists the reference's pair sites
   (stacked ``[0]`` at 2 layers) and leaf shards; ``quantize_model``
   replaces every pair; the serve CLI in memory and from its own
-  ``prepare``, ``--tp 2`` refused; naive-actorder against tp-aware ids.
+  ``prepare``, at ``--tp 2`` and from a tp=2 ``prepare`` on a
+  ``dp2xtp2`` grid (``tests/test_torch_recurrent_tp.py`` holds tp=2 to
+  JAX); naive-actorder against tp-aware ids.
 * The merged ``LAYER_STACKS`` map: ``super`` shared with the vision
   model at one depth; a prefix at two depths raises."""
 
@@ -41,7 +43,7 @@ import torch
 from repro_torch import interop
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.reorder import PlannedPair
-from repro_torch.models import rglru, rwkv6, vision_llama
+from repro_torch.models import rglru, vision_llama
 from repro_torch.models.registry import build_model, layer_stacks
 from repro_torch.plan import artifact as part
 from repro_torch.plan import compiler
@@ -646,12 +648,12 @@ def test_quantize_model_replaces_every_pair():
                    for pp in found)
 
 
-def test_cli_in_memory_and_from_its_artifact_and_refuses_tp(tmp_path,
-                                                            capsys):
+def test_cli_in_memory_from_its_artifact_and_at_tp2(tmp_path, capsys):
     """``--arch recurrentgemma-2b --smoke --device cpu``: served by the
     continuous scheduler; ``prepare`` then ``--artifact`` gives the same
-    ids; ``--tp 2`` exits 1 naming the ROADMAP line, over an artifact
-    too."""
+    ids, and so does ``--tp 2`` (two gloo ranks); ``--mesh dp1xtp2``
+    gives ``--mesh dp1xtp1``'s lockstep rows, and so does ``prepare --tp
+    2`` then ``--artifact`` on a ``--mesh dp2xtp2`` grid."""
     from repro_torch.launch import serve
 
     base = ["--device", "cpu", "--requests", "3", "--max-new", "4"]
@@ -662,11 +664,18 @@ def test_cli_in_memory_and_from_its_artifact_and_refuses_tp(tmp_path,
                 "--out", out])
     assert serve.main(["--artifact", out] + base) == want
     assert "decode step: eager (cpu)" in capsys.readouterr().out
-    for argv in (["--arch", ARCH, "--smoke", "--tp", "2"],
-                 ["--artifact", out, "--mesh", "dp2xtp2"]):
-        with pytest.raises(SystemExit) as e:
-            serve.main(argv + base)
-        assert rwkv6.TP_ROADMAP in str(e.value.code)
+    assert serve.main(["--arch", ARCH, "--smoke", "--tp", "2"] + base) == want
+    assert "decode step: eager (tp=2 over gloo)" in capsys.readouterr().out
+    lock = ["--device", "cpu", "--temperature", "0", "--max-new", "4"]
+    rows = serve.main(["--arch", ARCH, "--smoke", "--mesh", "dp1xtp1"] + lock)
+    assert serve.main(["--arch", ARCH, "--smoke", "--mesh", "dp1xtp2"]
+                      + lock) == rows
+    tp2 = str(tmp_path / "tp2")
+    serve.main(["prepare", "--arch", ARCH, "--smoke", "--device", "cpu",
+                "--tp", "2", "--out", tp2])
+    assert serve.main(["--artifact", tp2, "--mesh", "dp2xtp2"] + lock) == rows
+    assert "mesh=dp2xtp2 process=3/4 resident_artifact_bytes=" in \
+        capsys.readouterr().out
 
 
 def test_naive_actorder_gives_the_tp_aware_ids():

@@ -22,7 +22,8 @@ reference's, and the serving stack over the family.
 * A JAX-prepared tp=1 artifact served by the port, bit-equal to the
   in-memory plan; the port's manifest lists the reference's pair sites
   and leaf shards; ``quantize_model`` replaces every pair; the serve CLI
-  in memory and from its own ``prepare``, ``--tp 2`` refused;
+  in memory and from its own ``prepare``, at ``--tp 2`` and from a tp=2
+  ``prepare`` (``tests/test_torch_recurrent_tp.py`` holds tp=2 to JAX);
   naive-actorder against tp-aware ids."""
 
 import dataclasses
@@ -548,11 +549,12 @@ def test_quantize_model_replaces_every_pair():
                    for n in lp["cm"].values())
 
 
-def test_cli_in_memory_and_from_its_artifact_and_refuses_tp(tmp_path,
-                                                            capsys):
+def test_cli_in_memory_from_its_artifact_and_at_tp2(tmp_path, capsys):
     """``--arch rwkv6-3b --smoke --device cpu``: served by the continuous
-    scheduler; ``prepare`` then ``--artifact`` gives the same ids;
-    ``--tp 2`` and ``--mesh dp1xtp2`` exit 1 naming the ROADMAP line."""
+    scheduler; ``prepare`` then ``--artifact`` gives the same ids; so do
+    ``--tp 2`` (two gloo ranks), and ``prepare --tp 2`` then
+    ``--artifact`` (each rank reading its own file); ``--mesh dp1xtp2``
+    gives ``--mesh dp1xtp1``'s lockstep rows."""
     from repro_torch.launch import serve
 
     base = ["--device", "cpu", "--requests", "3", "--max-new", "4"]
@@ -564,14 +566,19 @@ def test_cli_in_memory_and_from_its_artifact_and_refuses_tp(tmp_path,
                 "--out", out])
     assert serve.main(["--artifact", out] + base) == want
     assert f"artifact={out}]" in capsys.readouterr().out
-    for flags in (["--tp", "2"], ["--mesh", "dp1xtp2"]):
-        with pytest.raises(SystemExit) as e:
-            serve.main(["--arch", ARCH, "--smoke"] + base + flags)
-        assert rwkv6.TP_ROADMAP in str(e.value.code)
-    with pytest.raises(SystemExit) as e:
-        serve.main(["prepare", "--arch", ARCH, "--smoke", "--device", "cpu",
-                    "--tp", "2", "--out", str(tmp_path / "tp2")])
-    assert rwkv6.TP_ROADMAP in str(e.value.code)
+    assert serve.main(["--arch", ARCH, "--smoke", "--tp", "2"] + base) == want
+    assert "decode step: eager (tp=2 over gloo)" in capsys.readouterr().out
+    tp2 = str(tmp_path / "tp2")
+    serve.main(["prepare", "--arch", ARCH, "--smoke", "--device", "cpu",
+                "--tp", "2", "--out", tp2])
+    assert serve.main(["--artifact", tp2] + base) == want
+    printed = capsys.readouterr().out
+    assert "rank 0: resident_artifact_bytes=" in printed
+    assert "ranks=[1]" in printed
+    lock = ["--arch", ARCH, "--smoke", "--device", "cpu", "--temperature",
+            "0", "--max-new", "4"]
+    assert serve.main(lock + ["--mesh", "dp1xtp2"]) == serve.main(
+        lock + ["--mesh", "dp1xtp1"])
 
 
 def test_naive_actorder_gives_the_tp_aware_ids():
