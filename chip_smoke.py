@@ -93,8 +93,8 @@ Phases, one line each:
  14. serve-tp: full-width qwen3-4b at tp=2 with ``quant-int8:fused``, two
      rank processes (``launch/mesh.py``'s group set-up; on one card: gloo
      via host; started here, their start-up printed as ``rank-pool``,
-     and kept for the rank functions of phases 17, 19, 20, 26, 32 and
-     42, then stopped before phase 40), the
+     and kept for the rank functions of phases 17, 19, 20, 26, 32, 42
+     and 43, then stopped before phase 40), the
      same four requests, the decode step eager (no CUDA graph holds the
      gloo collectives); every decode step must launch K3 36 times and
      K1 72 times on each rank; then a few decode steps traced on rank 0
@@ -367,6 +367,19 @@ Phases, one line each:
      tp=2 held layer by layer to a tp=1 engine of the same cut config
      and seed (``layerwise``), the greedy trace against it reported; the
      eager tp=2 step's ms beside phases 38-39's captured tp=1 step
+ 43. http-tp (run after phase 42, in the same rank pair): K1 at one
+     rank's qwen3-4b up shard (K 2560 N 4864) against its plain version
+     and timed; then qwen3-4b at full width and 4 of 36 layers, tp=2
+     quant-int8:fused from a paged:16 pool, behind the HTTP/SSE front end
+     (``ServingServer`` over the group on rank 0, rank 1 following its
+     boundaries, ``serving/controller.py``): 8 SSE clients at once
+     (max_batch 4), each stream start / 16 tokens / done, the ids equal
+     the same requests through an in-process tp=2 ``Scheduler`` on the
+     same ranks, rank 1's token log, admissions, slot occupancy and
+     results rank 0's; per rank K1 8 and K3 4 a decode step; a ninth
+     client hangs up after 4 tokens, and its slot is taken by a later
+     admission on both ranks; TTFT and ITL p50/p90, tokens/s and the
+     phase's seconds beside the card's name and power limit
 
 then the per-kernel JSON line (after the first six: K2 on the long
 forward, the paged and HTTP serves' K1, K4 and K3 rows, the other
@@ -376,7 +389,8 @@ and O, K3 where phase 26's tuner fused the MLP, K3 and K1 on the
 and K1 and K4 on the MoE paths of phases 30-33, per expert, K1, K4
 and K2 on the audio and vision paths of phases 34-36, K1 and K4 on
 the recurrent paths of phases 38-39, K1 and K3 on their tp=2 paths of
-phase 42, and K2 at head dim 256 on recurrentgemma's flash forward),
+phase 42 and of the HTTP front end at tp=2 of phase 43, and K2 at head
+dim 256 on recurrentgemma's flash forward),
 the total
 seconds
 and each phase's, the
@@ -2792,7 +2806,7 @@ class RankPool:
 
 
 #: the TP phases' two rank processes (``RankPool``), from phase 14 to
-#: phase 42
+#: phase 43
 POOL = RankPool()
 
 
@@ -3881,7 +3895,11 @@ def phase_serve_paged(engine, cfg) -> dict:
     return out
 
 
-def _http_post(port: int, body: dict) -> list:
+def _http_stream(port: int, body: dict, hang_up_after: int | None = None,
+                 first=None) -> list:
+    """One SSE exchange as [(event, payload), ...]; with ``hang_up_after``
+    the client closes the socket once it has read that many tokens.
+    ``first``: an Event set at the first token."""
     import http.client
 
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
@@ -3890,11 +3908,18 @@ def _http_post(port: int, body: dict) -> list:
                      {"Content-Type": "application/json"})
         resp = conn.getresponse()
         out, event = [], None
-        for raw in resp.read().decode("utf-8").split("\n"):
+        for raw in resp:
+            raw = raw.decode("utf-8").rstrip("\n")
             if raw.startswith("event: "):
                 event = raw[len("event: "):]
             elif raw.startswith("data: "):
                 out.append((event, json.loads(raw[len("data: "):])))
+                tokens = sum(1 for k, _ in out if k == "token")
+                if event == "token" and first is not None:
+                    first.set()
+                if hang_up_after is not None and tokens >= hang_up_after:
+                    resp.close()
+                    break
         return out
     finally:
         conn.close()
@@ -3930,7 +3955,7 @@ def phase_http(engine, cfg) -> dict:
     results: dict = {}
 
     def client(req):
-        results[req.rid] = _http_post(srv.port, {
+        results[req.rid] = _http_stream(srv.port, {
             "prompt": [int(t) for t in req.prompt], "max_new_tokens": 16,
             "seed": req.seed})
 
@@ -6625,6 +6650,252 @@ def phase_serve_tp_rec(serve_rec: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 43: the HTTP/SSE front end over the tp=2 ranks
+# ---------------------------------------------------------------------------
+
+#: phase 43's depth, phase 19's: the gloo step via host dominates
+HTTP_TP_LAYERS = TP_ARCH_LAYERS
+#: one rank's qwen3-4b up (and gate) shard at tp=2
+UP_TP = (f"up/gate tp={TP}", UP[1], UP[2] // TP, UP[3])
+
+
+def _check_time_http_tp(gen) -> dict:
+    """K1 at phase 43's up and gate shard (qwen3-4b at tp=2) against its
+    plain version (M 1 and 4, float32 and bfloat16, ``TOL``), then timed
+    at M=4 (CUDA-graph replay, weights beyond L2) against its bytes
+    bound; K3 at the down shard is phase 3's and phase 4's (``DOWN_TP``)."""
+    check = _check_gemm(
+        gen, f"dequant_matmul_ordered (qwen3-4b tp={TP} up shard)",
+        [(m, *UP_TP[1:]) for m in (1, 4)], "ordered",
+        lambda x, ql, dt: ops.dequant_matmul(x, ql, compute_dtype=dt),
+        lambda x, ql, dt: dk.dequant_matmul_ordered_torch(
+            x, ql.qweight, ql.scales, ql.zeros, group_size=ql.group_size,
+            compute_dtype=dt), phase="http-tp")
+    err = max(r["max_abs_err"] for r in check["cases"]
+              if r["m"] == 4 and r["dtype"] == str(torch.float32))
+    r = _time_gemm(gen, "ordered", shapes=[UP_TP])[UP_TP[0]]
+    # one rank's layer: the up and gate shards' two K1 launches
+    r["layer"] = {key: 2 * r[key] for key in ("ms", "plain_ms", "bound_ms")}
+    r["layer"]["bound_by"] = r["bound_by"]
+    line("http-tp", f"K1 f32 M=4 at one rank's up shard (K {UP_TP[1]} N "
+         f"{UP_TP[2]} gs {UP_TP[3]}), CUDA-graph replay: {r['ms']:.4f} ms "
+         f"(bound {r['bound_ms']:.4f} by {r['bound_by']}: "
+         f"{r['bytes'] / 1e6:.2f} MB; plain {r['plain_ms']:.4f}), x2 a layer")
+    torch.cuda.empty_cache()
+    return {"check": check, "max_abs_err": err, "up": r}
+
+
+def _http_tp_rank(ctx, cfg, disconnect: dict, hang_up_after: int) -> dict:
+    """One rank of phase 43: this rank's slices of ``cfg`` under
+    ``TP_SERVE`` from a ``PAGED`` pool of its KV heads.  Rank 0 serves
+    the clients from a ``ServingServer`` over the group (the
+    disconnecting one first, then ``_paged_requests``' eight once it has
+    a token); rank 1 follows its boundaries.  The launch counts are set
+    to 0 just before and read just after; each step's slot occupancy is
+    recorded; then both ranks serve the completed requests (rank 0's
+    rids, in admission order) through an in-process ``Scheduler``."""
+    import threading
+
+    from repro_torch.serving import ServingServer, follow
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    engine = make_engine(cfg.with_quant(collective=TP_SERVE), 0,
+                         device=ctx.device, max_seq=PAGED_MAX_SEQ,
+                         group=ctx.group)
+    engine = dataclasses.replace(engine, policy=engine.policy.with_(kv=PAGED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    kw = {"max_batch": 4, "prompt_budget": 40, "scfg": SEEDED, "seed": 0}
+    occupancy: list = []
+
+    def recorded(sched):
+        step = sched.step
+
+        def run():
+            events = step()
+            occupancy.append(tuple(None if s is None else s.req.rid
+                                   for s in sched._slots))
+            return events
+
+        sched.step = run
+        return sched
+
+    out = {"rank": ctx.rank, "transport": ctx.transport, "init_s": init_s,
+           "decode_mode": engine.decode_mode,
+           "backend": engine.policy.backend,
+           "collective": engine.policy.collective.shorthand()}
+    reset_counts()
+    t0 = time.perf_counter()
+    if ctx.rank == 0:
+        srv = ServingServer(engine, queue_capacity=16, group=ctx.group,
+                            **kw)
+        sched = recorded(srv.loop.scheduler)
+        results: dict = {}
+        first = threading.Event()
+
+        def client(key, body, **how):
+            results[key] = _http_stream(srv.port, body, **how)
+
+        srv.start()
+        try:
+            out["health"] = _http_get(srv.port, "/v1/health")
+            threads = [threading.Thread(target=client, args=(
+                "disconnect", disconnect), kwargs={
+                    "hang_up_after": hang_up_after, "first": first})]
+            threads[0].start()
+            if not first.wait(timeout=120):
+                raise AssertionError("http-tp: no first token in 120 s")
+            threads += [threading.Thread(target=client, args=(
+                req.rid, {"prompt": [int(t) for t in req.prompt],
+                          "max_new_tokens": req.max_new_tokens,
+                          "seed": req.seed}))
+                for req in _paged_requests(cfg)]
+            for t in threads[1:]:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            if any(t.is_alive() for t in threads):
+                raise AssertionError("http-tp: a client did not finish")
+            out["wall_s"] = time.perf_counter() - t0
+            out["stats"] = _http_get(srv.port, "/v1/stats")
+        finally:
+            srv.shutdown(drain=True, timeout=120)
+        if srv.loop.error is not None:
+            raise RuntimeError("http-tp: the engine loop failed") from \
+                srv.loop.error
+        out.update(streams=results, log=srv.loop.controller.log,
+                   boundaries=srv.loop.controller.sent)
+    else:
+        sched = recorded(Scheduler(engine, **kw))
+        res = follow(sched, ctx.group)
+        out.update(log=res["log"], boundaries=res["received"])
+    torch.cuda.synchronize()
+    out["run_s"] = time.perf_counter() - t0
+    out["counts"] = read_counts()
+    out.update(steps=sched.steps, occupancy=occupancy,
+               admissions=list(sched.admissions),
+               finished={rid: (r.output, r.cancelled)
+                         for rid, r in sched.finished.items()})
+    sched.release_cache()
+    solo = Scheduler(engine, **kw)
+    for _, rid in sched.admissions:
+        r = sched.finished[rid]
+        if not r.cancelled:
+            solo.submit(Request(rid=rid, prompt=r.prompt,
+                                max_new_tokens=r.max_new_tokens,
+                                seed=r.seed))
+    t0 = time.perf_counter()
+    out["replay"] = {rid: r.output for rid, r in solo.run().items()}
+    out["replay_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_http_tp(kernels: dict, smi: str) -> dict:
+    """Phase 43 (``http-tp``): qwen3-4b at full width, ``HTTP_TP_LAYERS``
+    layers, tp=2 ``TP_SERVE`` with ``PAGED`` on the pool's two ranks
+    behind the HTTP/SSE front end (``ServingServer(group=...)``, rank 1
+    following rank 0's boundaries): 8 SSE clients on threads at once
+    (max_batch 4, so slots are reused), each stream start / 16 tokens /
+    done, the ids those of the same requests through an in-process tp=2
+    ``Scheduler`` on the same ranks, rank 1's token log rank 0's; per
+    rank K1 2 and K3 1 a layer a decode step; a ninth client hangs up
+    mid-stream, and its slot is taken by the next admission on both
+    ranks.  ``kernels``: ``_check_time_http_tp``'s."""
+    full = QWEN.with_quant(mode="mlp", scheme="tp-aware", backend="auto")
+    cfg = full.with_(num_layers=HTTP_TP_LAYERS)
+    line("http-tp", f"full width, depth cut from {full.num_layers} to "
+         f"{cfg.num_layers} layers (phase 19's: the gloo step via host "
+         f"dominates)")
+    rng = np.random.default_rng(43)
+    disconnect = {"prompt": rng.integers(0, cfg.vocab_size, 8).tolist(),
+                  "max_new_tokens": 40, "seed": 99}
+    hang_up = 4
+    t0 = time.perf_counter()
+    ranks = POOL.run(_http_tp_rank, cfg, disconnect, hang_up, timeout=600)
+    r0, r1 = ranks
+    steps = r0["steps"]
+    k1_per, k3_per = mlp_launches(cfg) - cfg.num_layers, cfg.num_layers
+    for r in ranks:
+        expect_counts(r["counts"], {
+            "dequant_matmul_ordered": k1_per * r["steps"],
+            "dequant_matmul_wire_ordered": k3_per * r["steps"]},
+            f"http-tp rank {r['rank']} ({r['steps']} decode steps)")
+        if r["backend"] != "cuda" or r["collective"] != "quant-int8:128:fused":
+            raise AssertionError(f"http-tp rank {r['rank']} ran "
+                                 f"{r['backend']} / {r['collective']}")
+    for key in ("log", "steps", "occupancy", "admissions", "finished",
+                "boundaries", "replay"):
+        if r1[key] != r0[key]:
+            raise AssertionError(f"http-tp: rank 1's {key} differs from "
+                                 f"rank 0's")
+    if not r0["log"] or r0["health"]["kv"] != PAGED:
+        raise AssertionError(f"http-tp: empty log or health {r0['health']}")
+    streams = dict(r0["streams"])
+    cut = streams.pop("disconnect")
+    ids = {}
+    for rid, events in sorted(streams.items()):
+        kinds = [k for k, _ in events]
+        if kinds != ["start"] + ["token"] * 16 + ["done"]:
+            raise AssertionError(f"http-tp: request {rid}'s stream {kinds}")
+        ids[events[0][1]["rid"]] = [p["token"] for k, p in events
+                                    if k == "token"]
+    if ids != r0["replay"] or len(ids) != 8:
+        raise AssertionError(f"http-tp: ids {ids} differ from the in-process "
+                             f"tp=2 scheduler's {r0['replay']}")
+    # the hung-up request: cancelled on both ranks, and its slot taken by
+    # the next admission
+    rid_cut = cut[0][1]["rid"]
+    out_cut, cancelled = r0["finished"][rid_cut]
+    if not cancelled or len(out_cut) >= disconnect["max_new_tokens"]:
+        raise AssertionError(f"http-tp: the hung-up request {rid_cut} was "
+                             f"not cut short ({len(out_cut)} tokens)")
+    occ = r0["occupancy"]
+    slot = next(row.index(rid_cut) for row in occ if rid_cut in row)
+    last = max(i for i, row in enumerate(occ) if row[slot] == rid_cut)
+    taken = next((row[slot] for row in occ[last + 1:]
+                  if row[slot] is not None), None)
+    later = [rid for _, rid in r0["admissions"]]
+    if taken is None or later.index(taken) <= later.index(rid_cut):
+        raise AssertionError(f"http-tp: slot {slot} of the hung-up request "
+                             f"{rid_cut} was not taken by a later admission")
+    stats = r0["stats"]
+    lat = stats["latency_ms"]
+    seconds = time.perf_counter() - t0
+    out = {"layers": cfg.num_layers, "full_layers": full.num_layers,
+           "transport": r0["transport"], "decode_steps": steps,
+           "counts": [r["counts"] for r in ranks],
+           "boundaries": r0["boundaries"], "stats": stats,
+           "wall_s": r0["wall_s"], "run_s": [r["run_s"] for r in ranks],
+           "replay_s": r0["replay_s"], "init_s": [r["init_s"] for r in ranks],
+           "ms_per_step": [r["run_s"] / steps * 1e3 for r in ranks],
+           "hung_up": {"rid": rid_cut, "tokens": len(out_cut),
+                       "slot": slot, "taken_by": taken},
+           "ids_equal": True, "seconds": seconds, "nvidia_smi": smi,
+           "kernels": kernels}
+    line("http-tp", f"{describe(cfg)} behind ServingServer at tp={TP} "
+         f"({r0['transport']}; {r0['collective']}, kv "
+         f"{r0['health']['kv']}): 8 concurrent SSE clients, every stream "
+         f"start/token x16/done; ids equal the same requests through an "
+         f"in-process tp={TP} Scheduler on the same ranks "
+         f"({r0['replay_s']:.1f}s), rank 1's token log rank 0's; request "
+         f"{rid_cut} hung up after {len(out_cut)} tokens and its slot "
+         f"{slot} went to request {taken} on both ranks; {steps} decode "
+         f"steps, boundaries {r0['boundaries']}; per rank "
+         f"dequant_matmul_ordered {r0['counts']['dequant_matmul_ordered']} "
+         f"= {k1_per} x {steps} and dequant_matmul_wire_ordered "
+         f"{r0['counts']['dequant_matmul_wire_ordered']} = {k3_per} x "
+         f"{steps} (decode step: {r0['decode_mode']})")
+    line("http-tp", f"[{r0['transport']}: prices a function, not a TP "
+         f"speed; {smi}] TTFT p50 {lat['ttft']['p50']} / p90 "
+         f"{lat['ttft']['p90']} ms, ITL p50 {lat['itl']['p50']} / p90 "
+         f"{lat['itl']['p90']} ms, tokens/s {stats['tokens']['per_s']}, "
+         f"{out['ms_per_step'][0]:.1f} ms a step (rank 0), clients' wall "
+         f"{r0['wall_s']:.2f}s; the phase {seconds:.1f}s")
+    return out
+
+
 #: the training phase: qwen3-4b's dense model at full width through the
 #: trainer's CLI, in a child process
 TRAIN_ARCH = "qwen3-4b"
@@ -7021,6 +7292,7 @@ def main() -> int:
     rec_kernels = _check_time_rec(gen)
     serve_rec = {a: phase_serve_recurrent(a) for a in REC_ARCHS}
     serve_tp_rec = phase_serve_tp_rec(serve_rec)
+    http_tp = phase_http_tp(_check_time_http_tp(gen), smi)
     POOL.close()                        # the trainer takes the whole card
     train = phase_train()
     analysis = phase_analysis({
@@ -7313,6 +7585,24 @@ def main() -> int:
                    counts["dequant_matmul_wire_ordered"],
                    rk["errs_tp"][a]["K3"], rk[a]["tp2"]["wire"]["int8"]),
         ]
+    # the HTTP front end at tp=2 (phase 43), one rank: K1 on its up and
+    # gate shards per layer, K3 on its down shard (int8 wire), at M=4
+    ht = http_tp
+    kernels += [
+        _entry(f"dequant_matmul_ordered (HTTP serve at tp=2, "
+               f"{ht['layers']} layers; one rank's up and gate shards per "
+               "layer, M=4)", src + "dequant_matmul_ordered.cu",
+               tpu + "dequant_matmul.py:104",
+               ht["counts"][0]["dequant_matmul_ordered"],
+               ht["kernels"]["max_abs_err"], ht["kernels"]["up"]["layer"]),
+        _entry(f"dequant_matmul_wire_ordered (HTTP serve at tp=2, "
+               f"{ht['layers']} layers; down shard, int8 wire, M=4)",
+               src + "dequant_matmul_wire_ordered.cu",
+               tpu + "dequant_matmul.py:229",
+               ht["counts"][0]["dequant_matmul_wire_ordered"],
+               checks["dequant_matmul_wire_ordered"]["main_max_abs_err"],
+               timing["dequant_matmul_wire_ordered"]["int8"]),
+    ]
     # K2 at head dim 256 on recurrentgemma's flash forward (phase 39),
     # timed at its S 2048 shape in phase 4
     fr, rg = timing["flash_attention_rec"], serve_rec["recurrentgemma-2b"]
@@ -7347,6 +7637,7 @@ def main() -> int:
                    "fold_whisper": fold_whisper,
                    "kernels_rec": rec_kernels, "serve_recurrent": serve_rec,
                    "serve_tp_recurrent": serve_tp_rec,
+                   "http_tp": http_tp,
                    "rank_pool_startup_s": pool_s,
                    "train": train, "analysis": analysis,
                    "kernels": kernels,

@@ -28,6 +28,8 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import signal
+import sys
 import tempfile
 import time
 from typing import Any, Callable, Optional
@@ -129,30 +131,52 @@ def _rank_main(process: int, fn: Callable, tp: int, dp: int, init_file: str,
     finally:
         dist.destroy_process_group()
     torch.save(result, os.path.join(out_dir, f"rank{process}.pt"))
+    # The result is on disk: leave without the interpreter's teardown.
+    # Under load, a C++ static destructor run there aborts the process
+    # now and then ("terminate called without an active exception",
+    # SIGABRT, no Python frame left), which failed a run whose work was
+    # done.  A rank that raised still exits through the spawn wrapper,
+    # which reports its traceback.
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 
 
 def run(fn: Callable, tp: int, *args, device_type: str = "cuda",
-        timeout: float = 600.0, dp: int = 1) -> list:
+        timeout: Optional[float] = 600.0, dp: int = 1,
+        interrupt_to: Optional[int] = None) -> list:
     """Run ``fn(ctx, *args)`` in ``dp * tp`` spawned processes and return
     each one's result, in process order (row-major: data rank, then
     model rank).  ``fn`` must be a module-level function and its
     arguments and result picklable.  A process that raises makes this
     raise (the others are stopped); so does a run that outlasts
-    ``timeout`` seconds."""
+    ``timeout`` seconds (``None``: no deadline, as a server runs).
+
+    ``interrupt_to``: while the processes run, a SIGINT to this one is
+    passed on to that process, which decides what an interrupt means
+    (the HTTP front end drains), instead of stopping the run."""
     n = dp * tp
     with tempfile.TemporaryDirectory(prefix="tp-ranks-") as tmp:
         init_file = os.path.join(tmp, "group")
         procs = mp.start_processes(
             _rank_main, args=(fn, tp, dp, init_file, device_type, tmp, args),
             nprocs=n, join=False, start_method="spawn")
-        deadline = time.monotonic() + timeout
+        deadline = None if timeout is None else time.monotonic() + timeout
+        previous = None
+        if interrupt_to is not None:
+            target = procs.processes[interrupt_to]
+            previous = signal.signal(
+                signal.SIGINT, lambda *_: target.is_alive()
+                and os.kill(target.pid, signal.SIGINT))
         try:
-            while not procs.join(timeout=max(0.0, deadline
-                                             - time.monotonic())):
-                if time.monotonic() >= deadline:
+            while not procs.join(timeout=None if deadline is None else
+                                 max(0.0, deadline - time.monotonic())):
+                if deadline is not None and time.monotonic() >= deadline:
                     raise TimeoutError(f"{n} ranks did not finish within "
                                        f"{timeout:.0f} s")
         finally:
+            if previous is not None:
+                signal.signal(signal.SIGINT, previous)
             for p in procs.processes:
                 if p.is_alive():
                     p.kill()

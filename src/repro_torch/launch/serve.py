@@ -69,7 +69,13 @@ reference's loop refuses them.
 (the cache layout is runtime-only).  ``--http [HOST]:PORT`` serves the
 same engine over HTTP/SSE (``serving/``: ``POST /v1/generate``,
 ``GET /v1/health``, ``GET /v1/stats``; ``:0`` binds a free port) instead
-of the synthetic requests; it needs one rank (``--tp 1``, no ``--mesh``).
+of the synthetic requests, and drains on Ctrl-C.  At ``--tp N`` (or
+``--mesh dp1xtpN``) rank 0 binds, prints the banner and serves, and its
+loop sends every admission, cancel and cache release to the other
+ranks, which follow it step for step (``serving/controller.py``); the
+run has no deadline, an interrupt reaches rank 0 alone, and a rank that
+raises stops the server with its error.  ``--mesh`` with ``dp > 1``
+refuses ``--http``, as the reference serves no front end over a grid.
 
 ``--mesh dpNxtpM`` spawns ``N * M`` processes in a ``(dp, tp)`` grid
 (``launch/mesh.py``); ``M`` must be the plan's TP degree (an artifact's
@@ -95,6 +101,8 @@ artifact every rank's ``resident_artifact_bytes`` follow.
 from __future__ import annotations
 
 import argparse
+import signal
+import threading
 import time
 
 import numpy as np
@@ -316,19 +324,25 @@ def fold_layers(engine) -> str:
     return f"{n} layers" if n else "none"
 
 
-def _serve_http(args, device):
-    """Serve the engine over HTTP/SSE until interrupted (then drain)."""
+def _http_kwargs(args) -> dict:
+    """The scheduler's arguments under ``--http``, as every rank builds
+    its scheduler."""
+    return {"max_batch": args.max_batch, "prompt_budget": args.prompt_budget,
+            "scfg": SamplingConfig(temperature=args.temperature, top_k=40),
+            "seed": args.seed}
+
+
+def _http_server(args, cfg, engine, device, group=None, tp_text="tp=1"):
+    """Bind the server and print the banner."""
     from repro_torch.serving import ServingServer
 
-    cfg, engine = _engine(args, device)
     policy = engine.policy
     host, _, port = args.http.rpartition(":")
     try:
         srv = ServingServer(
             engine, host=host or "127.0.0.1", port=int(port or 0),
-            max_batch=args.max_batch, prompt_budget=args.prompt_budget,
-            scfg=SamplingConfig(temperature=args.temperature, top_k=40),
-            seed=args.seed, queue_capacity=args.queue_capacity)
+            queue_capacity=args.queue_capacity, group=group,
+            **_http_kwargs(args))
     except ValueError as e:
         # the loop refuses batch-drain families (audio, vision)
         raise SystemExit(f"error: {e}") from None
@@ -337,10 +351,43 @@ def _serve_http(args, device):
     print(f"serving {cfg.arch_id} on http://{srv.address[0]}:{srv.port} "
           f"[scheme={policy.scheme} backend={policy.backend} "
           f"collective={policy.collective.shorthand()} "
-          f"kv={policy.kv.shorthand()} tp=1 max_batch={args.max_batch} "
+          f"kv={policy.kv.shorthand()} {tp_text} max_batch={args.max_batch} "
           f"queue={args.queue_capacity} device={device} {source}]",
           flush=True)
-    srv.serve_forever()
+    return srv
+
+
+def _serve_http(args, device):
+    """Serve the engine over HTTP/SSE until interrupted (then drain)."""
+    cfg, engine = _engine(args, device)
+    _http_server(args, cfg, engine, device).serve_forever()
+
+
+def _serve_http_rank(ctx, args):
+    """One rank of ``--tp N --http``: rank 0 serves until an interrupt,
+    then drains and sends ``stop``; the other ranks follow its
+    boundaries on schedulers built as its own."""
+    from repro_torch.serving import follow
+
+    if ctx.rank:
+        # a terminal's Ctrl-C reaches every process of its group: a
+        # follower waits for rank 0's stop instead
+        signal.signal(signal.SIGINT, signal.SIG_IGN)
+        _, engine = _engine(args, ctx.device, ctx.group)
+        follow(Scheduler(engine, **_http_kwargs(args)), ctx.group)
+        return None
+    interrupted = threading.Event()
+    signal.signal(signal.SIGINT, lambda *_: interrupted.set())
+    cfg, engine = _engine(args, ctx.device, ctx.group)
+    srv = _http_server(args, cfg, engine, ctx.device, ctx.group,
+                       f"tp={ctx.tp} ({ctx.transport})")
+    srv.start()
+    while not (interrupted.wait(0.2) or srv.loop.error is not None):
+        pass
+    srv.shutdown(drain=True)
+    if srv.loop.error is not None:
+        raise RuntimeError("the engine loop failed") from srv.loop.error
+    return None
 
 
 def _serve_rank(ctx, args):
@@ -529,14 +576,23 @@ def main(argv=None):
     elif args.tp is None:
         args.tp = plan_tp or 1
     if args.http is not None:
-        if args.tp > 1 or (args.mesh is not None and args.mesh.size > 1):
+        if args.mesh is not None and args.mesh.dp > 1:
             raise SystemExit(
-                f"error: --http serves one process; at --tp {args.tp}"
-                + (f" --mesh {args.mesh.shorthand()}" if args.mesh else "")
-                + " the ranks are separate processes, and a front end over "
-                "them needs a controller that sends each admission to "
-                "every rank (ROADMAP.md queue 1, item 9)")
-        return _serve_http(args, device)
+                f"error: --http serves one TP group; --mesh "
+                f"{args.mesh.shorthand()} has {args.mesh.dp} data-parallel "
+                "replicas, and a front end over them needs a router "
+                "(ROADMAP.md queue 1, item 9)")
+        if args.tp == 1:
+            return _serve_http(args, device)
+        family = get_config(manifest["arch_id"] if manifest
+                            else args.arch).family
+        if family in ("audio", "vlm"):
+            raise SystemExit(f"error: HTTP serving needs token-granularity "
+                             f"stepping; family '{family}' only supports "
+                             "batch-drain scheduling")
+        mesh.run(_serve_http_rank, args.tp, args, device_type=device.type,
+                 timeout=None, interrupt_to=0)
+        return None
     if args.mesh is not None:
         return _run_mesh(args, device)
     if args.tp > 1:

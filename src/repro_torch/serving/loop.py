@@ -23,6 +23,15 @@ Request lifecycle:  submitted -> queued (wait line) -> running (slot)
 -> {done | cancelled}.  Every terminal state posts exactly one
 ``("done", usage)`` or ``("cancelled", reason)`` event and sets
 ``Stream.finished``.
+
+Under tensor parallelism (a ``controller.Controller``, on rank 0 of the
+group) the loop makes each decision once and sends it to the other
+ranks before it steps (``controller.py``): the admissions, the cancels
+and an idle ``release_cache``, then ``step``; while idle, an ``idle``
+beat.  A handler's cancel there only records the rid, which the loop
+applies at the next boundary, on rank 0 and in the message together: a
+flag flipped between the broadcast and rank 0's ``step()`` would retire
+a slot on rank 0 alone.  ``shutdown`` ends with ``stop``.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ from typing import Optional
 import numpy as np
 
 from repro_torch.runtime.scheduler import Request, Scheduler
+from repro_torch.serving.controller import IDLE, STOP, Boundary, Controller
 from repro_torch.serving.queue import AdmissionQueue
 
 _PERCENTILES = (50, 90, 99)
@@ -100,7 +110,8 @@ class EngineLoop:
 
     def __init__(self, scheduler: Scheduler, *, queue_capacity: int = 64,
                  retry_after: float = 1.0, idle_wait: float = 0.02,
-                 cache_idle: float = 30.0):
+                 cache_idle: float = 30.0,
+                 controller: Optional[Controller] = None):
         if not scheduler.engine.supports_continuous:
             raise ValueError(
                 "HTTP serving needs token-granularity stepping; family "
@@ -120,13 +131,20 @@ class EngineLoop:
         #: held here (NOT in the scheduler queue) so the admission queue
         #: keeps backpressuring into 429s while it waits for pages
         self._pending: Optional[Stream] = None
+        #: rank 0 of a TP group: sends each boundary to the other ranks
+        self.controller = controller
+        #: rids whose cancel the loop applies at the next boundary (TP)
+        self._cancels: set = set()
+        #: what ended a TP loop early (the process must exit non-zero)
+        self.error: Optional[BaseException] = None
         self._rids = itertools.count()
         self._streams: dict[int, Stream] = {}      # not yet finalized
         self._lock = threading.Lock()
         self._wake = threading.Event()
         self._stop = False
-        self._thread = threading.Thread(target=self._run,
-                                        name="engine-loop", daemon=True)
+        self._thread = threading.Thread(
+            target=self._run if controller is None else self._run_group,
+            name="engine-loop", daemon=True)
         # counters + latency reservoirs (read by /v1/stats)
         self.started_at = time.monotonic()
         self.admitted = 0            # entered the engine
@@ -178,6 +196,15 @@ class EngineLoop:
             stream = self._streams.get(rid)
         if stream is None or stream.finished.is_set():
             return False
+        if self.controller is not None:
+            # only the loop touches requests in the engine (module doc)
+            if self.admission.cancel(rid):
+                self._finalize(stream, "cancelled")
+            else:
+                with self._lock:
+                    self._cancels.add(rid)
+            self._wake.set()
+            return True
         stream.request.cancelled = True
         if self.admission.cancel(rid):
             # never reached the engine: finalize here, the loop owns
@@ -213,7 +240,9 @@ class EngineLoop:
             time.sleep(0.01)
         self._stop = True
         self._wake.set()
-        self._thread.join(timeout=5.0)
+        # under TP the loop's last act is the stop boundary, after a step
+        # that may take a while
+        self._thread.join(timeout=5.0 if self.controller is None else 60.0)
 
     # ------------------------------------------------------------------
     # the loop
@@ -223,65 +252,137 @@ class EngineLoop:
         sched = self.scheduler
         return sched.max_batch - sched.live_slots - len(sched.queue)
 
+    def _admit(self, cancelled, msg: Optional[Boundary] = None):
+        """Admit from the wait line while a slot can take a request (and,
+        in paged mode, only while the head's worst-case page reservation
+        fits — it stays parked in _pending, not the scheduler queue, so
+        /v1/stats queue depth remains the real backlog and the bounded
+        wait line 429s under pressure).  ``cancelled(stream)``: whether
+        to finalize a popped stream instead; each admission is recorded
+        in ``msg`` (TP)."""
+        sched = self.scheduler
+        while self._free_capacity() > 0:
+            stream = self._pending or self.admission.pop(timeout=0)
+            self._pending = None
+            if stream is None:
+                break
+            if cancelled(stream):
+                self._finalize(stream, "cancelled")
+                continue
+            if not sched.can_admit(stream.request):
+                self._pending = stream
+                break
+            stream.started = time.monotonic()
+            sched.submit(stream.request)
+            if msg is not None:
+                msg.admissions.append(stream.request)
+            self.admitted += 1
+
+    def _release_when_idle(self) -> bool:
+        """The idle clock: release the cache after ``cache_idle`` seconds
+        without work (nothing parked); True when it was released."""
+        now = time.monotonic()
+        if self._idle_since is None:
+            self._idle_since = now
+        elif (self._pending is None
+                and now - self._idle_since >= self.cache_idle):
+            if self.scheduler.release_cache():
+                self._idle_since = now
+                return True
+        return False
+
     def _run(self):
         sched = self.scheduler
         while not self._stop:
-            # admit from the wait line only when a slot can take it (and,
-            # in paged mode, only when the head's worst-case page
-            # reservation fits — it stays parked in _pending, not the
-            # scheduler queue, so /v1/stats queue depth remains the real
-            # backlog and the bounded wait line 429s under pressure)
-            while self._free_capacity() > 0:
-                stream = self._pending or self.admission.pop(timeout=0)
-                self._pending = None
-                if stream is None:
-                    break
-                if stream.request.cancelled:
-                    self._finalize(stream, "cancelled")
-                    continue
-                if not sched.can_admit(stream.request):
-                    self._pending = stream
-                    break
-                stream.started = time.monotonic()
-                sched.submit(stream.request)
-                self.admitted += 1
-
+            self._admit(lambda stream: stream.request.cancelled)
             if not sched.has_work:
-                now = time.monotonic()
-                if self._idle_since is None:
-                    self._idle_since = now
-                elif (self._pending is None
-                        and now - self._idle_since >= self.cache_idle):
-                    if sched.release_cache():
-                        self._idle_since = now
+                self._release_when_idle()
                 self._wake.wait(self.idle_wait)
                 self._wake.clear()
                 continue
             self._idle_since = None
+            self._emit(sched.step())
 
-            for ev in sched.step():
-                with self._lock:
-                    stream = self._streams.get(ev.rid)
-                if stream is None:        # already finalized (races are
-                    continue              # benign: events are terminal)
-                if ev.cancelled:
-                    self._finalize(stream, "cancelled")
+    def _take_cancel(self, stream: Stream) -> bool:
+        with self._lock:
+            if stream.rid in self._cancels:
+                self._cancels.discard(stream.rid)
+                return True
+        return False
+
+    def _boundary_cancels(self, msg: Boundary):
+        """Apply the cancels handlers recorded since the last boundary
+        (those of requests the loop had popped from the wait line): a
+        request in the engine is cancelled on rank 0 and in ``msg``; one
+        parked for pages is finalized here (no other rank has seen it)."""
+        with self._lock:
+            rids, self._cancels = sorted(self._cancels), set()
+            streams = [self._streams.get(rid) for rid in rids]
+        for rid, stream in zip(rids, streams):
+            if stream is None:
+                continue
+            if stream.started is not None:
+                if self.scheduler.cancel(rid):
+                    msg.cancels.append(rid)
+            elif self._pending is stream:
+                self._pending = None
+                self._finalize(stream, "cancelled")
+
+    def _run_group(self):
+        """The loop on rank 0 of a TP group: every mutation of the
+        scheduler is made here, recorded in a ``Boundary`` and sent to
+        the other ranks before ``step()``; idle, a boundary goes out when
+        it carries something or a beat is due."""
+        sched, ctl = self.scheduler, self.controller
+        try:
+            while not self._stop:
+                msg = Boundary()
+                self._boundary_cancels(msg)
+                self._admit(self._take_cancel, msg)
+                if not sched.has_work:
+                    msg.release_cache = self._release_when_idle()
+                    if (msg.cancels or msg.admissions or msg.release_cache
+                            or ctl.beat_due()):
+                        msg.action = IDLE
+                        ctl.send(msg)
+                    self._wake.wait(self.idle_wait)
+                    self._wake.clear()
                     continue
-                now = time.monotonic()
-                if stream.first_token is None:
-                    stream.first_token = now
-                    self._ttft_ms.append(1e3 * (now - stream.submitted))
-                else:
-                    itl = 1e3 * (now - stream.last_token)
-                    stream.itl_ms.append(itl)
-                    self._itl_ms.append(itl)
-                stream.last_token = now
-                self.tokens_out += 1
-                index = len(stream.request.output) - 1
-                stream.events.put(("token", {"index": index,
-                                             "token": ev.token}))
-                if ev.final:
-                    self._finalize(stream, "length")
+                self._idle_since = None
+                ctl.send(msg)
+                events = sched.step()
+                ctl.record(events)
+                self._emit(events)
+            ctl.send(Boundary(action=STOP))
+        except BaseException as e:     # the server exits non-zero on it
+            self.error = e
+            raise
+
+    def _emit(self, events):
+        """Fan one step's events out to the streams."""
+        for ev in events:
+            with self._lock:
+                stream = self._streams.get(ev.rid)
+            if stream is None:        # already finalized (races are
+                continue              # benign: events are terminal)
+            if ev.cancelled:
+                self._finalize(stream, "cancelled")
+                continue
+            now = time.monotonic()
+            if stream.first_token is None:
+                stream.first_token = now
+                self._ttft_ms.append(1e3 * (now - stream.submitted))
+            else:
+                itl = 1e3 * (now - stream.last_token)
+                stream.itl_ms.append(itl)
+                self._itl_ms.append(itl)
+            stream.last_token = now
+            self.tokens_out += 1
+            index = len(stream.request.output) - 1
+            stream.events.put(("token", {"index": index,
+                                         "token": ev.token}))
+            if ev.final:
+                self._finalize(stream, "length")
 
     def _finalize(self, stream: Stream, reason: str):
         with self._lock:

@@ -33,6 +33,7 @@ import numpy as np
 from repro_torch.runtime.sampling import SamplingConfig
 from repro_torch.runtime.scheduler import Scheduler
 from repro_torch.runtime.serve import Engine
+from repro_torch.serving.controller import Controller
 from repro_torch.serving.loop import EngineLoop, Stream
 from repro_torch.serving.queue import QueueClosed, QueueFull
 
@@ -200,7 +201,12 @@ class _HTTPServer(ThreadingHTTPServer):
 
 class ServingServer:
     """The network front end: one ``EngineLoop`` + a threaded stdlib
-    HTTP server.  ``port=0`` binds an ephemeral port (tests/bench)."""
+    HTTP server.  ``port=0`` binds an ephemeral port (tests/bench).
+
+    ``group``: serve a tensor-parallel engine from rank 0 of that group;
+    the loop sends each step boundary to the other ranks, which run
+    ``controller.follow`` on a ``Scheduler`` built with the same
+    arguments (``beat``: the idle beat's seconds)."""
 
     def __init__(self, engine: Engine, *, host: str = "127.0.0.1",
                  port: int = 0, max_batch: int = 4,
@@ -208,14 +214,16 @@ class ServingServer:
                  scfg: SamplingConfig = SamplingConfig(),
                  seed: int = 0, queue_capacity: int = 64,
                  retry_after: float = 1.0, n_pages: Optional[int] = None,
-                 cache_idle: float = 30.0):
+                 cache_idle: float = 30.0, group=None, beat: float = 30.0):
         self.engine = engine
         self.loop = EngineLoop(
             Scheduler(engine, max_batch=max_batch,
                       prompt_budget=prompt_budget, scfg=scfg, seed=seed,
                       n_pages=n_pages),
             queue_capacity=queue_capacity, retry_after=retry_after,
-            cache_idle=cache_idle)
+            cache_idle=cache_idle,
+            controller=None if group is None else Controller(
+                group, beat=beat))
         self._httpd = _HTTPServer((host, port), _Handler)
         self._httpd.serving = self
         self._thread: Optional[threading.Thread] = None
@@ -248,7 +256,8 @@ class ServingServer:
             self.shutdown()
 
     def shutdown(self, *, drain: bool = True, timeout: float = 30.0):
-        """Drain (default) or abort in-flight requests, then stop."""
+        """Drain (default) or abort in-flight requests, then stop (under
+        TP the loop's last boundary is ``stop``: the followers return)."""
         self.loop.shutdown(drain=drain, timeout=timeout)
         self._httpd.shutdown()
         self._httpd.server_close()

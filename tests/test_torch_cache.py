@@ -565,10 +565,13 @@ def test_cli_paged_ids_equal_dense_at_tp1_and_tp2():
 
 
 def test_cli_http_at_tp2_names_the_item():
+    """``--tp 2 --http`` serves (``tests/test_torch_serving_tp.py``); a
+    grid of tp=2 replicas (``--mesh dp2xtp2``) still refuses ``--http``
+    and names the item."""
     env = dict(os.environ, PYTHONPATH=SRC)
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
-         "--device", "cpu", "--tp", "2", "--http", "127.0.0.1:0"],
+         "--device", "cpu", "--mesh", "dp2xtp2", "--http", "127.0.0.1:0"],
         capture_output=True, text=True, env=env, timeout=120)
     assert proc.returncode == 1 and "item 9" in proc.stderr
 

@@ -55,6 +55,17 @@ def _jax_prepare(tp: int, out: str, **kw) -> str:
         "smoke": True}, **kw).save(out)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module's tests: the smoke models' ops
+    are tiny, so one thread runs them as fast alone, and it does not
+    spin against the other test processes of a parallel run."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def dirs(tmp_path_factory):
     """Artifact directories: the port's tuned tp=2 and plain tp=1 folds,
